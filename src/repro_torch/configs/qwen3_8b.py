@@ -1,0 +1,24 @@
+"""qwen3-8b [dense]: 36L d=4096 32H (GQA kv=8) d_ff=12288 vocab=151936, qk_norm.
+
+[hf:Qwen/Qwen3-8B; hf]
+"""
+from repro_torch.models.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen3-8b", family="dense",
+        n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+        d_ff=12288, vocab=151936,
+        qk_norm=True, activation="silu", gated_mlp=True,
+        rope_theta=1e6, max_seq=32768,
+        param_dtype="bfloat16", compute_dtype="bfloat16",
+    )
+
+
+def smoke_config() -> ModelConfig:
+    return config().scaled(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+        d_ff=128, vocab=256, max_seq=128,
+        param_dtype="float32", compute_dtype="float32",
+    )

@@ -1,0 +1,236 @@
+"""Attention for serving: GQA + RoPE (+ optional qk-norm / qkv-bias).
+
+The counterpart of the JAX package's ``models/attention.py`` for the paths a
+dense decoder serves with: full-sequence prefill, chunked extend,
+contiguous decode and paged decode.  Scores are float32 and masked with
+``NEG_INF = -1e30`` (never ``-inf``, never a fused kernel's own masking):
+masked columns then underflow to exact zeros in the softmax, which keeps
+chunked extend equal to one full prefill and paged decode equal to slot
+decode.
+
+Where the reference updates caches functionally (``.at[].set`` under
+``donate_argnums``), these functions write into the caller's cache
+tensors in place and return them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.decode_attention import ops as da_ops
+
+from . import nn
+from .config import ModelConfig
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+def attention_init(gen, cfg: ModelConfig, *, device="cpu"):
+    d, hd = cfg.d_model, cfg.head_dim
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    if cfg.padded_heads != nh:
+        raise NotImplementedError(
+            "pad_heads_to is tensor-parallel padding; the port runs on one "
+            "device and does not pad heads")
+    dt = cfg.pdtype
+    p = {
+        "q": nn.linear_init(gen, d, nh * hd, dtype=dt, bias=cfg.qkv_bias,
+                            device=device),
+        "k": nn.linear_init(gen, d, nkv * hd, dtype=dt, bias=cfg.qkv_bias,
+                            device=device),
+        "v": nn.linear_init(gen, d, nkv * hd, dtype=dt, bias=cfg.qkv_bias,
+                            device=device),
+        "o": nn.linear_init(gen, nh * hd, d, dtype=dt,
+                            stddev=1.0 / math.sqrt(nh * hd), device=device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = nn.rmsnorm_init(hd, dtype=dt, device=device)
+        p["k_norm"] = nn.rmsnorm_init(hd, dtype=dt, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Projections
+# ---------------------------------------------------------------------------
+
+
+def _project_qkv(p, x, x_kv, cfg: ModelConfig, q_positions, kv_positions,
+                 *, rope: bool):
+    """Return q [B,S,Hq,D], k/v [B,Skv,Hkv,D]."""
+    B, S, _ = x.shape
+    Skv = x_kv.shape[1]
+    cd = cfg.cdtype
+    q = nn.linear_apply(p["q"], x, cd).reshape(B, S, cfg.n_heads,
+                                               cfg.head_dim)
+    k = nn.linear_apply(p["k"], x_kv, cd).reshape(B, Skv, cfg.n_kv_heads,
+                                                  cfg.head_dim)
+    v = nn.linear_apply(p["v"], x_kv, cd).reshape(B, Skv, cfg.n_kv_heads,
+                                                  cfg.head_dim)
+    if cfg.qk_norm:
+        q = nn.rmsnorm_apply(p["q_norm"], q, cfg.norm_eps)
+        k = nn.rmsnorm_apply(p["k_norm"], k, cfg.norm_eps)
+    if rope:
+        q = nn.apply_rope(q, q_positions, cfg.rope_theta)
+        k = nn.apply_rope(k, kv_positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _repeat_kv(k, n_q):
+    """GQA repeat-KV: [B,S,Hkv,D] -> [B,S,Hq,D]."""
+    Hkv = k.shape[2]
+    if Hkv == n_q:
+        return k
+    return torch.repeat_interleave(k, n_q // Hkv, dim=2)
+
+
+# ---------------------------------------------------------------------------
+# Core attention math
+# ---------------------------------------------------------------------------
+
+
+def full_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                   kv_mask: Optional[torch.Tensor] = None):
+    """Materialized-scores attention.
+
+    q: [B,Sq,Hq,D]  k,v: [B,Sk,Hkv,D] with Hq % Hkv == 0.
+    kv_mask: optional [B,Sk] validity mask.
+    """
+    Sq, Hq, D = q.shape[1], q.shape[2], q.shape[3]
+    Sk = k.shape[1]
+    k = _repeat_kv(k, Hq)
+    v = _repeat_kv(v, Hq)
+    scale = 1.0 / math.sqrt(D)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        qpos = q_offset + torch.arange(Sq, device=q.device)
+        kpos = torch.arange(Sk, device=q.device)
+        mask = qpos[:, None] >= kpos[None, :]
+        logits = torch.where(mask[None, None], logits, NEG_INF)
+    if kv_mask is not None:
+        logits = torch.where(kv_mask[:, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def decode_attention(q, k_cache, v_cache, kv_length):
+    """One-step decode: q [B,1,Hq,D] vs caches [B,Smax,Hkv,D].
+
+    ``kv_length``: [B] number of valid cache entries (includes current
+    token).  Float32 scores and values, as the reference's
+    ``preferred_element_type=float32`` einsums."""
+    B, _, Hq, D = q.shape
+    Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, 1, Hkv, Hq // Hkv, D)
+    scale = 1.0 / math.sqrt(D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          k_cache.float()) * scale
+    valid = (torch.arange(Smax, device=q.device)[None, :]
+             < kv_length[:, None])
+    logits = torch.where(valid[:, None, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Serving entry points
+# ---------------------------------------------------------------------------
+
+
+def attention_prefill(p, x, cfg: ModelConfig, *, positions=None):
+    """Prefill: forward + return (output, (k_cache_entries, v_cache_entries))."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, x, cfg, positions, positions,
+                           rope=cfg.positions == "rope")
+    out = full_attention(q, k, v, causal=True)
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return nn.linear_apply(p["o"], out, cfg.cdtype), (k, v)
+
+
+def attention_extend(p, x, cache_k, cache_v, kv_length, cfg: ModelConfig):
+    """Multi-token cache extension (chunked prefill).
+
+    x: [B,T,d] new tokens appended at positions kv_length..kv_length+T-1;
+    cache_k/v: [B,Smax,Hkv,D], written IN PLACE at those positions;
+    kv_length: [B] valid entries *before* this chunk.  Returns
+    (out [B,T,d], cache_k, cache_v, new_len).  Each chunk query attends to
+    the cache prefix plus the chunk's own causal triangle, with the score
+    math of ``full_attention``."""
+    B, T, _ = x.shape
+    Smax = cache_k.shape[1]
+    pos = kv_length[:, None] + torch.arange(T, device=x.device)[None, :]
+    q, k_new, v_new = _project_qkv(p, x, x, cfg, pos, pos,
+                                   rope=cfg.positions == "rope")
+    bidx = torch.arange(B, device=x.device)[:, None]
+    cache_k[bidx, pos] = k_new.to(cache_k.dtype)
+    cache_v[bidx, pos] = v_new.to(cache_v.dtype)
+    Hq = q.shape[2]
+    k = _repeat_kv(cache_k, Hq)
+    v = _repeat_kv(cache_v, Hq)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    # key j is valid for chunk query t iff j <= its absolute position
+    mask = (torch.arange(Smax, device=x.device)[None, None, :]
+            <= pos[:, :, None])  # [B,T,Smax]
+    logits = torch.where(mask[:, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+    out = out.reshape(B, T, cfg.n_heads * cfg.head_dim)
+    return (nn.linear_apply(p["o"], out, cfg.cdtype), cache_k, cache_v,
+            kv_length + T)
+
+
+def attention_decode(p, x, cache_k, cache_v, kv_length, cfg: ModelConfig):
+    """Single-token decode step against contiguous caches.
+
+    x: [B,1,d]; cache_k/v: [B,Smax,Hkv,D], written IN PLACE at
+    ``kv_length``; kv_length: [B] valid entries *before* this token.
+    Returns (out [B,1,d], cache_k, cache_v, new_len)."""
+    B = x.shape[0]
+    pos = kv_length[:, None]
+    q, k_new, v_new = _project_qkv(p, x, x, cfg, pos, pos,
+                                   rope=cfg.positions == "rope")
+    bidx = torch.arange(B, device=x.device)
+    cache_k[bidx, kv_length] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[bidx, kv_length] = v_new[:, 0].to(cache_v.dtype)
+    new_len = kv_length + 1
+    out = decode_attention(q, cache_k, cache_v, new_len)
+    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
+    return nn.linear_apply(p["o"], out, cfg.cdtype), cache_k, cache_v, new_len
+
+
+def attention_decode_paged(p, x, k_store, v_store, block_tables, kv_length,
+                           write_phys, write_off, cfg: ModelConfig):
+    """Single-token decode directly against a block-paged KV store.
+
+    x: [B,1,d]; k_store/v_store: [num_blocks, block_size, Hkv, D] (one
+    layer's stores, shared by every sequence); block_tables: [B,
+    max_blocks] int32; kv_length: [B] int32 valid positions *before* this
+    token; write_phys/write_off: [B] the (physical block, in-block offset)
+    cell this token's K/V is written into, IN PLACE (padded rows point at
+    the null block's cell (0, 0), where collisions are harmless).
+
+    Attention then reads K/V through the block table in
+    ``ops.paged_decode_attention``: the hand-written CUDA kernel whenever
+    the tensors are on the card, its plain version on the CPU.
+    Returns (out [B,1,d], k_store, v_store)."""
+    B = x.shape[0]
+    pos = kv_length[:, None]
+    q, k_new, v_new = _project_qkv(p, x, x, cfg, pos, pos,
+                                   rope=cfg.positions == "rope")
+    k_store[write_phys, write_off] = k_new[:, 0].to(k_store.dtype)
+    v_store[write_phys, write_off] = v_new[:, 0].to(v_store.dtype)
+    out = da_ops.paged_decode_attention(q, k_store, v_store, block_tables,
+                                        kv_length + 1)
+    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
+    return nn.linear_apply(p["o"], out, cfg.cdtype), k_store, v_store

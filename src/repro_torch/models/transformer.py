@@ -1,0 +1,187 @@
+"""Dense decoder-only transformer LM for serving.
+
+The counterpart of the JAX package's ``models/transformer.py`` for dense
+models.  The reference stacks layer params ``[L, ...]`` and scans them with
+``jax.lax.scan``; here ``p["blocks"]`` is a list of per-layer dicts walked by
+a Python loop.  Caches are dicts of stacked tensors:
+
+* contiguous (``prefill`` / ``extend_step`` / ``decode_step``):
+  ``{"k": [L,B,Smax,Hkv,D], "v": [L,B,Smax,Hkv,D], "len": [B] int32}``;
+* paged (``paged_decode_step``): ``{"k": [L,num_blocks,block_size,Hkv,D],
+  "v": ...}``, lengths kept host-side by the engine.
+
+Cache and store tensors are updated in place (the reference's donated
+functional updates) and returned.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from . import attention as attn
+from . import nn
+from .config import ModelConfig
+
+
+# ---------------------------------------------------------------------------
+# Block init / apply
+# ---------------------------------------------------------------------------
+
+
+def block_init(gen, cfg: ModelConfig, *, device="cpu"):
+    dt = cfg.pdtype
+    return {
+        "ln_attn": nn.rmsnorm_init(cfg.d_model, dtype=dt, device=device),
+        "attn": attn.attention_init(gen, cfg, device=device),
+        "ln_mlp": nn.rmsnorm_init(cfg.d_model, dtype=dt, device=device),
+        "mlp": nn.mlp_init(gen, cfg.d_model, cfg.dense_ff or cfg.d_ff,
+                           gated=cfg.gated_mlp, dtype=dt, device=device),
+    }
+
+
+def _ffn(p, x, cfg: ModelConfig):
+    h = nn.rmsnorm_apply(p["ln_mlp"], x, cfg.norm_eps)
+    h = nn.mlp_apply(p["mlp"], h, activation=cfg.activation,
+                     compute_dtype=cfg.cdtype)
+    return x + h
+
+
+def block_prefill(p, x, cfg: ModelConfig, *, max_len: int, positions=None):
+    """Prefill forward; returns (y, (k, v) padded to max_len)."""
+    S = x.shape[1]
+    h = nn.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
+    h, (k, v) = attn.attention_prefill(p["attn"], h, cfg, positions=positions)
+    pad = (0, 0, 0, 0, 0, max_len - S)
+    return _ffn(p, x + h, cfg), (torch.nn.functional.pad(k, pad),
+                                 torch.nn.functional.pad(v, pad))
+
+
+def block_decode(p, x, cache_k, cache_v, lens, cfg: ModelConfig):
+    """Single-token decode against one layer's contiguous caches."""
+    h = nn.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
+    h, _, _, _ = attn.attention_decode(p["attn"], h, cache_k, cache_v, lens,
+                                       cfg)
+    return _ffn(p, x + h, cfg)
+
+
+def block_decode_paged(p, x, k_store, v_store, block_tables, lens,
+                       write_phys, write_off, cfg: ModelConfig):
+    """Single-token decode against one layer's paged K/V stores."""
+    h = nn.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
+    h, _, _ = attn.attention_decode_paged(
+        p["attn"], h, k_store, v_store, block_tables, lens, write_phys,
+        write_off, cfg)
+    return _ffn(p, x + h, cfg)
+
+
+def block_extend(p, x, cache_k, cache_v, lens, cfg: ModelConfig):
+    """Multi-token cache extension: x [B,T,d] appended at cache positions
+    lens..lens+T-1."""
+    h = nn.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
+    h, _, _, _ = attn.attention_extend(p["attn"], h, cache_k, cache_v, lens,
+                                       cfg)
+    return _ffn(p, x + h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# LM init
+# ---------------------------------------------------------------------------
+
+
+def lm_init(gen, cfg: ModelConfig, *, device="cpu"):
+    """Dense LM params drawn from ``gen`` on ``device`` (lecun-normal
+    linears, ``o`` with std 1/sqrt(nh*hd), embedding std 1, rmsnorm ones)."""
+    dt = cfg.pdtype
+    p: dict[str, Any] = {
+        "embed": nn.embedding_init(gen, cfg.vocab, cfg.d_model, dtype=dt,
+                                   device=device),
+        "ln_f": nn.rmsnorm_init(cfg.d_model, dtype=dt, device=device),
+        "blocks": [block_init(gen, cfg, device=device)
+                   for _ in range(cfg.n_layers)],
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = nn.linear_init(gen, cfg.d_model, cfg.vocab, dtype=dt,
+                                      device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def _logits(p, x, cfg: ModelConfig):
+    x = nn.rmsnorm_apply(p["ln_f"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = nn.embedding_attend(p["embed"], x)
+    else:
+        logits = nn.linear_apply(p["unembed"], x, torch.float32)
+    if cfg.final_logit_softcap > 0:
+        c = cfg.final_logit_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits
+
+
+def prefill(p, batch, cfg: ModelConfig, *, max_len: int,
+            last_only: bool = True):
+    """Prefill caches; returns (cache, logits).
+
+    ``last_only=True`` -> logits [B, vocab] at the final position; ``False``
+    -> logits [B, S, vocab]."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = nn.embedding_apply(p["embed"], tokens, cfg.cdtype)
+    positions = torch.arange(S, device=x.device)[None, :]
+    ks, vs = [], []
+    for layer in p["blocks"]:
+        x, (k, v) = block_prefill(layer, x, cfg, max_len=max_len,
+                                  positions=positions)
+        ks.append(k)
+        vs.append(v)
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+             "len": torch.full((B,), S, dtype=torch.int32, device=x.device)}
+    if last_only:
+        return cache, _logits(p, x[:, -1:, :], cfg)[:, 0]
+    return cache, _logits(p, x, cfg)
+
+
+def extend_step(p, cache, tokens, cfg: ModelConfig):
+    """Chunked cache extension; tokens [B, T] -> (cache, logits [B,T,vocab]).
+
+    The chunk is written into the cache at positions len..len+T-1 (in
+    place) and logits come back for every chunk position."""
+    T = tokens.shape[1]
+    x = nn.embedding_apply(p["embed"], tokens, cfg.cdtype)
+    lens = cache["len"]
+    for i, layer in enumerate(p["blocks"]):
+        x = block_extend(layer, x, cache["k"][i], cache["v"][i], lens, cfg)
+    cache["len"] = lens + T
+    return cache, _logits(p, x, cfg)
+
+
+def decode_step(p, cache, tokens, cfg: ModelConfig):
+    """One decode step; tokens [B] -> (cache, logits [B, vocab])."""
+    x = nn.embedding_apply(p["embed"], tokens[:, None], cfg.cdtype)
+    lens = cache["len"]
+    for i, layer in enumerate(p["blocks"]):
+        x = block_decode(layer, x, cache["k"][i], cache["v"][i], lens, cfg)
+    cache["len"] = lens + 1
+    return cache, _logits(p, x, cfg)[:, 0]
+
+
+def paged_decode_step(p, store, block_tables, lens, tokens, write_phys,
+                      write_off, cfg: ModelConfig):
+    """One decode step directly on the block-paged physical store.
+
+    ``store`` holds k/v ``[L, num_blocks, block_size, Hkv, D]``;
+    ``block_tables`` [B, max_blocks] and ``lens`` [B] (valid length before
+    this token) are int32; ``write_phys``/``write_off`` [B] name the cell
+    each new token's K/V is written into.  Attention reads K/V through the
+    tables (the CUDA kernel on the card).  Returns (store, logits [B, V])."""
+    x = nn.embedding_apply(p["embed"], tokens[:, None], cfg.cdtype)
+    for i, layer in enumerate(p["blocks"]):
+        x = block_decode_paged(layer, x, store["k"][i], store["v"][i],
+                               block_tables, lens, write_phys, write_off,
+                               cfg)
+    return store, _logits(p, x, cfg)[:, 0]

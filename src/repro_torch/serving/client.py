@@ -1,0 +1,172 @@
+"""LLM servicer + client helpers: the glue between the middleware service
+abstraction and the continuous-batching engine (Figs. 1-2: AI workers).
+
+The counterpart of the JAX package's ``serving/client.py`` for the unified
+``phase="serve"`` replica on the block-paged engine.  Speculative decoding
+(``draft_group``), disaggregated phases and QoS scheduling are not ported
+yet and raise (ROADMAP Queue 1 item 8).
+"""
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+from repro_torch.core.service import ModelGroup
+from repro_torch.models.config import ModelConfig
+from .engine import InferenceEngine, make_engine_from_scratch
+
+_NOT_PORTED = "not ported to PyTorch yet: ROADMAP Queue 1 item 8"
+
+
+def _resolve_paged(engine_kw: dict) -> dict:
+    """Paged-by-default policy: ``paged=None`` (or absent) means the
+    block-paged pool, as for every dense replica of the reference."""
+    kw = dict(engine_kw)
+    if kw.get("paged") is None:
+        kw["paged"] = True
+    return kw
+
+
+class LLMServicer:
+    """Servicer protocol (submit/step) around an InferenceEngine.
+
+    Request payload: {"prompt": [ids...], "max_new_tokens": int,
+                      "temperature": float}.
+    Result: {"tokens": [...], "n_prompt": int, "ttft_s": float,
+             "itl_s": float, "latency_s": float}.
+
+    ``device`` (default: the CUDA card) is where the engine and, for
+    ``params=None``, the freshly drawn weights live.  The ``spec_*`` and
+    ``qos_preempt`` knobs keep the reference's signature; they only act
+    with a draft or QoS, which raise here."""
+
+    accepts_envelope = True  # submit() takes the envelope keyword
+
+    def __init__(self, cfg: ModelConfig, params=None, *, seed: int = 0,
+                 draft_group=None, spec_k: int = 4,
+                 spec_min_acceptance: float = 0.0,
+                 spec_probe_proposals: int = 64, phase: str = "serve",
+                 qos: bool = False, qos_class_weights=None,
+                 qos_preempt: bool = True, device=None, **engine_kw):
+        if phase not in ("serve", "prefill", "decode"):
+            raise ValueError(
+                f"phase must be 'serve', 'prefill' or 'decode', "
+                f"not {phase!r}")
+        if phase != "serve":
+            raise NotImplementedError(
+                f"disaggregated phase={phase!r} is {_NOT_PORTED}")
+        if draft_group is not None:
+            raise NotImplementedError(
+                f"speculative decoding (draft_group) is {_NOT_PORTED}")
+        if qos or qos_class_weights is not None:
+            raise NotImplementedError(f"QoS scheduling is {_NOT_PORTED}")
+        self.phase = phase
+        engine_kw = _resolve_paged(engine_kw)
+        if params is None:
+            self.engine = make_engine_from_scratch(cfg, seed=seed,
+                                                   device=device, **engine_kw)
+        else:
+            self.engine = InferenceEngine(cfg, params, device=device,
+                                          **engine_kw)
+
+    def submit(self, payload, *, envelope=None, **meta) -> int:
+        tenant = envelope.tenant if envelope is not None else None
+        qos_class = envelope.priority if envelope is not None else "normal"
+        if envelope is not None and envelope.handoff is not None:
+            raise NotImplementedError(f"KV handoff import is {_NOT_PORTED}")
+        return self.engine.submit(
+            payload["prompt"],
+            max_new_tokens=payload.get("max_new_tokens", 16),
+            temperature=payload.get("temperature", 0.0),
+            eos_id=payload.get("eos_id"),
+            tenant=tenant, qos_class=qos_class,
+        )
+
+    def _result(self, req) -> dict:
+        itl = None
+        if (req.first_token_at is not None and req.finished_at is not None
+                and len(req.output) > 1):
+            itl = ((req.finished_at - req.first_token_at)
+                   / (len(req.output) - 1))
+        return {
+            "tokens": req.output,
+            "n_prompt": req.n_prompt,
+            "ttft_s": (req.first_token_at - req.submitted_at
+                       if req.first_token_at else None),
+            "itl_s": itl,
+            "latency_s": req.finished_at - req.submitted_at,
+        }
+
+    def step(self):
+        out = []
+        if not self.engine.has_work():
+            time.sleep(1e-4)
+            return out
+        self.engine.step()
+        for req in self.engine.collect_finished():
+            out.append((req.uid, self._result(req)))
+        return out
+
+    def residency_summary(self, max_len: int = 128):
+        """Resident prefix sequences for router gossip."""
+        return self.engine.residency_summary(max_len=max_len)
+
+    def set_residency_listener(self, cb):
+        """Gossip push: fires on KV eviction."""
+        self.engine.on_residency_drop = cb
+
+    def warmup(self):
+        """Prime the replica before it becomes routable: run one tiny
+        request end to end."""
+        self.engine.submit([1, 2, 3, 4], max_new_tokens=1)
+        self.engine.run(max_steps=64)
+
+    @property
+    def stats(self):
+        return self.engine.stats
+
+    def spec_stats(self):
+        return None  # no draft: speculative decoding is not ported yet
+
+    def block_telemetry(self):
+        """Live paged-pool gauges the replica set aggregates per group."""
+        return self.engine.block_telemetry()
+
+    def qos_stats(self):
+        return None  # QoS scheduling is not ported yet
+
+    def handoff_stats(self):
+        return None  # unified replicas hand nothing off
+
+
+def llm_service_factory(cfg: ModelConfig, params=None, **engine_kw):
+    """Factory suitable for ServiceDescription(factory=...).  Servicer and
+    engine kwargs (``device``, ``seed``, pool sizes, ...) pass through."""
+
+    def make():
+        return LLMServicer(cfg, params, **engine_kw)
+
+    return make
+
+
+def llm_model_group(name: str, cfg: ModelConfig, params=None, *,
+                    weight: float = 1.0, replicas: Optional[int] = None,
+                    slo_p95_ms: Optional[float] = None,
+                    requirements=None, role: str = "serve",
+                    paired_with: Optional[str] = None,
+                    min_replicas: Optional[int] = None,
+                    max_replicas: Optional[int] = None,
+                    borrow_limit: Optional[int] = None, **engine_kw):
+    """One model config of a multi-model service: a ``ModelGroup`` whose
+    factory builds an ``LLMServicer`` for ``cfg``.  Disaggregated roles
+    (``"prefill"``/``"decode"``) are not ported yet."""
+    if role in ("prefill", "decode"):
+        raise NotImplementedError(
+            f"disaggregated role={role!r} is {_NOT_PORTED}")
+    return ModelGroup(name=name,
+                      factory=llm_service_factory(cfg, params, **engine_kw),
+                      weight=weight, replicas=replicas,
+                      slo_p95_ms=slo_p95_ms, requirements=requirements,
+                      role=role, paired_with=paired_with,
+                      min_replicas=min_replicas, max_replicas=max_replicas,
+                      borrow_limit=borrow_limit)

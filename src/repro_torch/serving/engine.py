@@ -1,0 +1,590 @@
+"""Continuous-batching inference engine on a block-paged KV cache.
+
+The counterpart of the JAX package's ``InferenceEngine(paged=True)`` with
+``paged_decode_mode="direct"``.  Each ``step()``:
+
+  1. admits queued requests while the pool's free + reclaimable blocks can
+     cover their whole generation (admission by block reservation, so a
+     running sequence can always grow), resuming from resident prefix KV
+     when the radix index finds one (the resident blocks are forked, and
+     the first divergent write copies the boundary block);
+  2. feeds one prompt chunk per prefilling sequence through
+     ``api.extend`` under the ``max_num_batched_tokens`` budget, charged
+     at the padded bucket that actually runs;
+  3. runs one batched decode over every sequence past prefill, directly on
+     the physical store: the token's K/V is written into its tail block and
+     attention reads K/V through the block table (the hand-written CUDA
+     kernel on the card).
+
+Greedy output is token-for-token the reference engine's.  The stores are
+updated in place where the reference donates them to jitted functions,
+and there is one host sync per prefill chunk and per decode step.
+
+Not ported yet (ROADMAP Queue 1 item 8): the slot pool (``paged=False``),
+``paged_decode_mode="gather"``, speculative decoding, sequence
+export/import and preemption.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from collections import OrderedDict
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.prefix import RadixIndex
+from repro_torch.device import resolve_device
+from repro_torch.models import ModelApi, get_model
+from repro_torch.models.config import ModelConfig
+from .kvcache import PagedCachePool, gather_block_view, scatter_block_writes
+from .sampling import sample
+
+_NOT_PORTED = "not ported to PyTorch yet: ROADMAP Queue 1 item 8"
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: list
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    eos_id: Optional[int] = None
+    tenant: Optional[str] = None
+    qos_class: str = "normal"
+    # filled by the engine
+    output: list = dataclasses.field(default_factory=list)
+    submitted_at: float = 0.0
+    first_token_at: Optional[float] = None
+    finished_at: Optional[float] = None
+    cached_prefix: int = 0  # prompt tokens whose prefill was skipped
+    truncated: bool = False  # prompt exceeded max_len: the cache does not
+    #                          cover the full prompt
+    table: list = dataclasses.field(default_factory=list)  # physical blocks
+    pos: int = 0  # cache positions holding valid KV
+    pending_tokens: list = dataclasses.field(default_factory=list)  # unfed
+    reserve_left: int = 0  # admission-reserved blocks not yet allocated
+    last_token: Optional[int] = None  # next decode feed
+
+    @property
+    def done(self) -> bool:
+        return self.finished_at is not None
+
+    @property
+    def n_prompt(self) -> int:
+        return len(self.prompt)
+
+
+def _bucket(n: int, buckets) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+@dataclasses.dataclass
+class _Residency:
+    """A retired sequence whose blocks stay allocated for prefix resume."""
+
+    blocks: tuple
+    length: int  # tokens of the sequence (KV covers length - 1)
+
+
+@dataclasses.dataclass
+class EngineStats:
+    steps: int = 0
+    decode_tokens: int = 0
+    prefill_tokens: int = 0
+    decode_steps: int = 0  # batched decode forwards (one kernel launch per
+    #                        layer each on the card)
+    active_slot_steps: int = 0
+    slot_steps: int = 0
+    prefix_reuse_hits: int = 0  # admissions that resumed resident KV
+    prefix_partial_hits: int = 0  # resumes that rewound PAST a divergence
+    prefix_cached_tokens: int = 0  # prompt tokens whose prefill was skipped
+    cow_copies: int = 0  # shared blocks duplicated on first divergent write
+    peak_running: int = 0  # high-water concurrent admitted sequences
+    shared_block_peak: int = 0  # max physical blocks saved by sharing
+    evicted_residencies: int = 0  # resident sequences dropped for space
+    preemptions: int = 0  # always 0 here: preemption is not ported yet
+    preempt_resumes: int = 0
+    free_blocks: int = 0  # live gauges, refreshed every step
+    reserved_blocks: int = 0
+    started: float = dataclasses.field(default_factory=time.perf_counter)
+
+    @property
+    def utilization(self) -> float:
+        return self.active_slot_steps / max(1, self.slot_steps)
+
+    @property
+    def tokens_per_s(self) -> float:
+        dt = time.perf_counter() - self.started
+        return (self.decode_tokens + self.prefill_tokens) / max(1e-9, dt)
+
+
+class InferenceEngine:
+    """Single-model continuous-batching engine over a block-paged KV pool.
+
+    ``device`` defaults to the CUDA card (``repro_torch.device``); the
+    params must already live there."""
+
+    def __init__(self, cfg: ModelConfig, params, *, max_num_seqs: int = 8,
+                 max_num_batched_tokens: int = 2048, max_len: int = 512,
+                 prefill_buckets=(32, 64, 128, 256, 512), seed: int = 0,
+                 enable_prefix_reuse: bool = True, paged: bool = True,
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 max_running: Optional[int] = None,
+                 paged_decode_mode: str = "direct", device=None):
+        if not paged:
+            raise NotImplementedError(f"the slot-pool engine is {_NOT_PORTED}")
+        if paged_decode_mode not in ("direct", "gather"):
+            raise ValueError(
+                f"paged_decode_mode must be 'direct' or 'gather', "
+                f"not {paged_decode_mode!r}")
+        if paged_decode_mode != "direct":
+            raise NotImplementedError(
+                f"paged_decode_mode='gather' is {_NOT_PORTED}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.api: ModelApi = get_model(cfg)
+        self.params = params
+        self.max_num_seqs = max_num_seqs
+        self.max_num_batched_tokens = max_num_batched_tokens
+        self.max_len = max_len
+        self.buckets = tuple(b for b in prefill_buckets if b <= max_len) or (max_len,)
+        self.queue: list[Request] = []
+        self.running: dict[int, Request] = {}  # uid -> request
+        # radix index over token sequences whose KV is still resident
+        # (value = residency id); admission finds the deepest resident
+        # common prefix in one O(len(prompt)) descent
+        self._prefix_index = RadixIndex()
+        # residency gossip PUSH channel: called (no args) whenever resident
+        # KV is dropped, so the replica set can refresh the router's view
+        self.on_residency_drop: Optional[Callable[[], None]] = None
+        self.stats = EngineStats()
+        self._uid = itertools.count()
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        self.paged = True
+        self.paged_decode_mode = paged_decode_mode
+        self._prefix_reuse = enable_prefix_reuse
+
+        self.block_size = block_size
+        # memory parity by default: same KV cells as a slot pool of
+        # max_num_seqs x max_len (+1 for the reserved null block)
+        if num_blocks is None:
+            num_blocks = max_num_seqs * (-(-max_len // block_size)) + 1
+        self.num_blocks = num_blocks
+        self.pool = PagedCachePool(cfg, num_blocks, block_size, max_len,
+                                   device=self.device)
+        self.prefill_chunk = min(prefill_chunk or max(self.buckets),
+                                 max_num_batched_tokens)
+        self._chunk_buckets = tuple(
+            b for b in self.buckets if b <= self.prefill_chunk) \
+            or (self.prefill_chunk,)
+        # concurrency is block-bounded; max_running only caps the decode
+        # batch
+        self.max_running = max_running or self.pool.alloc.capacity
+        self._prefill_order: list[Request] = []  # FIFO chunk scheduling
+        self._residency: "OrderedDict[int, _Residency]" = OrderedDict()
+        self._res_holds: dict[int, int] = {}  # block -> residency refs
+        self._res_counter = itertools.count()
+        self._reserved = 0  # admission-reserved, not-yet-allocated
+        self.stats.free_blocks = self.pool.n_free
+
+    # ------------------------------------------------------------------
+    # Model calls (in place on the physical store)
+    # ------------------------------------------------------------------
+    def _paged_extend(self, params, store, bt, lens, tokens, wphys, woff):
+        view = gather_block_view(store, bt, lens)
+        view, logits = self.api.extend(params, view, tokens, self.cfg)
+        T = tokens.shape[1]
+        wpos = lens[:, None] + torch.arange(T, device=lens.device)[None, :]
+        store = scatter_block_writes(store, view, wphys, woff, wpos)
+        return store, logits
+
+    def _paged_decode(self, params, store, bt, lens, tokens, wphys, woff):
+        return self.api.decode_paged(params, store, bt, lens, tokens, wphys,
+                                     woff, self.cfg)
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    # ------------------------------------------------------------------
+    # Public API
+    # ------------------------------------------------------------------
+    def submit(self, prompt, *, max_new_tokens=16, temperature=0.0,
+               eos_id=None, tenant=None, qos_class="normal") -> int:
+        req = Request(uid=next(self._uid), prompt=list(prompt),
+                      max_new_tokens=max_new_tokens, temperature=temperature,
+                      eos_id=eos_id, submitted_at=time.perf_counter(),
+                      tenant=tenant, qos_class=qos_class or "normal")
+        self.queue.append(req)
+        return req.uid
+
+    def has_work(self) -> bool:
+        return bool(self.queue or self.running)
+
+    def step(self) -> list:
+        """One engine iteration. Returns [(uid, token), ...] emitted."""
+        self._admit_paged()
+        self.stats.peak_running = max(self.stats.peak_running,
+                                      len(self.running))
+        self._prefill_step_paged()
+        events = self._decode_step_paged()
+        self.stats.steps += 1
+        self.stats.active_slot_steps += len(self.running)
+        self.stats.slot_steps += max(self.max_num_seqs, len(self.running))
+        self.stats.shared_block_peak = max(self.stats.shared_block_peak,
+                                           self.pool.block_savings())
+        self.stats.free_blocks = self.pool.n_free
+        self.stats.reserved_blocks = self._reserved
+        return events
+
+    def collect_finished(self) -> list:
+        """Retire finished requests.  With prefix reuse on, the block table
+        transfers to a residency entry (the references move, they are not
+        duplicated), so the blocks stay shareable until block-granular
+        eviction reclaims them."""
+        done = []
+        for uid, req in list(self.running.items()):
+            if not req.done:
+                continue
+            del self.running[uid]
+            if req in self._prefill_order:
+                self._prefill_order.remove(req)
+            self._reserved -= req.reserve_left
+            req.reserve_left = 0
+            if self._prefix_reuse and not req.truncated and req.table:
+                seq = tuple(req.prompt) + tuple(req.output)
+                res_id = next(self._res_counter)
+                self._residency[res_id] = _Residency(tuple(req.table),
+                                                     len(seq))
+                for b in req.table:
+                    self._res_holds[b] = self._res_holds.get(b, 0) + 1
+                self._prefix_index.insert(seq, res_id)
+            else:
+                for b in req.table:
+                    self.pool.alloc.free(b)
+            req.table = []
+            done.append(req)
+        self.stats.free_blocks = self.pool.n_free
+        self.stats.reserved_blocks = self._reserved
+        return done
+
+    def block_telemetry(self) -> dict:
+        """Live physical-block telemetry the replica set aggregates per
+        model group and gossips to headroom-aware routers."""
+        return {
+            "free_blocks": self.pool.n_free,
+            "total_blocks": self.pool.alloc.capacity,
+            "reserved_blocks": self._reserved,
+            "shared_blocks": self.pool.block_savings(),
+            "cow_copies": self.stats.cow_copies,
+            "evicted_residencies": self.stats.evicted_residencies,
+            "preemptions": self.stats.preemptions,
+            "preempt_resumes": self.stats.preempt_resumes,
+        }
+
+    def residency_summary(self, max_entries: Optional[int] = None,
+                          max_len: int = 128) -> list:
+        """Resident token sequences (newest first, truncated), the payload
+        the replica set gossips to the router's residency index."""
+        return self._prefix_index.summary(
+            max_entries=max_entries or self.max_num_seqs, max_len=max_len)
+
+    def run(self, *, max_steps: int = 100000) -> dict:
+        """Drain the queue; returns completed requests keyed by uid."""
+        done: dict[int, Request] = {}
+        for _ in range(max_steps):
+            if not self.has_work():
+                break
+            self.step()
+            for req in self.collect_finished():
+                done[req.uid] = req
+        return done
+
+    def step_prefill_only(self):
+        raise NotImplementedError(f"disaggregated prefill is {_NOT_PORTED}")
+
+    def export_sequence(self, uid: int):
+        raise NotImplementedError(f"sequence export is {_NOT_PORTED}")
+
+    def import_sequence(self, payload: dict):
+        raise NotImplementedError(f"sequence import is {_NOT_PORTED}")
+
+    def preempt_sequence(self, uid: int):
+        raise NotImplementedError(f"preemption is {_NOT_PORTED}")
+
+    # ------------------------------------------------------------------
+    # Internals
+    # ------------------------------------------------------------------
+    def _check_done(self, req: Request):
+        if req.done:
+            return
+        hit_eos = req.eos_id is not None and req.output and \
+            req.output[-1] == req.eos_id
+        if len(req.output) >= req.max_new_tokens or hit_eos:
+            req.finished_at = time.perf_counter()
+
+    def _blocks_needed(self, total_len: int, covered: int) -> int:
+        """Blocks a sequence of ``total_len`` tokens must be able to
+        allocate, given ``covered`` resumed positions: blocks strictly
+        before ``covered // block_size`` are shared read-only and never
+        written; a partial boundary block still counts (its first write
+        may need a copy-on-write replacement)."""
+        bs = self.block_size
+        total = min(total_len, self.pool.max_blocks * bs)
+        return max(1, -(-total // bs) - covered // bs)
+
+    def _reclaimable_blocks(self) -> int:
+        """Blocks whose every reference is a residency hold."""
+        alloc = self.pool.alloc
+        return sum(1 for b, h in self._res_holds.items()
+                   if h > 0 and alloc.refcount(b) == h)
+
+    def _reserve(self, need: int, pinned: int = 0) -> bool:
+        """Admission control: admit only when ``need`` blocks are covered
+        by free + reclaimable capacity net of earlier reservations (and of
+        ``pinned`` reclaimable blocks this admission is about to share)."""
+        avail = (self.pool.n_free + self._reclaimable_blocks()
+                 - pinned - self._reserved)
+        if avail < need:
+            return False
+        self._reserved += need
+        return True
+
+    def _admit_paged(self):
+        while self.queue and len(self.running) < self.max_running:
+            req = self.queue[0]
+            if self._prefix_reuse and self._try_resume_paged(req):
+                self.queue.pop(0)
+                continue
+            m = min(req.n_prompt, self.max_len - 1)
+            need = self._blocks_needed(m + req.max_new_tokens, 0)
+            if not self._reserve(need):
+                break
+            self.queue.pop(0)
+            req.truncated = m < req.n_prompt
+            req.pending_tokens = list(req.prompt[-m:])
+            req.reserve_left = need
+            self.running[req.uid] = req
+            self._prefill_order.append(req)
+
+    def _try_resume_paged(self, req: Request) -> bool:
+        """Prefix resume by block sharing: fork the resident blocks covering
+        the prompt's deepest resident prefix.  At least one full block must
+        be covered."""
+        m = req.n_prompt
+        if m >= self.max_len:
+            return False
+        bs = self.block_size
+        best = None
+        for res_id, d in self._prefix_index.match_lengths(req.prompt).items():
+            ent = self._residency.get(res_id)
+            if ent is None:
+                continue
+            covered = min(d, ent.length - 1, m - 1)
+            if covered >= bs and (best is None or covered > best[0]):
+                best = (covered, res_id, ent, d)
+        if best is None:
+            return False
+        covered, res_id, ent, d = best
+        shared = ent.blocks[:-(-covered // bs)]
+        need = self._blocks_needed(m + req.max_new_tokens, covered)
+        # the shared blocks stop being reclaimable the moment this
+        # sequence pins them: account for that in the reservation check
+        alloc = self.pool.alloc
+        pinned = sum(1 for b in set(shared)
+                     if self._res_holds.get(b, 0) > 0
+                     and alloc.refcount(b) == self._res_holds[b])
+        if not self._reserve(need, pinned=pinned):
+            return False
+        for b in shared:
+            alloc.fork(b)
+        req.table = list(shared)
+        req.pos = covered
+        req.pending_tokens = list(req.prompt[covered:])
+        req.reserve_left = need
+        req.cached_prefix = covered
+        self.running[req.uid] = req
+        self._prefill_order.append(req)
+        self._residency.move_to_end(res_id)  # hit: refresh retirement order
+        self.stats.prefix_reuse_hits += 1
+        if d < ent.length and d < m:
+            self.stats.prefix_partial_hits += 1
+        self.stats.prefix_cached_tokens += covered
+        return True
+
+    def _alloc_block(self, req: Request) -> int:
+        """Allocate one physical block for ``req``, evicting resident
+        sequences (coldest first) as needed; consumes the request's
+        admission reserve."""
+        b = self.pool.alloc.allocate()
+        while b is None and self._residency:
+            self._evict_residency()
+            b = self.pool.alloc.allocate()
+        if b is None:
+            raise RuntimeError(
+                "paged KV pool exhausted despite admission reservation")
+        if req.reserve_left > 0:
+            req.reserve_left -= 1
+            self._reserved -= 1
+        return b
+
+    def _evict_residency(self):
+        """Drop the coldest resident sequence and notify the listener."""
+        res_id, ent = self._residency.popitem(last=False)
+        for b in ent.blocks:
+            self._res_holds[b] -= 1
+            if self._res_holds[b] == 0:
+                del self._res_holds[b]
+            self.pool.alloc.free(b)
+        self._prefix_index.remove_value(res_id)
+        self.stats.evicted_residencies += 1
+        if self.on_residency_drop is not None:
+            try:
+                self.on_residency_drop()
+            except Exception:
+                pass  # gossip is best-effort; serving must not care
+
+    def _ensure_writable(self, req: Request, start: int, n: int):
+        """Make positions [start, start+n) writable: grow the block table
+        and copy-on-write any shared block about to be written."""
+        bs = self.block_size
+        alloc = self.pool.alloc
+        # past-capacity writes clamp to the final position
+        cap = self.pool.max_blocks * bs - 1
+        start = min(start, cap)
+        for lb in range(start // bs, (min(start + n - 1, cap)) // bs + 1):
+            if lb < len(req.table):
+                b = req.table[lb]
+                if alloc.refcount(b) > 1:  # shared: copy before write
+                    nb = self._alloc_block(req)
+                    self.pool.copy_block(b, nb)
+                    alloc.free(b)  # drop only OUR reference
+                    req.table[lb] = nb
+                    self.stats.cow_copies += 1
+            else:
+                assert lb == len(req.table), "non-contiguous block write"
+                req.table.append(self._alloc_block(req))
+
+    def _first_token(self, req: Request, logits_last) -> int:
+        if req.temperature > 0:
+            return int(sample(logits_last[None, :], self._gen,
+                              temperature=req.temperature)[0])
+        return int(torch.argmax(logits_last))
+
+    def _prefill_step_paged(self):
+        """Feed one prompt chunk per prefilling sequence (admission FIFO)
+        until the per-step token budget runs out, charging the PADDED
+        bucket that actually runs.  The final chunk's last real logits row
+        produces the first generated token."""
+        budget = self.max_num_batched_tokens
+        mb = self.pool.max_blocks
+        bs = self.block_size
+        for req in list(self._prefill_order):
+            if req.done or not req.pending_tokens:
+                self._prefill_order.remove(req)
+                continue
+            fitting = [b for b in self._chunk_buckets if b <= budget]
+            if not fitting:
+                break
+            T = min(len(req.pending_tokens), self.prefill_chunk, fitting[-1])
+            bucket = _bucket(T, self._chunk_buckets)
+            T = min(T, bucket)
+            self._ensure_writable(req, req.pos, T)
+            bt = np.zeros((1, mb), np.int32)
+            bt[0, :len(req.table)] = req.table
+            tokens = np.zeros((1, bucket), np.int64)
+            tokens[0, :T] = req.pending_tokens[:T]
+            # padded chunk positions scatter into the null block
+            wphys = np.zeros((1, bucket), np.int64)
+            woff = np.zeros((1, bucket), np.int64)
+            for t in range(T):
+                p = req.pos + t
+                wphys[0, t] = req.table[p // bs]
+                woff[0, t] = p % bs
+            self.pool.cache, logits = self._paged_extend(
+                self.params, self.pool.cache, self._tensor(bt),
+                self._tensor(np.asarray([req.pos], np.int32)),
+                self._tensor(tokens), self._tensor(wphys),
+                self._tensor(woff))
+            req.pending_tokens = req.pending_tokens[T:]
+            req.pos += T
+            budget -= bucket  # charge the padded size that actually ran
+            self.stats.prefill_tokens += T
+            if not req.pending_tokens:  # prompt complete: first token
+                self._prefill_order.remove(req)
+                tok = self._first_token(req, logits[0, T - 1])
+                req.output.append(tok)
+                req.last_token = tok
+                if req.first_token_at is None:
+                    req.first_token_at = time.perf_counter()
+                self._check_done(req)
+
+    def _decode_step_paged(self) -> list:
+        """One batched decode over every sequence past prefill.  The batch
+        is padded to a power of two (padding rows carry the null block
+        table and length 0, so their writes land in the null block)."""
+        active = [r for r in self.running.values()
+                  if not r.pending_tokens and not r.done and r.output]
+        if not active:
+            return []
+        for r in active:
+            self._ensure_writable(r, r.pos, 1)
+        B = 1
+        while B < len(active):
+            B *= 2
+        mb = self.pool.max_blocks
+        bs = self.block_size
+        bt = np.zeros((B, mb), np.int32)
+        lens = np.zeros((B,), np.int32)
+        tokens = np.zeros((B,), np.int64)
+        # padding rows write to the null block's cell (0, 0)
+        wphys = np.zeros((B,), np.int64)
+        woff = np.zeros((B,), np.int64)
+        temps = np.zeros((B,), np.float32)
+        for i, r in enumerate(active):
+            bt[i, :len(r.table)] = r.table
+            lens[i] = r.pos
+            tokens[i] = r.last_token
+            p = min(r.pos, mb * bs - 1)  # clamp like the slot pool
+            wphys[i] = r.table[p // bs]
+            woff[i] = p % bs
+            temps[i] = r.temperature
+        self.pool.cache, logits = self._paged_decode(
+            self.params, self.pool.cache, self._tensor(bt),
+            self._tensor(lens), self._tensor(tokens), self._tensor(wphys),
+            self._tensor(woff))
+        self.stats.decode_steps += 1
+        # all-greedy batches skip the sampled path
+        greedy = torch.argmax(logits, dim=-1)
+        if np.any(temps > 0):
+            sampled = sample(logits, self._gen, temperature=1.0)
+            hot = self._tensor(temps) > 0
+            toks = torch.where(hot, sampled, greedy).cpu().numpy()
+        else:
+            toks = greedy.cpu().numpy()
+        events = []
+        for i, r in enumerate(active):
+            tok = int(toks[i])
+            r.output.append(tok)
+            r.last_token = tok
+            r.pos += 1
+            events.append((r.uid, tok))
+            self.stats.decode_tokens += 1
+            self._check_done(r)
+        return events
+
+
+def make_engine_from_scratch(cfg: ModelConfig, *, seed=0, device=None, **kw):
+    """Init params on ``device`` from ``seed`` and build an engine."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = get_model(cfg).init(gen, cfg, device=dev)
+    return InferenceEngine(cfg, params, device=dev, **kw)

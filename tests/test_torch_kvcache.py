@@ -1,0 +1,141 @@
+"""The port's paged KV pool against the JAX package's: the allocator's
+conservation, refcounts and error paths; ``gather_block_view`` /
+``scatter_block_writes`` / copy-on-write on the same numpy store (exact:
+they only move data)."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _torch_parity import dense_cfg  # noqa: E402
+from repro.serving import kvcache as jkv  # noqa: E402
+from repro_torch.models.config import ModelConfig  # noqa: E402
+from repro_torch.serving import kvcache as tkv  # noqa: E402
+
+
+def _random_ops(alloc, ref, rng, n_ops=400):
+    """Drive both allocators through the same random allocate/fork/free
+    sequence; return the live reference multiset."""
+    live: list = []
+    for _ in range(n_ops):
+        op = rng.randint(3)
+        if op == 0:
+            b, rb = alloc.allocate(), ref.allocate()
+            assert b == rb
+            if b is not None:
+                live.append(b)
+        elif op == 1 and live:
+            b = live[rng.randint(len(live))]
+            alloc.fork(b)
+            ref.fork(b)
+            live.append(b)
+        elif op == 2 and live:
+            b = live.pop(rng.randint(len(live)))
+            assert alloc.free(b) == ref.free(b)
+    return live
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_allocator_conservation_and_refcounts(seed):
+    rng = np.random.RandomState(seed)
+    alloc, ref = tkv.BlockAllocator(12), jkv.BlockAllocator(12)
+    live = _random_ops(alloc, ref, rng)
+    assert alloc._ref == ref._ref
+    for b in range(1, 12):
+        assert alloc.refcount(b) == live.count(b)
+    assert alloc.n_live == len(set(live))
+    assert alloc.n_free + alloc.n_live == alloc.capacity == 11
+    assert alloc.block_savings() == len(live) - len(set(live))
+    for b in list(live):
+        alloc.free(b)
+    assert alloc.n_free == alloc.capacity and alloc.block_savings() == 0
+
+
+def test_allocator_error_paths():
+    alloc = tkv.BlockAllocator(4)
+    with pytest.raises(ValueError):
+        tkv.BlockAllocator(1)  # no room for the null block + one real block
+    b = alloc.allocate()
+    alloc.free(b)
+    with pytest.raises(ValueError):
+        alloc.free(b)  # double free
+    with pytest.raises(ValueError):
+        alloc.fork(b)  # fork of an unallocated block
+    with pytest.raises(ValueError):
+        alloc.fork(tkv.NULL_BLOCK)  # the null block is never refcounted
+    with pytest.raises(ValueError):
+        alloc.free(99)  # out of range
+    assert [alloc.allocate() for _ in range(4)] == [2, 3, 1, None]
+
+
+def _stores(seed, L=2, N=10, bs=4, H=2, D=3):
+    rng = np.random.RandomState(seed)
+    k = rng.randn(L, N, bs, H, D).astype(np.float32)
+    v = rng.randn(L, N, bs, H, D).astype(np.float32)
+    jstore = {"scan": {"k": jnp.asarray(k), "v": jnp.asarray(v),
+                       "len": jnp.zeros((L, N), jnp.int32)}}
+    tstore = {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy())}
+    return jstore, tstore
+
+
+def test_gather_and_scatter_match_reference():
+    jstore, tstore = _stores(0)
+    bt = np.asarray([[3, 7, 2], [9, 1, 4]], np.int32)
+    lens = np.asarray([6, 9], np.int32)
+    jview = jkv.gather_block_view(jstore, jnp.asarray(bt), jnp.asarray(lens))
+    tview = tkv.gather_block_view(tstore, torch.from_numpy(bt),
+                                  torch.from_numpy(lens))
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(tview[name].numpy(),
+                                      np.asarray(jview["scan"][name]))
+    assert tview["len"].tolist() == lens.tolist()
+    # write three new positions per sequence into the view, scatter back
+    rng = np.random.RandomState(1)
+    T = 3
+    wpos = lens[:, None] + np.arange(T)[None, :]
+    wphys = np.asarray([[bt[b, p // 4] for p in wpos[b]] for b in range(2)],
+                       np.int32)
+    woff = (wpos % 4).astype(np.int32)
+    new = rng.randn(2, 2, T, 2, 3).astype(np.float32)  # [L, B, T, H, D]
+    jk = np.asarray(jview["scan"]["k"]).copy()
+    for b in range(2):
+        jk[:, b, wpos[b]] = new[:, b]
+        tview["k"][:, b, torch.from_numpy(wpos[b])] = torch.from_numpy(
+            new[:, b])
+    jview["scan"]["k"] = jnp.asarray(jk)
+    jout = jkv.scatter_block_writes(jstore, jview, jnp.asarray(wphys),
+                                    jnp.asarray(woff), jnp.asarray(wpos))
+    tout = tkv.scatter_block_writes(tstore, tview, torch.from_numpy(wphys),
+                                    torch.from_numpy(woff),
+                                    torch.from_numpy(wpos))
+    assert tout is tstore  # in place
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(tstore[name].numpy(),
+                                      np.asarray(jout["scan"][name]))
+
+
+def test_pool_layout_and_copy_on_write():
+    cfg = dense_cfg()
+    tcfg = ModelConfig(**dataclasses.asdict(cfg))
+    ref = jkv.PagedCachePool(cfg, num_blocks=9, block_size=8, max_len=32)
+    pool = tkv.PagedCachePool(tcfg, num_blocks=9, block_size=8, max_len=32)
+    assert tuple(pool.cache["k"].shape) == tuple(
+        ref.cache["scan"]["k"].shape)
+    assert pool.max_blocks == ref.max_blocks == 4
+    assert pool.n_free == ref.n_free == 8
+    rng = np.random.RandomState(2)
+    k = rng.randn(*pool.cache["k"].shape).astype(np.float32)
+    pool.cache["k"] = torch.from_numpy(k.copy())
+    ref.cache["scan"]["k"] = jnp.asarray(k)
+    pool.copy_block(3, 5)
+    ref.copy_block(3, 5)
+    np.testing.assert_array_equal(pool.cache["k"].numpy(),
+                                  np.asarray(ref.cache["scan"]["k"]))
+    with pytest.raises(ValueError, match="num_blocks"):
+        tkv.PagedCachePool(tcfg, num_blocks=4, block_size=8, max_len=64)
+    with pytest.raises(ValueError, match="paged"):
+        tkv.PagedCachePool(tcfg.scaled(family="ssm"), num_blocks=8,
+                           block_size=4, max_len=16)

@@ -1,0 +1,182 @@
+"""The port's dense LM against the JAX package's on the same weights:
+the weight bridge, then ``prefill`` / ``extend_step`` / ``decode_step`` /
+``paged_decode_step`` logits at atol = rtol = 1e-4 in float32 (matmul sums
+taken in another order) with identical greedy tokens, on the rhapsody-demo
+and llama3.2-3b smoke configs.  Inputs are made with numpy from a seed."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _torch_parity import build  # noqa: E402
+from repro.models import get_model as jax_get_model  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.models import get_model  # noqa: E402
+from repro_torch.serving.sampling import filter_logits, sample  # noqa: E402
+
+TOL = 1e-4
+ARCHS = ["rhapsody-demo", "llama3.2-3b"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def lm(request):
+    return build(arch=request.param)
+
+
+def _close(a, b):
+    a = np.asarray(a)
+    b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    np.testing.assert_allclose(b, a, rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(b.argmax(-1), a.argmax(-1))
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def test_weight_bridge(lm):
+    """Layouts carry over unchanged ([d_in, d_out]; stacked layers
+    unstacked), and the port's own init draws the same structure."""
+    cfg, _, params, tcfg, tp = lm
+    ref = jax.tree.map(np.asarray, params)
+    np.testing.assert_array_equal(tp["embed"]["table"].numpy(),
+                                  ref["embed"]["table"])
+    np.testing.assert_array_equal(tp["unembed"]["w"].numpy(),
+                                  ref["unembed"]["w"])
+    assert len(tp["blocks"]) == cfg.n_layers
+    for i, layer in enumerate(tp["blocks"]):
+        for name in ("q", "k", "v", "o"):
+            np.testing.assert_array_equal(layer["attn"][name]["w"].numpy(),
+                                          ref["blocks"]["attn"][name]["w"][i])
+        np.testing.assert_array_equal(layer["mlp"]["gate"]["w"].numpy(),
+                                      ref["blocks"]["mlp"]["gate"]["w"][i])
+    gen = torch.Generator().manual_seed(0)
+    mine = get_model(tcfg).init(gen, tcfg, device="cpu")
+    flat = jax.tree_util.tree_flatten_with_path
+    ref_shapes = {jax.tree_util.keystr(k): v.shape[1:] if "blocks" in
+                  jax.tree_util.keystr(k) else v.shape
+                  for k, v in flat(ref)[0]}
+    my_shapes = {jax.tree_util.keystr(k): tuple(v.shape)
+                 for k, v in flat({**mine, "blocks": mine["blocks"][0]})[0]}
+    assert my_shapes == ref_shapes
+    o = mine["blocks"][0]["attn"]["o"]["w"]
+    assert abs(o.std().item() * np.sqrt(tcfg.n_heads * tcfg.head_dim) - 1) \
+        < 0.2
+    assert abs(mine["embed"]["table"].std().item() - 1) < 0.1
+
+
+def test_prefill_decode_extend_match_reference(lm):
+    cfg, api, params, tcfg, tp = lm
+    tapi = get_model(tcfg)
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab, size=(2, 11)).astype(np.int32)
+    jc, jl = api.prefill(params, {"tokens": jnp.asarray(toks)}, cfg,
+                         max_len=32, last_only=False)
+    tc, tl = tapi.prefill(tp, {"tokens": _t(toks).long()}, tcfg, max_len=32,
+                          last_only=False)
+    _close(jl, tl)
+    for _ in range(3):
+        nxt = np.asarray(jl if jl.ndim == 2 else jl[:, -1]).argmax(-1)
+        jc, jl = api.decode(params, jc, jnp.asarray(nxt, jnp.int32), cfg)
+        tc, tl = tapi.decode(tp, tc, _t(nxt).long(), tcfg)
+        _close(jl, tl)
+    chunk = rng.randint(0, cfg.vocab, size=(2, 5)).astype(np.int32)
+    jc, jl = api.extend(params, jc, jnp.asarray(chunk), cfg)
+    tc, tl = tapi.extend(tp, tc, _t(chunk).long(), tcfg)
+    _close(jl, tl)
+    np.testing.assert_allclose(tc["k"].numpy(),
+                               np.asarray(jc["scan"]["k"]), rtol=TOL,
+                               atol=TOL)
+    assert tc["len"].tolist() == np.asarray(jc["scan"]["len"][0]).tolist()
+
+
+def _paged_inputs(cfg, seed):
+    rng = np.random.RandomState(seed)
+    L, N, bs, mb, B = cfg.n_layers, 24, 4, 5, 3
+    shape = (L, N, bs, cfg.n_kv_heads, cfg.head_dim)
+    ks = rng.randn(*shape).astype(np.float32)
+    vs = rng.randn(*shape).astype(np.float32)
+    bt = rng.permutation(np.arange(1, N))[:B * mb].reshape(B, mb)
+    bt = bt.astype(np.int32)
+    lens = np.asarray([0, 7, mb * bs - 1], np.int32)
+    wphys = np.asarray([bt[b, lens[b] // bs] for b in range(B)], np.int32)
+    woff = (lens % bs).astype(np.int32)
+    for b in range(B):
+        bt[b, lens[b] // bs + 1:] = 0
+    toks = rng.randint(0, cfg.vocab, size=B).astype(np.int32)
+    return ks, vs, bt, lens, toks, wphys, woff
+
+
+@pytest.mark.parametrize("jax_impl", ["auto", "pallas"])
+def test_paged_decode_step_matches_reference(lm, jax_impl):
+    """``paged_decode_step`` logits and store writes vs the reference; with
+    ``attention_impl="pallas"`` the reference runs its Pallas kernel in
+    interpret mode."""
+    cfg, _, params, tcfg, tp = lm
+    jcfg = cfg.scaled(attention_impl=jax_impl)
+    japi = jax_get_model(jcfg)
+    ks, vs, bt, lens, toks, wphys, woff = _paged_inputs(cfg, 1)
+    store = {"scan": {"k": jnp.asarray(ks), "v": jnp.asarray(vs),
+                      "len": jnp.zeros(ks.shape[:2], jnp.int32)}}
+    jstore, jl = japi.decode_paged(params, store, *(jnp.asarray(a) for a in (
+        bt, lens, toks, wphys, woff)), jcfg)
+    tstore = {"k": _t(ks.copy()), "v": _t(vs.copy())}
+    tstore, tl = get_model(tcfg).decode_paged(
+        tp, tstore, _t(bt), _t(lens), _t(toks).long(), _t(wphys).long(),
+        _t(woff).long(), tcfg)
+    _close(jl, tl)
+    np.testing.assert_allclose(tstore["k"].numpy(),
+                               np.asarray(jstore["scan"]["k"]), rtol=TOL,
+                               atol=TOL)
+
+
+def test_chunked_extend_equals_full_prefill(lm):
+    """A prompt fed in chunks gives the cache and final logits of one full
+    prefill (masked softmax columns underflow to exact zeros; the tolerance
+    covers float32 matmuls run at other shapes, which the CPU BLAS sums
+    in another order)."""
+    _, _, _, tcfg, tp = lm
+    tapi = get_model(tcfg)
+    rng = np.random.RandomState(2)
+    prompt = _t(rng.randint(0, tcfg.vocab, size=(1, 13))).long()
+    full_cache, full = tapi.prefill(tp, {"tokens": prompt}, tcfg, max_len=32)
+    shape = (tcfg.n_layers, 1, 32, tcfg.n_kv_heads, tcfg.head_dim)
+    cache = {"k": torch.zeros(shape), "v": torch.zeros(shape),
+             "len": torch.zeros(1, dtype=torch.int32)}
+    for a, b in ((0, 4), (4, 9), (9, 13)):
+        cache, logits = tapi.extend(tp, cache, prompt[:, a:b], tcfg)
+    torch.testing.assert_close(logits[:, -1], full, rtol=1e-5, atol=1e-5)
+    assert int(logits[0, -1].argmax()) == int(full[0].argmax())
+    torch.testing.assert_close(cache["k"], full_cache["k"], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "rwkv6-1.6b",
+                                  "zamba2-2.7b", "whisper-small",
+                                  "internvl2-1b"])
+def test_unported_families_raise(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        get_model(get_smoke_config(arch))
+
+
+def test_sampling_filters_and_greedy():
+    """Greedy takes the first maximum, as ``jnp.argmax``; top-k=1 and
+    top-p=0 leave only the most probable token whatever the generator
+    draws."""
+    rng = np.random.RandomState(3)
+    logits = _t(rng.randn(4, 50).astype(np.float32))
+    gen = torch.Generator().manual_seed(0)
+    greedy = sample(logits, gen)
+    for kw in ({"top_k": 1}, {"top_p": 0.0}):
+        for _ in range(5):
+            assert sample(logits, gen, temperature=1.3, **kw).tolist() == \
+                greedy.tolist()
+    kept = filter_logits(logits, temperature=1.0, top_k=5)
+    assert (torch.isfinite(kept).sum(-1) == 5).all()
+    tied = logits.clone()
+    tied[1, 7] = tied[1, 9] = tied[1].max() + 1.0
+    assert sample(tied, gen).tolist() == np.asarray(
+        jnp.argmax(jnp.asarray(tied.numpy()), -1)).tolist()
+    assert sample(tied, gen)[1] == 7

@@ -1,0 +1,89 @@
+"""The main path end to end: ``Rhapsody`` -> ``ReplicaSet`` (2 replicas)
+-> ``LLMServicer`` -> the paged engine, in both packages on the same
+weights and the same requests: every request's greedy tokens must be
+identical.  Then the port's launcher, on the CPU."""
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from _torch_parity import build  # noqa: E402
+from repro import core as jcore  # noqa: E402
+from repro.serving.client import (  # noqa: E402
+    llm_service_factory as jax_factory)
+from repro_torch import core as tcore  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.serving.client import (LLMServicer,  # noqa: E402
+                                        llm_model_group, llm_service_factory)
+
+ENGINE_KW = dict(max_num_seqs=4, max_num_batched_tokens=64, max_len=64,
+                 prefill_buckets=(16, 32), block_size=8)
+
+
+def _serve(core, factory, prompts):
+    rh = core.Rhapsody(core.ResourceDescription(nodes=2, cores_per_node=4),
+                       n_workers=2)
+    try:
+        rs = rh.add_service(core.ServiceDescription(
+            name="llm", replicas=2, factory=factory))
+        descs = [core.TaskDescription(kind=core.TaskKind.INFERENCE,
+                                      service="llm",
+                                      payload={"prompt": p,
+                                               "max_new_tokens": 5})
+                 for p in prompts]
+        uids = rh.submit(descs)
+        assert rh.wait(uids, timeout=120)
+        results = [rh.result(u) for u in uids]
+        assert all(inst.error is None for inst in rs.instances)
+        per_replica = [p["requests"] for p in rs.stats()["per_replica"]]
+        return [r["tokens"] for r in results], per_replica
+    finally:
+        rh.close()
+
+
+def test_two_replica_service_matches_reference():
+    cfg, _, params, tcfg, tparams = build()
+    rng = np.random.RandomState(0)
+    prompts = [list(map(int, rng.randint(1, cfg.vocab, size=n)))
+               for n in (4, 9, 13, 20, 6, 31, 11, 17)]
+    ref, _ = _serve(jcore, jax_factory(cfg, params, **ENGINE_KW), prompts)
+    out, per_replica = _serve(
+        tcore, llm_service_factory(tcfg, tparams, device="cpu", **ENGINE_KW),
+        prompts)
+    assert out == ref
+    assert all(len(t) == 5 for t in out)
+    assert sum(per_replica) == len(prompts) and len(per_replica) == 2
+
+
+def test_servicer_hooks_and_unported_options():
+    _, _, _, tcfg, tparams = build()
+    s = LLMServicer(tcfg, tparams, device="cpu", **ENGINE_KW)
+    assert s.engine.paged and s.engine.paged_decode_mode == "direct"
+    s.warmup()
+    assert s.stats.prefill_tokens == 4
+    assert s.block_telemetry()["total_blocks"] > 0
+    assert s.spec_stats() is None and s.qos_stats() is None
+    assert s.handoff_stats() is None
+    uid = s.submit({"prompt": [5, 6, 7], "max_new_tokens": 3})
+    results = []
+    while not results:
+        results = s.step()
+    assert results[0][0] == uid and len(results[0][1]["tokens"]) == 3
+    for kw in ({"phase": "prefill"}, {"draft_group": tcfg}, {"qos": True}):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+            LLMServicer(tcfg, tparams, device="cpu", **kw, **ENGINE_KW)
+    with pytest.raises(NotImplementedError):
+        llm_model_group("p", tcfg, tparams, role="prefill")
+
+
+def test_launcher_runs_on_cpu(capsys):
+    out = serve.main(["--device", "cpu", "--smoke", "--replicas", "2",
+                      "--requests", "4", "--max-new-tokens", "3"])
+    assert all(len(r["tokens"]) == 3 for r in out["results"])
+    assert out["errors"] == [None, None]
+    assert out["decode_steps"] > 0
+    printed = capsys.readouterr().out
+    assert "[serve] 4 requests" in printed
+    assert "per-replica requests" in printed
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        serve.main(["--device", "cpu", "--disagg"])
