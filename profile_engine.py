@@ -2,14 +2,12 @@
 """Where a serving replica's time goes on the card: step times and a
 ``torch.profiler`` breakdown of the port's paged engine.
 
-    python3 profile_engine.py [--arch llama3.2-3b] [--requests 8]
-                              [--max-new-tokens 32] [--engines N]
-                              [--trace PATH]
+    python3 profile_engine.py [--engines N] [--trace PATH]
 
-One ``InferenceEngine`` (no middleware) with the main path's settings of
-``chip_smoke.py`` phase 5 (max_num_seqs 8, max_len 1024, block 16, chunk
-buckets 16/32/64), full published config, random weights from seed 0.
-It serves the requests twice: the first pass is cold (first calls of
+One ``InferenceEngine`` (no middleware) with the main path's model and
+engine settings, taken from ``chip_smoke.py`` phase 5 (llama3.2-3b full
+published config, random weights from seed 0), and 8 requests of 32 new
+tokens with phase 5's prompt lengths.  It serves the requests twice: the first pass is cold (first calls of
 every kernel and matmul shape), the second warm.  Every step ends in
 ``torch.cuda.synchronize()``, so step times are device-complete.  The
 profiler then records a few warm decode steps and prints the CUDA and CPU
@@ -31,6 +29,11 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+
+from chip_smoke import (MAIN_PATH_ARCH, MAIN_PATH_ENGINE,  # noqa: E402
+                        MAIN_PATH_NEW_TOKENS, main_path_prompt_lens)
+
+REQUESTS = MAIN_PATH_ENGINE["max_num_seqs"]  # every decode step a full batch
 
 
 def emit(obj):
@@ -63,9 +66,6 @@ def serve_once(torch, eng, prompts, mnt):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-3b")
-    ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--max-new-tokens", type=int, default=32)
     ap.add_argument("--engines", type=int, default=1,
                     help="also serve a warm pass on N engines in N threads")
     ap.add_argument("--trace", default=None,
@@ -86,16 +86,13 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     emit({"device": smi, "torch": torch.__version__})
-    cfg = get_config(args.arch)
-    max_len, mnt = 1024, args.max_new_tokens
-    eng = make_engine_from_scratch(
-        cfg, seed=0, device="cuda", max_num_seqs=8,
-        max_num_batched_tokens=512, max_len=max_len,
-        prefill_buckets=(16, 32, 64), block_size=16)
+    cfg = get_config(MAIN_PATH_ARCH)
+    mnt = MAIN_PATH_NEW_TOKENS
+    eng = make_engine_from_scratch(cfg, seed=0, device="cuda",
+                                   **MAIN_PATH_ENGINE)
     torch.cuda.synchronize()
     rng = np.random.RandomState(0)
-    lens = np.clip(np.exp(rng.normal(3.0, 0.7, args.requests)), 4,
-                   max_len - mnt - 1).astype(int)
+    lens = main_path_prompt_lens(rng, REQUESTS)
     prompts = [list(map(int, rng.randint(0, cfg.vocab, size=int(n))))
                for n in lens]
     emit({"pass": "cold", **serve_once(torch, eng, prompts, mnt)})
@@ -149,9 +146,7 @@ def main():
     if args.engines > 1:
         eng.run()  # drain the profiled requests
         engines = [eng] + [make_engine_from_scratch(
-            cfg, seed=0, device="cuda", max_num_seqs=8,
-            max_num_batched_tokens=512, max_len=max_len,
-            prefill_buckets=(16, 32, 64), block_size=16)
+            cfg, seed=0, device="cuda", **MAIN_PATH_ENGINE)
             for _ in range(args.engines - 1)]
         for e in engines[1:]:  # warm the new engines one at a time
             serve_once(torch, e, prompts, mnt)
