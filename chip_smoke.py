@@ -1,35 +1,60 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one CUDA card and hold its kernel to account.
+"""Drive the PyTorch port on one CUDA card and hold its kernels to account.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
 
 0. device: the card's name and power limit (``nvidia-smi``); TF32 off.
-1. build: compile the hand-written paged flash-decode kernel from
-   ``src/repro_torch/kernels/decode_attention/csrc``.
-2. kernel vs plain: the kernel against ``ref.paged_decode_ref`` on the card
-   (rhapsody-demo f32, llama3.2-3b's heads in f32 and bf16; ragged lengths,
-   permuted tables, null-block padding rows; f32 within 2e-5, bf16 within
-   4e-3 + 2^-7 x |plain|; physical relocation exact), then its time beside
-   the plain version's, the library yardstick's
+1. build: compile both hand-written kernels at once (one ``nvcc`` each):
+   the paged flash-decode (``kernels/decode_attention/csrc``) and the
+   causal flash attention (``kernels/flash_attention/csrc``); ptxas
+   registers and spills of each.
+2. kernel vs plain: the paged decode kernel against ``ref.paged_decode_ref``
+   on the card (rhapsody-demo f32, llama3.2-3b's heads in f32 and bf16;
+   ragged lengths, permuted tables, null-block padding rows; f32 within
+   2e-5, bf16 within 4e-3 + 2^-7 x |plain|; physical relocation exact),
+   then its time beside the plain version's, the library yardstick's
    (``scaled_dot_product_attention``, never called by the port) and the
    least time the card could take (its bound).
 3. model: rhapsody-demo (full config, f32): the paged engine's greedy
    transcripts equal the contiguous prefill + decode_step oracle's.
 4. launcher: ``repro_torch.launch.serve`` with its defaults (rhapsody-demo,
    2 replicas, 16 requests).
-5. main path at full width: llama3.2-3b (bf16, 28 layers, random weights
-   from a seed) behind ``Rhapsody`` with 2 replicas, 16 requests of 32 new
-   tokens, served twice (cold, then warm).
+5. serving main path at full width: llama3.2-3b (bf16, 28 layers, random
+   weights from a seed) behind ``Rhapsody`` with 2 replicas, 16 requests
+   of 32 new tokens, served twice (cold, then warm).
+6. flash kernel vs plain: out and lse against ``ref.attention_fwd_ref``
+   (rhapsody-demo heads in f32, llama3.2-3b heads in f32 and bf16; B 2,
+   S in {1, 63, 64, 65, 200, 1024}; the same limits as phase 2), and the
+   gradient of ``FlashAttention`` against autograd of the plain version in
+   float32 (1e-4 for f32 inputs, 2e-2 for bf16).
+7. flash timing at the llama3.2-3b training shape (B 2, S 2048, Hq 24,
+   Hkv 8, D 128, bf16): the kernel, the plain version, the library
+   yardstick (SDPA, causal, GQA), ``attention_bwd`` and the bound.
+8. train step: rhapsody-demo (full config, f32): one step on the card
+   equals the same step on the CPU (loss within 1e-5 relative, every
+   parameter within atol 2e-5, rtol 2e-3; Adam eps 1e-3, so the first
+   update is not the sign of gradients below eps); then 30 steps on the
+   synthetic corpus on the card, after which the loss on a batch the steps
+   did not see has fallen.
+9. trainer launcher: ``repro_torch.launch.train --steps 20``.
+10. training main path at full width: llama3.2-3b (bf16, 28 layers, remat
+    full, random weights from seed 0) through ``DataPipeline``,
+    ``init_state`` and ``make_train_step``: global batch 2, seq 2048,
+    AdamW, 3 steps.
 
-Every main-path phase sets the kernel's launch count to 0 just before it
-runs and checks it just after: the count must equal n_layers x the decode
-batches.  Any failure exits non-zero.  The last lines are the kernels'
-JSON record, the ``nvidia-smi`` line, and
-``{"ok": true, "device": {...}}``.  Without a CUDA card it exits 2 and
-prints no result.
+Every main-path phase sets both kernels' launch counts to 0 just before it
+runs and checks them just after: a serving phase launches the decode
+kernel n_layers x decode batches times and the flash kernel never; a
+training phase launches the flash kernel 2 x n_layers x steps times (remat
+runs each block's forward again in the backward) and the decode kernel
+never.  Any failure exits non-zero.  The last lines are the kernels' JSON
+record, the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
+Without a CUDA card it exits 2 and prints no result.
 """
+import concurrent.futures
+import gc
 import json
 import math
 import os
@@ -57,6 +82,12 @@ MAIN_PATH_NEW_TOKENS = 32
 MAIN_PATH_ENGINE = dict(max_num_seqs=8, max_num_batched_tokens=512,
                         max_len=1024, prefill_buckets=(16, 32, 64),
                         block_size=16)
+# the training main path (phase 10)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
+# gradients of the flash kernel's Function vs autograd of the plain version
+# in float32: 1e-4 for f32 inputs; 2e-2 for bf16 (the reference's own bf16
+# limit for this kernel, tests/test_kernels.py)
+F32_GRAD_TOL, BF16_GRAD_TOL = 1e-4, 2e-2
 
 
 def main_path_prompt_lens(rng, n):
@@ -228,7 +259,7 @@ def phase_kernel(torch, ops, ref, kernel):
     return cases, timing, worst
 
 
-def phase_model(torch, configs, get_model, engine_mod, ops):
+def phase_model(torch, configs, get_model, engine_mod, ops, fa):
     """rhapsody-demo full config, f32: paged engine == contiguous oracle."""
     cfg = configs.get_config("rhapsody-demo")
     api = get_model(cfg)
@@ -253,11 +284,12 @@ def phase_model(torch, configs, get_model, engine_mod, ops):
         cfg, params, device=DEVICE, max_num_seqs=4,
         max_num_batched_tokens=256, max_len=128, prefill_buckets=(16, 32),
         block_size=16)
-    ops.launches = 0
+    ops.launches = fa.launches = 0
     uids = [eng.submit(p, max_new_tokens=steps) for p in prompts]
     done = eng.run()
     torch.cuda.synchronize()
     launches = ops.launches
+    check(fa.launches == 0, "serving launched the flash kernel")
     got = [done[u].output for u in uids]
     check(got == oracle, f"paged transcripts {got} != oracle {oracle}")
     check(launches == cfg.n_layers * eng.stats.decode_steps > 0,
@@ -268,12 +300,13 @@ def phase_model(torch, configs, get_model, engine_mod, ops):
             "decode_steps": eng.stats.decode_steps}
 
 
-def phase_launcher(ops, serve):
+def phase_launcher(ops, fa, serve):
     """The launcher with its defaults: rhapsody-demo, 2 replicas."""
-    ops.launches = 0
+    ops.launches = fa.launches = 0
     t0 = time.perf_counter()
     out = serve.main([] if DEVICE == "cuda" else ["--device", DEVICE])
     launches = ops.launches
+    check(fa.launches == 0, "launcher: serving launched the flash kernel")
     res = out["results"]
     check(len(res) == 16 and all(len(r["tokens"]) == 8 for r in res),
           "launcher: a request came back short")
@@ -286,7 +319,7 @@ def phase_launcher(ops, serve):
             "seconds": time.perf_counter() - t0}
 
 
-def phase_main_path(torch, configs, core, client, ops):
+def phase_main_path(torch, configs, core, client, ops, fa):
     """llama3.2-3b at full width behind Rhapsody: 2 replicas, 16 requests,
     served twice with fresh prompts of the same lengths.  The first pass
     pays every first call (matmul shapes, allocator growth); the second
@@ -336,10 +369,12 @@ def phase_main_path(torch, configs, core, client, ops):
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ops.launches = 0
+        ops.launches = fa.launches = 0
         prompts, cold = serve_pass()
         _, warm = serve_pass()
         launches = ops.launches
+        check(fa.launches == 0, "main path: serving launched the flash "
+                                "kernel")
         errors = [inst.error for inst in rs.instances]
         decode_steps = sum(inst.servicer.stats.decode_steps
                            for inst in rs.instances)
@@ -369,6 +404,265 @@ def phase_main_path(torch, configs, core, client, ops):
         rh.close()
 
 
+def flash_inputs(torch, seed, B, S, Hq, Hkv, D, dtype):
+    """q [B,S,Hq,D], k/v [B,S,Hkv,D] on the card from a seed."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return tuple(torch.randn((B, S, H, D), generator=gen, device=DEVICE)
+                 .to(dtype) for H in (Hq, Hkv, Hkv))
+
+
+def phase_flash(torch, fa, fa_ref):
+    """Flash kernel vs plain on the card: out, lse and the gradient."""
+    cases, worst = [], 0.0
+    for name, dtype, Hq, Hkv, D, (atol, rtol), gtol in (
+            ("rhapsody-demo", torch.float32, 8, 4, 32, F32_TOL,
+             F32_GRAD_TOL),
+            ("llama3.2-3b-f32", torch.float32, 24, 8, 128, F32_TOL,
+             F32_GRAD_TOL),
+            ("llama3.2-3b", torch.bfloat16, 24, 8, 128, BF16_TOL,
+             BF16_GRAD_TOL)):
+        for S in (1, 63, 64, 65, 200, 1024):
+            q, k, v = flash_inputs(torch, S, 2, S, Hq, Hkv, D, dtype)
+            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+            out = fa.FlashAttention.apply(qg, kg, vg)
+            _, lse = fa._launch(q, k, v)
+            plain, plain_lse = fa_ref.attention_fwd_ref(q, k, v)
+            torch.cuda.synchronize()
+            diff = (out.detach().float() - plain.float()).abs()
+            err = float(diff.max())
+            lse_err = float((lse - plain_lse).abs().max())
+            check(bool((diff <= atol + rtol * plain.float().abs()).all()),
+                  f"flash {name} S={S}: out error {err} > {atol} + {rtol} "
+                  f"x |plain|")
+            check(lse_err <= 2e-5 + 2e-5 * float(plain_lse.abs().max()),
+                  f"flash {name} S={S}: lse error {lse_err}")
+            gen = torch.Generator(device=DEVICE).manual_seed(S + 1)
+            dout = torch.randn(out.shape, generator=gen,
+                               device=DEVICE).to(dtype)
+            out.backward(dout)
+            q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
+            fa_ref.attention_fwd_ref(q32, k32, v32)[0].backward(dout.float())
+            grad_err = 0.0
+            for got, want in ((qg, q32), (kg, k32), (vg, v32)):
+                d = (got.grad.float() - want.grad).abs()
+                grad_err = max(grad_err, float(d.max()))
+                check(bool((d <= gtol + gtol * want.grad.abs()).all()),
+                      f"flash {name} S={S}: gradient error {float(d.max())}"
+                      f" > {gtol} + {gtol} x |plain|")
+            worst = max(worst, err)
+            cases.append({"config": name, "dtype": str(dtype).split(".")[-1],
+                          "B": 2, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
+                          "max_err": err, "lse_err": lse_err,
+                          "grad_err": grad_err, "atol": atol, "rtol": rtol,
+                          "grad_tol": gtol})
+    return cases, worst
+
+
+def phase_flash_timing(torch, fa_kernel, fa_ref):
+    """The flash kernel at the llama3.2-3b training shape, beside the plain
+    version, the library yardstick, the plain backward and the bound."""
+    B, S, Hq, Hkv, D = TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128
+    q, k, v = flash_inputs(torch, 0, B, S, Hq, Hkv, D, torch.bfloat16)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=DEVICE)
+    scale = 1.0 / math.sqrt(D)
+
+    def run_kernel():
+        err = fa_kernel.flash_attention_fwd(q, k, v, out, lse, scale)
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def run_library():
+        sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    run_kernel()
+    plain, plain_lse = fa_ref.attention_fwd_ref(q, k, v)
+    torch.cuda.synchronize()
+    diff = (out.float() - plain.float()).abs()
+    atol, rtol = BF16_TOL
+    check(bool((diff <= atol + rtol * plain.float().abs()).all()),
+          f"flash at the training shape: error {float(diff.max())}")
+    dout = torch.randn(out.shape, device=DEVICE).to(out.dtype)
+    kernel_ms = cuda_ms(run_kernel, 20)
+    plain_ms = cuda_ms(lambda: fa_ref.attention_fwd_ref(q, k, v), 3)
+    library_ms = cuda_ms(run_library, 20)
+    bwd_ms = cuda_ms(lambda: fa_ref.attention_bwd(q, k, v, out, lse, dout),
+                     3)
+    kernel_ms_2 = cuda_ms(run_kernel, 20)
+    itemsize = 2
+    bytes_moved = ((2 * B * S * Hq * D + 2 * B * S * Hkv * D) * itemsize
+                   + B * Hq * S * 4)  # q, k, v, out; lse
+    flops = 4 * B * Hq * D * S * (S + 1) // 2  # causal q.k and p.v
+    byte_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    op_ms = flops / H100_BF16_FLOPS * 1e3
+    return {"config": "llama3.2-3b", "B": B, "S": S, "Hq": Hq, "Hkv": Hkv,
+            "D": D, "dtype": "bfloat16", "kernel_ms": kernel_ms,
+            "kernel_ms_repeat": kernel_ms_2, "plain_ms": plain_ms,
+            "library_ms": library_ms, "attention_bwd_ms": bwd_ms,
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "bytes": bytes_moved, "flops": flops,
+            "max_err": float(diff.max()),
+            "achieved_TFLOPs": flops / (kernel_ms * 1e-3) / 1e12}
+
+
+def phase_train_step(torch, configs, get_model, fa, ops, optim, train,
+                     data):
+    """rhapsody-demo full config, f32: one step on the card equals the same
+    step on the CPU; then 30 steps on the card, where the loss falls."""
+    cfg = configs.get_config("rhapsody-demo")
+    api = get_model(cfg)
+    # eps 1e-3: Adam's first update g / (|g| + eps) is then linear in the
+    # gradients below eps; with eps 1e-8 it is their sign, and float32 sums
+    # taken in another order on the card flip it (PERF.md)
+    opt = optim.OptimizerConfig(lr=1e-3, eps=1e-3, warmup_steps=1,
+                                decay_steps=10)
+    tcfg = train.TrainConfig(optimizer=opt)
+    cpu = train.init_state(torch.Generator().manual_seed(0), api, cfg, opt,
+                           device="cpu")
+    card = {"params": optim.tree_map(
+        lambda t: t.detach().to(DEVICE, copy=True).requires_grad_(),
+        cpu["params"])}
+    card["opt"] = optim.adamw_init(card["params"], opt)
+    batch = data.DataPipeline(data.DataConfig(vocab=cfg.vocab),
+                              device="cpu").next_batch()
+    step = train.make_train_step(api, cfg, tcfg)
+    _, m_cpu = step(cpu, batch)
+    ops.launches = fa.launches = 0
+    _, m_card = step(card, {k: v.to(DEVICE) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    one_step = fa.launches
+    check(one_step == 2 * cfg.n_layers and ops.launches == 0,
+          f"train step: flash launches {one_step} != 2 x {cfg.n_layers}")
+    loss_cpu, loss_card = float(m_cpu["loss"]), float(m_card["loss"])
+    check(abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu),
+          f"train step: loss {loss_card} on the card != {loss_cpu} on the "
+          f"CPU")
+    worst = 0.0
+    for a, b in zip(optim.tree_leaves(card["params"]),
+                    optim.tree_leaves(cpu["params"])):
+        d = (a.detach().cpu() - b.detach()).abs()
+        worst = max(worst, float(d.max()))
+        check(bool((d <= 2e-5 + 2e-3 * b.detach().abs()).all()),
+              f"train step: parameter error {float(d.max())}")
+
+    # 30 steps on the synthetic corpus; the loss on a batch the steps do
+    # not see (the corpus at cursor 500) falls
+    tcfg = train.TrainConfig(optimizer=optim.OptimizerConfig(
+        lr=3e-3, warmup_steps=2, decay_steps=100))
+    pipe = data.DataPipeline(data.DataConfig(vocab=cfg.vocab),
+                             device=DEVICE)
+    unseen = data.DataPipeline(data.DataConfig(vocab=cfg.vocab),
+                               device=DEVICE)
+    unseen.restore({"step": 500, "seed": 0})
+    held = unseen.next_batch()
+    state = train.init_state(torch.Generator(device=DEVICE).manual_seed(0),
+                             api, cfg, tcfg.optimizer, device=DEVICE)
+    with torch.no_grad():
+        held_before = float(api.loss(state["params"], held, cfg)[0])
+    ops.launches = fa.launches = 0
+    t0 = time.perf_counter()
+    state, hist = train.train_loop(api, cfg, tcfg, steps=30,
+                                   data_iter=iter(pipe), state=state,
+                                   log_every=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fa.launches
+    losses = [h["loss"] for h in hist]
+    check(launches == 2 * cfg.n_layers * 30 and ops.launches == 0,
+          f"30 steps: flash launches {launches} != 2 x {cfg.n_layers} x 30")
+    with torch.no_grad():
+        held_after = float(api.loss(state["params"], held, cfg)[0])
+    check(all(math.isfinite(x) for x in losses)
+          and held_after < held_before,
+          f"30 steps: held-out loss {held_before} -> {held_after}; "
+          f"losses {losses}")
+    return {"config": cfg.name, "dtype": cfg.compute_dtype,
+            "step_loss_cpu": loss_cpu, "step_loss_card": loss_card,
+            "step_max_param_err": worst, "step_launches": one_step,
+            "losses": losses, "held_loss_before": held_before,
+            "held_loss_after": held_after, "launches": launches,
+            "seconds": seconds}
+
+
+def phase_train_launcher(fa, ops, launch_train):
+    """The trainer launcher with its defaults except --steps 20."""
+    ops.launches = fa.launches = 0
+    out = launch_train.main(["--steps", "20"]
+                            + ([] if DEVICE == "cuda" else
+                               ["--device", DEVICE]))
+    launches = fa.launches
+    losses = out["losses"]
+    check(len(losses) == 20 and all(math.isfinite(x) for x in losses),
+          f"trainer launcher: losses {losses}")
+    check(launches == 2 * 4 * 20 and ops.launches == 0,
+          f"trainer launcher: flash launches {launches} != 2 x 4 x 20")
+    return {"losses": losses, "launches": launches,
+            "seconds": out["seconds"], "device": out["device"]}
+
+
+def phase_train_main_path(torch, configs, get_model, fa, ops, optim, train,
+                          data):
+    """llama3.2-3b at full width: DataPipeline -> init_state ->
+    make_train_step, global batch 2, seq 2048, 3 AdamW steps."""
+    cfg = configs.get_config(MAIN_PATH_ARCH)
+    api = get_model(cfg)
+    opt = optim.OptimizerConfig(lr=3e-4, warmup_steps=1, decay_steps=100)
+    tcfg = train.TrainConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                             optimizer=opt)
+    pipe = data.DataPipeline(data.DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH),
+        device=DEVICE)
+    t_up = time.perf_counter()
+    state = train.init_state(torch.Generator(device=DEVICE).manual_seed(0),
+                             api, cfg, opt, device=DEVICE)
+    n_params = sum(p.numel() for p in optim.tree_leaves(state["params"]))
+    watch = [state["params"]["blocks"][0]["attn"]["q"]["w"],
+             state["params"]["blocks"][-1]["mlp"]["down"]["w"],
+             state["params"]["unembed"]["w"]]
+    before = [w.detach()[:64].clone() for w in watch]
+    step = train.make_train_step(api, cfg, tcfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_up
+    torch.cuda.reset_peak_memory_stats()
+    ops.launches = fa.launches = 0
+    times, losses, norms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        batch = pipe.next_batch()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launches = fa.launches
+    check(launches == 2 * cfg.n_layers * TRAIN_STEPS and ops.launches == 0,
+          f"training main path: flash launches {launches} != 2 x "
+          f"{cfg.n_layers} x {TRAIN_STEPS}")
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"training main path: loss {losses} / grad norm {norms}")
+    check(1.0 < losses[0] < 3 * math.log(cfg.vocab),
+          f"training main path: first loss {losses[0]} is not near "
+          f"ln(vocab) = {math.log(cfg.vocab)}")
+    changed = [bool((w.detach()[:64] != b).any())
+               for w, b in zip(watch, before)]
+    check(all(changed), f"training main path: parameters unchanged "
+                        f"{changed}")
+    median = sorted(times)[len(times) // 2]
+    return {"config": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab,
+            "dtype": cfg.compute_dtype, "remat": cfg.remat,
+            "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "setup_seconds": setup_s, "step_seconds": times,
+            "step_median_s": median,
+            "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / median,
+            "losses": losses, "grad_norms": norms, "launches": launches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
 def main():
     import torch
 
@@ -379,9 +673,15 @@ def main():
     from repro_torch import configs, core
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import kernel, ops, ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.launch import serve
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import get_model
     from repro_torch.serving import client, engine
+    from repro_torch.substrate import data
+    from repro_torch.training import optim, train
 
     # 0. device
     smi = subprocess.run(
@@ -396,29 +696,60 @@ def main():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    # 1. build
+    # 1. build both kernels at once, one nvcc each
     t0 = time.perf_counter()
-    kernel.load()
-    log = build.build_log["paged_decode_attention"]
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(kernel.load), pool.submit(fa_kernel.load)]:
+            fut.result()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": os.path.relpath(log["path"], ROOT),
-          "ptxas": [ln.strip() for ln in log["ptxas"].splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          "kernels": {name: {
+              "library": os.path.relpath(log["path"], ROOT),
+              "seconds": log["seconds"],
+              "ptxas": [ln.strip() for ln in log["ptxas"].splitlines()
+                        if "registers" in ln or "spill" in ln]}
+              for name, log in build.build_log.items()}})
 
-    # 2. kernel vs plain
+    # 2. paged decode kernel vs plain
     cases, timing, worst = phase_kernel(torch, ops, ref, kernel)
     emit({"phase": "kernel", "cases": cases, "timing": timing})
 
     # 3. model on the card, f32
     emit({"phase": "model", **phase_model(torch, configs, get_model, engine,
-                                          ops)})
+                                          ops, fa)})
 
     # 4. the launcher end to end
-    emit({"phase": "launcher", **phase_launcher(ops, serve)})
+    emit({"phase": "launcher", **phase_launcher(ops, fa, serve)})
 
-    # 5. the main path at a real model's full width
-    main_path = phase_main_path(torch, configs, core, client, ops)
+    # 5. the serving main path at a real model's full width
+    main_path = phase_main_path(torch, configs, core, client, ops, fa)
     emit({"phase": "main_path", **main_path})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. flash kernel vs plain, with the gradient
+    flash_cases, flash_worst = phase_flash(torch, fa, fa_ref)
+    emit({"phase": "flash", "cases": flash_cases})
+
+    # 7. flash timing at the training shape
+    flash_timing = phase_flash_timing(torch, fa_kernel, fa_ref)
+    emit({"phase": "flash_timing", **flash_timing})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. one train step on the card vs the CPU; 30 steps on the card
+    emit({"phase": "train_step", **phase_train_step(
+        torch, configs, get_model, fa, ops, optim, train, data)})
+
+    # 9. the trainer launcher
+    emit({"phase": "train_launcher", **phase_train_launcher(
+        fa, ops, launch_train)})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10. the training main path at a real model's full width
+    train_path = phase_train_main_path(torch, configs, get_model, fa, ops,
+                                       optim, train, data)
+    emit({"phase": "train_main_path", **train_path})
 
     emit({"kernels": [{
         "name": "paged_decode_attention",
@@ -433,6 +764,19 @@ def main():
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
+        "launches": train_path["launches"],
+        "max_abs_err": max(flash_worst, flash_timing["max_err"]),
+        "ms": flash_timing["kernel_ms"],
+        "plain_ms": flash_timing["plain_ms"],
+        "bound_ms": flash_timing["bound_ms"],
+        "bound_by": flash_timing["bound_by"],
+        "library_ms": flash_timing["library_ms"],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,10 +3,11 @@
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 compiles one ``.cu`` file with a plain C interface (no PyTorch headers, so a
 build takes seconds) into ``build/repro_torch_kernels/`` at the root of the
-checkout, named by a hash of the source and the flags.  The build runs
-under a lock and writes to a temporary name before an atomic rename:
-replica factories run in worker threads, so two replicas can reach the
-first build at once.  A build failure raises; nothing falls back.
+checkout, named by a hash of the source and the flags.  Each library
+builds under its own lock and writes to a temporary name before an atomic
+rename: replica factories run in worker threads, so two replicas can reach
+the first build at once, while different libraries may build at the same
+time (one ``nvcc`` each).  A build failure raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
-_lock = threading.Lock()
+_locks_lock = threading.Lock()
+_locks: dict = {}  # library name -> its build lock
 _libs: dict = {}
 build_log: dict = {}  # library name -> {"seconds", "ptxas", "path"}
 
@@ -41,7 +43,9 @@ def _nvcc() -> str:
 
 def load_library(name: str, source: Path) -> ctypes.CDLL:
     """Return the loaded library for ``source``, compiling it if needed."""
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

@@ -1,4 +1,4 @@
-"""Model registry: the uniform API the serving engine drives.
+"""Model registry: the uniform API that training and serving drive.
 
 Only the dense family is ported so far; the others raise, naming the
 ROADMAP item that ports them.
@@ -6,7 +6,9 @@ ROADMAP item that ports them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
+
+import torch
 
 from . import transformer as tfm
 from .config import ModelConfig
@@ -14,9 +16,11 @@ from .config import ModelConfig
 
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
-    """Uniform model surface used by serving."""
+    """Uniform model surface used by training and serving."""
 
     init: Callable  # (generator, cfg, *, device) -> params
+    loss: Callable  # (params, batch, cfg) -> (loss, metrics)
+    forward: Callable  # (params, batch, cfg) -> (logits, aux)
     prefill: Callable  # (params, batch, cfg, *, max_len, last_only) -> (cache, logits)
     decode: Callable  # (params, cache, tokens [B], cfg) -> (cache, logits [B,V])
     extend: Optional[Callable] = None  # (params, cache, tokens [B,T], cfg) -> (cache, logits [B,T,V])
@@ -32,21 +36,52 @@ _NOT_PORTED = {
 }
 
 
-def get_model(cfg: ModelConfig) -> ModelApi:
+def _require_dense(cfg: ModelConfig):
     if cfg.family != "dense" or cfg.is_moe:
         item = _NOT_PORTED.get("moe" if cfg.is_moe else cfg.family,
                                "the ROADMAP")
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to PyTorch "
             f"yet: {item}")
+
+
+def get_model(cfg: ModelConfig) -> ModelApi:
+    _require_dense(cfg)
     if cfg.positions not in ("rope", "none"):
         raise NotImplementedError(
             f"positions={cfg.positions!r} is not ported yet: ROADMAP Queue 1 "
             f"item 9 (encoder-decoder and VLM)")
     return ModelApi(
         init=tfm.lm_init,
+        loss=tfm.loss_fn,
+        forward=tfm.forward,
         prefill=tfm.prefill,
         decode=tfm.decode_step,
         extend=tfm.extend_step,
         decode_paged=tfm.paged_decode_step,
     )
+
+
+# ---------------------------------------------------------------------------
+# Synthetic batches (smoke tests / examples)
+# ---------------------------------------------------------------------------
+
+
+def make_batch(cfg: ModelConfig, batch: int, seq: int,
+               gen: Optional[torch.Generator] = None,
+               device="cpu") -> dict[str, Any]:
+    """Random token batch drawn from ``gen`` (on ``device``): tokens,
+    next-token targets (tokens rolled left by one) and an all-ones loss
+    mask.  The dense family only; the frontend stubs of encdec/vlm come
+    with their families."""
+    _require_dense(cfg)
+    if gen is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                           device=device, dtype=torch.int32)
+    return {
+        "tokens": tokens,
+        "targets": torch.roll(tokens, -1, dims=1),
+        "loss_mask": torch.ones((batch, seq), dtype=torch.float32,
+                                device=device),
+    }

@@ -1,12 +1,13 @@
-"""Attention for serving: GQA + RoPE (+ optional qk-norm / qkv-bias).
+"""Attention: GQA + RoPE (+ optional qk-norm / qkv-bias).
 
-The counterpart of the JAX package's ``models/attention.py`` for the paths a
-dense decoder serves with: full-sequence prefill, chunked extend,
-contiguous decode and paged decode.  Scores are float32 and masked with
-``NEG_INF = -1e30`` (never ``-inf``, never a fused kernel's own masking):
-masked columns then underflow to exact zeros in the softmax, which keeps
-chunked extend equal to one full prefill and paged decode equal to slot
-decode.
+The counterpart of the JAX package's ``models/attention.py`` for the paths
+a dense decoder trains and serves with: the full-sequence training forward
+(``attention_apply``, through the causal flash-attention kernel), prefill,
+chunked extend, contiguous decode and paged decode.  Scores are float32
+and masked with ``NEG_INF = -1e30`` (never ``-inf``; the kernels skip
+masked positions, which adds the same zeros): masked columns then
+underflow to exact zeros in the softmax, which keeps chunked extend equal
+to one full prefill and paged decode equal to slot decode.
 
 Where the reference updates caches functionally (``.at[].set`` under
 ``donate_argnums``), these functions write into the caller's cache
@@ -20,6 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
 
 from . import nn
 from .config import ModelConfig
@@ -138,6 +140,34 @@ def decode_attention(q, k_cache, v_cache, kv_length):
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def attention_apply(p, x, cfg: ModelConfig, *, causal=True, positions=None,
+                    x_kv=None, rope=True):
+    """Causal self-attention over a full sequence (the training forward).
+
+    Projects with ``_project_qkv`` and attends through
+    ``kernels.flash_attention.ops.flash_attention``: the hand-written CUDA
+    kernel whenever the tensors are on the card, its plain version on the
+    CPU.
+    The reference takes the Pallas kernel here under
+    ``attention_impl="pallas"`` and equal jnp attention otherwise."""
+    if x_kv is not None or not causal:
+        raise NotImplementedError(
+            "cross- and non-causal attention are not ported yet: ROADMAP "
+            "Queue 1 item 9 (encoder-decoder and VLM)")
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, x, cfg, positions, positions, rope=rope)
+    out = fa_ops.flash_attention(q, k, v)
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return nn.linear_apply(p["o"], out, cfg.cdtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,12 @@
-"""Dense decoder-only transformer LM for serving.
+"""Dense decoder-only transformer LM: training forward/loss and serving.
 
 The counterpart of the JAX package's ``models/transformer.py`` for dense
 models.  The reference stacks layer params ``[L, ...]`` and scans them with
 ``jax.lax.scan``; here ``p["blocks"]`` is a list of per-layer dicts walked by
-a Python loop.  Caches are dicts of stacked tensors:
+a Python loop, on one device (no mesh).  ``cfg.remat == "full"`` wraps each
+block in ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so
+the backward runs each block's forward again.  Caches are dicts of stacked
+tensors:
 
 * contiguous (``prefill`` / ``extend_step`` / ``decode_step``):
   ``{"k": [L,B,Smax,Hkv,D], "v": [L,B,Smax,Hkv,D], "len": [B] int32}``;
@@ -18,6 +21,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import nn
@@ -45,6 +49,17 @@ def _ffn(p, x, cfg: ModelConfig):
     h = nn.mlp_apply(p["mlp"], h, activation=cfg.activation,
                      compute_dtype=cfg.cdtype)
     return x + h
+
+
+def block_apply(p, x, cfg: ModelConfig, *, causal=True, positions=None):
+    """Full-sequence block forward.  Returns (y, aux_loss); aux is 0 for a
+    dense block."""
+    h = nn.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
+    h = attn.attention_apply(p["attn"], h, cfg, causal=causal,
+                             positions=positions,
+                             rope=cfg.positions == "rope")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _ffn(p, x + h, cfg), aux
 
 
 def block_prefill(p, x, cfg: ModelConfig, *, max_len: int, positions=None):
@@ -104,6 +119,60 @@ def lm_init(gen, cfg: ModelConfig, *, device="cpu"):
         p["unembed"] = nn.linear_init(gen, cfg.d_model, cfg.vocab, dtype=dt,
                                       device=device)
     return p
+
+
+# ---------------------------------------------------------------------------
+# Forward (training / full sequence)
+# ---------------------------------------------------------------------------
+
+
+def _run_blocks(p, x, cfg: ModelConfig, *, positions=None):
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is not ported yet: ROADMAP Queue 1 item 13 "
+            f"(launch tooling)")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in p["blocks"]:
+        def body(x, layer=layer):
+            return block_apply(layer, x, cfg, causal=True,
+                               positions=positions)
+
+        if cfg.remat == "full":
+            x, a = checkpoint(body, x, use_reentrant=False)
+        else:
+            x, a = body(x)
+        aux = aux + a
+    return x, aux
+
+
+def forward(p, batch, cfg: ModelConfig):
+    """tokens [B,S] -> (logits [B,S,V], aux)."""
+    tokens = batch["tokens"]
+    x = nn.embedding_apply(p["embed"], tokens, cfg.cdtype)
+    positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    x, aux = _run_blocks(p, x, cfg, positions=positions)
+    return _logits(p, x, cfg), aux
+
+
+def _ce_from_logits(logits, batch, aux, cfg: ModelConfig):
+    """Next-token cross entropy: float32 log-softmax, the target's
+    log-likelihood, mean over ``loss_mask`` (all ones by default)."""
+    targets = batch["targets"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = -(ll * mask).sum() / denom
+    total = ce + cfg.router_aux_weight * aux
+    return total, {"ce": ce, "aux": aux, "tokens": mask.sum()}
+
+
+def loss_fn(p, batch, cfg: ModelConfig):
+    logits, aux = forward(p, batch, cfg)
+    return _ce_from_logits(logits, batch, aux, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels against their plain versions, on the card.
+"""The hand-written CUDA kernels against their plain versions, on the card,
+and one training step on the card against the same step on the CPU.
 
 Needs a CUDA card and imports neither JAX nor the JAX package, so it runs
 where the port runs:
@@ -12,6 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.decode_attention import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 
 
 @pytest.fixture
@@ -77,3 +80,101 @@ def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda):
     with pytest.raises(TypeError):
         ops.paged_decode_attention(q, ks, vs, bt, lens)
     assert ops.launches == before
+
+
+def _qkv(seed, B, S, Hq, Hkv, D, dtype):
+    rng = np.random.RandomState(seed)
+    dt = getattr(torch, dtype)
+    return tuple(torch.from_numpy(rng.randn(B, S, H, D).astype(np.float32))
+                 .cuda().to(dt) for H in (Hq, Hkv, Hkv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,Hq,Hkv,D,atol,rtol,gtol", [
+    ("float32", 8, 4, 32, 2e-5, 2e-5, 1e-4),
+    ("float32", 24, 8, 128, 2e-5, 2e-5, 1e-4),
+    ("bfloat16", 24, 8, 128, 4e-3, 2.0 ** -7, 2e-2),
+    ("bfloat16", 4, 2, 64, 4e-3, 2.0 ** -7, 2e-2)])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 200])
+def test_cuda_flash_kernel_matches_plain(cuda, dtype, Hq, Hkv, D, atol, rtol,
+                                         gtol, S):
+    """The causal flash kernel's out and lse vs ``attention_fwd_ref`` on the
+    same inputs (ragged S included), and the gradient of
+    ``FlashAttention`` vs autograd of the plain version in float32."""
+    q, k, v = _qkv(7, 2, S, Hq, Hkv, D, dtype)
+    before = fa_ops.launches
+    out, lse = fa_ops._launch(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    plain, plain_lse = fa_ref.attention_fwd_ref(q, k, v)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(lse, plain_lse, rtol=2e-5, atol=2e-5)
+    dout = torch.randn(out.shape, generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda").to(out.dtype)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    fa_ops.FlashAttention.apply(qg, kg, vg).backward(dout)
+    q32, k32, v32 = (t.detach().float().requires_grad_() for t in (q, k, v))
+    fa_ref.attention_fwd_ref(q32, k32, v32)[0].backward(dout.float())
+    for got, want in ((qg, q32), (kg, k32), (vg, v32)):
+        torch.testing.assert_close(got.grad.float(), want.grad, rtol=gtol,
+                                   atol=gtol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    before = fa_ops.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention(*_qkv(1, 1, 8, 4, 2, 16, "float32"))
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(*_qkv(1, 1, 8, 4, 2, 32, "float16"))
+    q, k, v = _qkv(1, 1, 8, 4, 2, 32, "float32")
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention(q, k, v.transpose(2, 3).contiguous()
+                               .transpose(2, 3))
+    assert fa_ops.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu_step(cuda):
+    """One float32 step of rhapsody-demo cut to 2 layers (its heads: 8/4,
+    D 32) on the card (kernel) equals the same step on the CPU (plain
+    version): loss within 1e-5 relative, parameters within rtol 2e-3, atol
+    2e-5; the kernel ran 2 x n_layers times (remat recomputes each block's
+    forward)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.training import optim
+    from repro_torch.training.train import TrainConfig, init_state, \
+        make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("rhapsody-demo").scaled(n_layers=2, vocab=512)
+    api = get_model(cfg)
+    # eps 1e-3: the first update g / (|g| + eps) is then linear in the
+    # gradients below eps instead of their sign, which float32 sums taken
+    # in another order on the card would flip
+    opt = optim.OptimizerConfig(lr=1e-3, eps=1e-3, warmup_steps=1,
+                                decay_steps=10)
+    tcfg = TrainConfig(optimizer=opt)
+    cpu = init_state(torch.Generator().manual_seed(0), api, cfg, opt,
+                     device="cpu")
+    gpu = {"params": optim.tree_map(
+        lambda t: t.detach().cuda().requires_grad_(), cpu["params"])}
+    gpu["opt"] = optim.adamw_init(gpu["params"], opt)
+    rng = np.random.RandomState(0)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (4, 33)).astype(
+        np.int32))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    step = make_train_step(api, cfg, tcfg)
+    _, m_cpu = step(cpu, batch)
+    before = fa_ops.launches
+    _, m_gpu = step(gpu, {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert fa_ops.launches - before == 2 * cfg.n_layers
+    assert abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) <= \
+        1e-5 * abs(float(m_cpu["loss"]))
+    for a, b in zip(optim.tree_leaves(gpu["params"]),
+                    optim.tree_leaves(cpu["params"])):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=2e-3,
+                                   atol=2e-5)

@@ -35,14 +35,16 @@ def _imported_modules(path):
 
 @pytest.mark.parametrize("path", sorted(
     [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
-     ROOT / "profile_engine.py"]), ids=lambda p: str(p.relative_to(ROOT)))
+     ROOT / "profile_engine.py", ROOT / "profile_train.py"]),
+    ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_no_reference(path):
     bad = [m for m in _imported_modules(path) if _FORBIDDEN.match(m)]
     assert not bad, f"{path.name} imports {bad}"
 
 
-def test_launcher_import_loads_no_jax():
-    code = ("import sys, repro_torch.launch.serve; "
+@pytest.mark.parametrize("launcher", ["serve", "train"])
+def test_launcher_import_loads_no_jax(launcher):
+    code = (f"import sys, repro_torch.launch.{launcher}; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
