@@ -10,6 +10,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.device import resolve_device
+
 from . import transformer as tfm
 from .config import ModelConfig
 
@@ -69,12 +71,14 @@ def get_model(cfg: ModelConfig) -> ModelApi:
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int,
                gen: Optional[torch.Generator] = None,
-               device="cpu") -> dict[str, Any]:
-    """Random token batch drawn from ``gen`` (on ``device``): tokens,
-    next-token targets (tokens rolled left by one) and an all-ones loss
-    mask.  The dense family only; the frontend stubs of encdec/vlm come
-    with their families."""
+               device=None) -> dict[str, Any]:
+    """Random token batch drawn from ``gen`` on ``device`` (the CUDA card
+    unless the caller asks for the CPU): tokens, next-token targets
+    (tokens rolled left by one) and an all-ones loss mask.  The dense
+    family only; the frontend stubs of encdec/vlm come with their
+    families."""
     _require_dense(cfg)
+    device = resolve_device(device)
     if gen is None:
         gen = torch.Generator(device=device).manual_seed(0)
     tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,

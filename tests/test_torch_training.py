@@ -309,13 +309,13 @@ def test_remat_full_equals_none(lm):
 def test_make_batch_and_train_loop_on_cpu(lm):
     _, _, _, tcfg, tp = lm
     gen = torch.Generator().manual_seed(0)
-    b = make_batch(tcfg, 4, 16, gen)
+    b = make_batch(tcfg, 4, 16, gen, device="cpu")
     assert b["tokens"].dtype == torch.int32 and b["tokens"].shape == (4, 16)
     assert torch.equal(b["targets"][:, :-1], b["tokens"][:, 1:])
     tc = TrainConfig(global_batch=4, seq_len=16, optimizer=toptim.
                      OptimizerConfig(lr=1e-2, warmup_steps=2,
                                      decay_steps=100))
-    batches = iter([make_batch(tcfg, 4, 16, gen)] * 8)  # one batch, memorised
+    batches = iter([make_batch(tcfg, 4, 16, gen, device="cpu")] * 8)
     _, hist = train_loop(get_model(tcfg), tcfg, tc, steps=8,
                          data_iter=batches, device="cpu", log_every=7)
     assert hist[-1]["loss"] < hist[0]["loss"]
