@@ -29,9 +29,11 @@ Phases, each printing one JSON line:
    S in {1, 63, 64, 65, 200, 1024}; the same limits as phase 2), and the
    gradient of ``FlashAttention`` against autograd of the plain version in
    float32 (1e-4 for f32 inputs, 2e-2 for bf16).
-7. flash timing at the llama3.2-3b training shape (B 2, S 2048, Hq 24,
-   Hkv 8, D 128, bf16): the kernel, the plain version, the library
-   yardstick (SDPA, causal, GQA), ``attention_bwd`` and the bound.
+7. flash at the llama3.2-3b training shape (B 2, S 2048, Hq 24, Hkv 8,
+   D 128, bf16): the wrapper's out, lse and gradient against the plain
+   version as in phase 6, then the times of the kernel, the plain
+   version, the library yardstick (SDPA, causal, GQA), ``attention_bwd``
+   and the bound.
 8. train step: rhapsody-demo (full config, f32): one step on the card
    equals the same step on the CPU (loss within 1e-5 relative, every
    parameter within atol 2e-5, rtol 2e-3; Adam eps 1e-3, so the first
@@ -411,10 +413,49 @@ def flash_inputs(torch, seed, B, S, Hq, Hkv, D, dtype):
                  .to(dtype) for H in (Hq, Hkv, Hkv))
 
 
+def flash_case(torch, fa, fa_ref, name, dtype, B, S, Hq, Hkv, D, tol, gtol):
+    """The wrapper on the card against the plain version on the same
+    inputs: out from ``FlashAttention.apply``, lse from ``fa._launch``, and
+    the gradient of ``FlashAttention`` against autograd of the plain
+    version in float32.  Returns the case's record and (q, k, v, out,
+    lse)."""
+    atol, rtol = tol
+    q, k, v = flash_inputs(torch, S, B, S, Hq, Hkv, D, dtype)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fa.FlashAttention.apply(qg, kg, vg)
+    _, lse = fa._launch(q, k, v)
+    plain, plain_lse = fa_ref.attention_fwd_ref(q, k, v)
+    torch.cuda.synchronize()
+    diff = (out.detach().float() - plain.float()).abs()
+    err = float(diff.max())
+    lse_err = float((lse - plain_lse).abs().max())
+    check(bool((diff <= atol + rtol * plain.float().abs()).all()),
+          f"flash {name} S={S}: out error {err} > {atol} + {rtol} x |plain|")
+    check(lse_err <= 2e-5 + 2e-5 * float(plain_lse.abs().max()),
+          f"flash {name} S={S}: lse error {lse_err}")
+    gen = torch.Generator(device=DEVICE).manual_seed(S + 1)
+    dout = torch.randn(out.shape, generator=gen, device=DEVICE).to(dtype)
+    out.backward(dout)
+    q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
+    fa_ref.attention_fwd_ref(q32, k32, v32)[0].backward(dout.float())
+    grad_err = 0.0
+    for got, want in ((qg, q32), (kg, k32), (vg, v32)):
+        d = (got.grad.float() - want.grad).abs()
+        grad_err = max(grad_err, float(d.max()))
+        check(bool((d <= gtol + gtol * want.grad.abs()).all()),
+              f"flash {name} S={S}: gradient error {float(d.max())} > "
+              f"{gtol} + {gtol} x |plain|")
+    record = {"config": name, "dtype": str(dtype).split(".")[-1], "B": B,
+              "S": S, "Hq": Hq, "Hkv": Hkv, "D": D, "max_err": err,
+              "lse_err": lse_err, "grad_err": grad_err, "atol": atol,
+              "rtol": rtol, "grad_tol": gtol}
+    return record, (q, k, v, out.detach(), lse)
+
+
 def phase_flash(torch, fa, fa_ref):
     """Flash kernel vs plain on the card: out, lse and the gradient."""
-    cases, worst = [], 0.0
-    for name, dtype, Hq, Hkv, D, (atol, rtol), gtol in (
+    cases = []
+    for name, dtype, Hq, Hkv, D, tol, gtol in (
             ("rhapsody-demo", torch.float32, 8, 4, 32, F32_TOL,
              F32_GRAD_TOL),
             ("llama3.2-3b-f32", torch.float32, 24, 8, 128, F32_TOL,
@@ -422,53 +463,27 @@ def phase_flash(torch, fa, fa_ref):
             ("llama3.2-3b", torch.bfloat16, 24, 8, 128, BF16_TOL,
              BF16_GRAD_TOL)):
         for S in (1, 63, 64, 65, 200, 1024):
-            q, k, v = flash_inputs(torch, S, 2, S, Hq, Hkv, D, dtype)
-            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-            out = fa.FlashAttention.apply(qg, kg, vg)
-            _, lse = fa._launch(q, k, v)
-            plain, plain_lse = fa_ref.attention_fwd_ref(q, k, v)
-            torch.cuda.synchronize()
-            diff = (out.detach().float() - plain.float()).abs()
-            err = float(diff.max())
-            lse_err = float((lse - plain_lse).abs().max())
-            check(bool((diff <= atol + rtol * plain.float().abs()).all()),
-                  f"flash {name} S={S}: out error {err} > {atol} + {rtol} "
-                  f"x |plain|")
-            check(lse_err <= 2e-5 + 2e-5 * float(plain_lse.abs().max()),
-                  f"flash {name} S={S}: lse error {lse_err}")
-            gen = torch.Generator(device=DEVICE).manual_seed(S + 1)
-            dout = torch.randn(out.shape, generator=gen,
-                               device=DEVICE).to(dtype)
-            out.backward(dout)
-            q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
-            fa_ref.attention_fwd_ref(q32, k32, v32)[0].backward(dout.float())
-            grad_err = 0.0
-            for got, want in ((qg, q32), (kg, k32), (vg, v32)):
-                d = (got.grad.float() - want.grad).abs()
-                grad_err = max(grad_err, float(d.max()))
-                check(bool((d <= gtol + gtol * want.grad.abs()).all()),
-                      f"flash {name} S={S}: gradient error {float(d.max())}"
-                      f" > {gtol} + {gtol} x |plain|")
-            worst = max(worst, err)
-            cases.append({"config": name, "dtype": str(dtype).split(".")[-1],
-                          "B": 2, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
-                          "max_err": err, "lse_err": lse_err,
-                          "grad_err": grad_err, "atol": atol, "rtol": rtol,
-                          "grad_tol": gtol})
-    return cases, worst
+            cases.append(flash_case(torch, fa, fa_ref, name, dtype, 2, S,
+                                    Hq, Hkv, D, tol, gtol)[0])
+    return cases, max(c["max_err"] for c in cases)
 
 
-def phase_flash_timing(torch, fa_kernel, fa_ref):
-    """The flash kernel at the llama3.2-3b training shape, beside the plain
-    version, the library yardstick, the plain backward and the bound."""
+def phase_flash_timing(torch, fa_kernel, fa, fa_ref):
+    """The flash kernel at the llama3.2-3b training shape: the wrapper and
+    its gradient held against the plain version there, then the raw
+    kernel's time beside the plain version's, the library yardstick's,
+    the plain backward's and the bound."""
     B, S, Hq, Hkv, D = TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128
-    q, k, v = flash_inputs(torch, 0, B, S, Hq, Hkv, D, torch.bfloat16)
-    out = torch.empty_like(q)
-    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=DEVICE)
+    case, (q, k, v, out, lse) = flash_case(
+        torch, fa, fa_ref, "llama3.2-3b", torch.bfloat16, B, S, Hq, Hkv, D,
+        BF16_TOL, BF16_GRAD_TOL)
+    gc.collect()
+    torch.cuda.empty_cache()
     scale = 1.0 / math.sqrt(D)
+    out_t, lse_t = torch.empty_like(out), torch.empty_like(lse)
 
     def run_kernel():
-        err = fa_kernel.flash_attention_fwd(q, k, v, out, lse, scale)
+        err = fa_kernel.flash_attention_fwd(q, k, v, out_t, lse_t, scale)
         if err:
             raise RuntimeError(f"CUDA error {err}")
 
@@ -478,13 +493,6 @@ def phase_flash_timing(torch, fa_kernel, fa_ref):
     def run_library():
         sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
 
-    run_kernel()
-    plain, plain_lse = fa_ref.attention_fwd_ref(q, k, v)
-    torch.cuda.synchronize()
-    diff = (out.float() - plain.float()).abs()
-    atol, rtol = BF16_TOL
-    check(bool((diff <= atol + rtol * plain.float().abs()).all()),
-          f"flash at the training shape: error {float(diff.max())}")
     dout = torch.randn(out.shape, device=DEVICE).to(out.dtype)
     kernel_ms = cuda_ms(run_kernel, 20)
     plain_ms = cuda_ms(lambda: fa_ref.attention_fwd_ref(q, k, v), 3)
@@ -505,7 +513,8 @@ def phase_flash_timing(torch, fa_kernel, fa_ref):
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "bytes": bytes_moved, "flops": flops,
-            "max_err": float(diff.max()),
+            "max_err": case["max_err"], "lse_err": case["lse_err"],
+            "grad_err": case["grad_err"],
             "achieved_TFLOPs": flops / (kernel_ms * 1e-3) / 1e12}
 
 
@@ -604,27 +613,41 @@ def phase_train_launcher(fa, ops, launch_train):
             "seconds": out["seconds"], "device": out["device"]}
 
 
-def phase_train_main_path(torch, configs, get_model, fa, ops, optim, train,
-                          data):
-    """llama3.2-3b at full width: DataPipeline -> init_state ->
-    make_train_step, global batch 2, seq 2048, 3 AdamW steps."""
+def train_main_path():
+    """The training main path (phase 10; profile_train.py builds it here
+    too): llama3.2-3b, AdamW, the synthetic corpus at global batch 2 x seq
+    2048 on the card, the state from seed 0 -> (cfg, api, tcfg, pipe,
+    state, step)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import get_model
+    from repro_torch.substrate import data
+    from repro_torch.training import optim, train
+
     cfg = configs.get_config(MAIN_PATH_ARCH)
     api = get_model(cfg)
-    opt = optim.OptimizerConfig(lr=3e-4, warmup_steps=1, decay_steps=100)
-    tcfg = train.TrainConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-                             optimizer=opt)
+    tcfg = train.TrainConfig(
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        optimizer=optim.OptimizerConfig(lr=3e-4, warmup_steps=1,
+                                        decay_steps=100))
     pipe = data.DataPipeline(data.DataConfig(
         vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH),
         device=DEVICE)
-    t_up = time.perf_counter()
     state = train.init_state(torch.Generator(device=DEVICE).manual_seed(0),
-                             api, cfg, opt, device=DEVICE)
+                             api, cfg, tcfg.optimizer, device=DEVICE)
+    return cfg, api, tcfg, pipe, state, train.make_train_step(api, cfg, tcfg)
+
+
+def phase_train_main_path(torch, fa, ops, optim):
+    """llama3.2-3b at full width: DataPipeline -> init_state ->
+    make_train_step, global batch 2, seq 2048, 3 AdamW steps."""
+    t_up = time.perf_counter()
+    cfg, _, _, pipe, state, step = train_main_path()
     n_params = sum(p.numel() for p in optim.tree_leaves(state["params"]))
     watch = [state["params"]["blocks"][0]["attn"]["q"]["w"],
              state["params"]["blocks"][-1]["mlp"]["down"]["w"],
              state["params"]["unembed"]["w"]]
     before = [w.detach()[:64].clone() for w in watch]
-    step = train.make_train_step(api, cfg, tcfg)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_up
     torch.cuda.reset_peak_memory_stats()
@@ -731,7 +754,7 @@ def main():
     emit({"phase": "flash", "cases": flash_cases})
 
     # 7. flash timing at the training shape
-    flash_timing = phase_flash_timing(torch, fa_kernel, fa_ref)
+    flash_timing = phase_flash_timing(torch, fa_kernel, fa, fa_ref)
     emit({"phase": "flash_timing", **flash_timing})
     gc.collect()
     torch.cuda.empty_cache()
@@ -747,8 +770,7 @@ def main():
     torch.cuda.empty_cache()
 
     # 10. the training main path at a real model's full width
-    train_path = phase_train_main_path(torch, configs, get_model, fa, ops,
-                                       optim, train, data)
+    train_path = phase_train_main_path(torch, fa, ops, optim)
     emit({"phase": "train_main_path", **train_path})
 
     emit({"kernels": [{

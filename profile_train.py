@@ -4,7 +4,8 @@
 
     python3 profile_train.py [--steps N] [--trace PATH]
 
-Builds the training main path of ``chip_smoke.py`` phase 10 (llama3.2-3b
+Builds the training main path of ``chip_smoke.py`` phase 10 with its
+``train_main_path`` (llama3.2-3b
 full published config, bf16, remat full, random weights from seed 0,
 global batch 2 x seq 2048 from the synthetic corpus, AdamW) and runs
 ``--steps`` steps, each ending in ``torch.cuda.synchronize()``, so step
@@ -28,8 +29,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from chip_smoke import (MAIN_PATH_ARCH, TRAIN_BATCH,  # noqa: E402
-                        TRAIN_SEQ)
+from chip_smoke import (TRAIN_BATCH, TRAIN_SEQ,  # noqa: E402
+                        train_main_path)
 
 SPANS = ("train/forward_backward", "train/optimizer",
          "flash_attention/backward")
@@ -54,30 +55,17 @@ def main():
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.models import get_model
-    from repro_torch.substrate.data import DataConfig, DataPipeline
-    from repro_torch.training.optim import (OptimizerConfig, adamw_update,
-                                            tree_leaves, tree_unflatten)
-    from repro_torch.training.train import (TrainConfig, init_state,
-                                            make_train_step)
+    from repro_torch.training.optim import (adamw_update, tree_leaves,
+                                            tree_unflatten)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     emit({"device": smi, "torch": torch.__version__})
-    cfg = get_config(MAIN_PATH_ARCH)
-    api = get_model(cfg)
-    opt = OptimizerConfig(lr=3e-4, warmup_steps=1, decay_steps=100)
-    tcfg = TrainConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-                       optimizer=opt)
-    data = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                   global_batch=TRAIN_BATCH), device="cuda")
-    state = init_state(torch.Generator(device="cuda").manual_seed(0), api,
-                       cfg, opt, device="cuda")
-    step = make_train_step(api, cfg, tcfg)
+    cfg, api, tcfg, data, state, step = train_main_path()
+    opt = tcfg.optimizer
     times = []
     for _ in range(args.steps):
         batch = data.next_batch()
