@@ -6,54 +6,83 @@
 Phases, each printing one JSON line:
 
 0. device: the card's name and power limit (``nvidia-smi``); TF32 off.
-1. build: compile both hand-written kernels at once (one ``nvcc`` each):
-   the paged flash-decode (``kernels/decode_attention/csrc``) and the
-   causal flash attention (``kernels/flash_attention/csrc``); ptxas
-   registers and spills of each.
-2. kernel vs plain: the paged decode kernel against ``ref.paged_decode_ref``
-   on the card (rhapsody-demo f32, llama3.2-3b's heads in f32 and bf16;
-   ragged lengths, permuted tables, null-block padding rows; f32 within
-   2e-5, bf16 within 4e-3 + 2^-7 x |plain|; physical relocation exact),
-   then its time beside the plain version's, the library yardstick's
+1. build: compile the five hand-written kernels' four sources at once
+   (one ``nvcc`` each): the flash-decode pair, paged and contiguous
+   (``kernels/decode_attention/csrc``), the causal flash attention
+   (``kernels/flash_attention/csrc``), the chunked WKV6
+   (``kernels/rwkv6/csrc``) and the chunked Mamba2 SSD
+   (``kernels/mamba2/csrc``); ptxas registers and spills of each.
+2. paged decode kernel vs plain: against ``ref.paged_decode_ref`` on the
+   card (rhapsody-demo f32, llama3.2-3b's heads in f32 and bf16; ragged
+   lengths, permuted tables, null-block padding rows; f32 within 2e-5,
+   bf16 within 4e-3 + 2^-7 x |plain|; physical relocation exact), then its
+   time beside the plain version's, the library yardstick's
    (``scaled_dot_product_attention``, never called by the port) and the
    least time the card could take (its bound).
-3. model: rhapsody-demo (full config, f32): the paged engine's greedy
+3. contiguous decode kernel vs plain: against ``ref.decode_ref``
+   (rhapsody-demo, llama3.2-3b and zamba2-2.7b heads, D 80 included, f32
+   and bf16, the same limits; S 77 and 512; ragged lengths and idle rows
+   past S), then its times at zamba2's decode shape (B 8, Hkv 32, D 80,
+   S 512, 9 layer caches) and at llama3.2-3b's heads, beside the plain
+   version, SDPA (GQA, length mask) and the bound.
+4. WKV6 kernel vs plain: y and the final state against
+   ``ref.wkv_chunked_ref`` (f32 and bf16 r/k/v; T 37, 200 and 256; a
+   non-zero initial state; f32 within 1e-4 relative, the reference's own
+   limit; bf16 y as above), then its time at the rwkv6-1.6b prefill shape
+   (T 256, H 32, hd 64, chunk 32); no PyTorch call computes WKV6.
+5. SSD kernel vs plain: the same for ``ref.ssd_chunked_ref`` (T 96, 37 as
+   one chunk of 37, and 384), timed at the zamba2-2.7b prefill shape
+   (T 384, H 80, P = N = 64, chunk 128); no PyTorch call computes it.
+6. model: rhapsody-demo (full config, f32): the paged engine's greedy
    transcripts equal the contiguous prefill + decode_step oracle's.
-4. launcher: ``repro_torch.launch.serve`` with its defaults (rhapsody-demo,
+7. launcher: ``repro_torch.launch.serve`` with its defaults (rhapsody-demo,
    2 replicas, 16 requests).
-5. serving main path at full width: llama3.2-3b (bf16, 28 layers, random
+8. serving main path at full width: llama3.2-3b (bf16, 28 layers, random
    weights from a seed) behind ``Rhapsody`` with 2 replicas, 16 requests
    of 32 new tokens, served twice (cold, then warm).
-6. flash kernel vs plain: out and lse against ``ref.attention_fwd_ref``
+9. state models, f32 on the card: rwkv6-1.6b (2 layers) and zamba2-2.7b
+   (2 groups) at full width, and rhapsody-demo, through the slot engine
+   (``paged=False``): greedy transcripts against a recurrent oracle on the
+   card that runs no kernel, teacher-forced on the engine's transcript.
+10-11. slot-pool serving at full width: rwkv6-1.6b (24 layers, d 2048,
+   vocab 65536) and zamba2-2.7b (54 layers, d 2560, vocab 32000), bf16,
+   random weights from seed 0, behind ``Rhapsody`` with 2 replicas
+   through the default ``LLMServicer`` (auto: the slot pool), 16 requests
+   of 32 new tokens, cold then warm; prompts up to 400 tokens (rwkv6) and
+   256/384-token ones (zamba2) besides the log-normal ones.
+12. flash kernel vs plain: out and lse against ``ref.attention_fwd_ref``
    (rhapsody-demo heads in f32, llama3.2-3b heads in f32 and bf16; B 2,
    S in {1, 63, 64, 65, 200, 1024}; the same limits as phase 2), and the
    gradient of ``FlashAttention`` against autograd of the plain version in
    float32 (1e-4 for f32 inputs, 2e-2 for bf16).
-7. flash at the llama3.2-3b training shape (B 2, S 2048, Hq 24, Hkv 8,
+13. flash at the llama3.2-3b training shape (B 2, S 2048, Hq 24, Hkv 8,
    D 128, bf16): the wrapper's out, lse and gradient against the plain
-   version as in phase 6, then the times of the kernel, the plain
+   version as in phase 12, then the times of the kernel, the plain
    version, the library yardstick (SDPA, causal, GQA), ``attention_bwd``
    and the bound.
-8. train step: rhapsody-demo (full config, f32): one step on the card
+14. train step: rhapsody-demo (full config, f32): one step on the card
    equals the same step on the CPU (loss within 1e-5 relative, every
    parameter within atol 2e-5, rtol 2e-3; Adam eps 1e-3, so the first
    update is not the sign of gradients below eps); then 30 steps on the
    synthetic corpus on the card, after which the loss on a batch the steps
    did not see has fallen.
-9. trainer launcher: ``repro_torch.launch.train --steps 20``.
-10. training main path at full width: llama3.2-3b (bf16, 28 layers, remat
-    full, random weights from seed 0) through ``DataPipeline``,
-    ``init_state`` and ``make_train_step``: global batch 2, seq 2048,
-    AdamW, 3 steps.
+15. trainer launcher: ``repro_torch.launch.train --steps 20``.
+16. training main path at full width: llama3.2-3b (bf16, 28 layers, remat
+   full, random weights from seed 0) through ``DataPipeline``,
+   ``init_state`` and ``make_train_step``: global batch 2, seq 2048,
+   AdamW, 3 steps.
 
-Every main-path phase sets both kernels' launch counts to 0 just before it
-runs and checks them just after: a serving phase launches the decode
-kernel n_layers x decode batches times and the flash kernel never; a
+Every phase that drives a path sets all five kernels' launch counts to 0
+just before it runs and checks every count just after: the paged serving
+phases launch the paged decode kernel n_layers x decode steps times; the
+slot-pool phases launch WKV6 n_layers x prefills (rwkv6), SSD n_layers x
+prefills and the contiguous decode n_layers / attn_every x decode steps
+(zamba2), or the contiguous decode n_layers x decode steps (dense); a
 training phase launches the flash kernel 2 x n_layers x steps times (remat
-runs each block's forward again in the backward) and the decode kernel
-never.  Any failure exits non-zero.  The last lines are the kernels' JSON
-record, the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
-Without a CUDA card it exits 2 and prints no result.
+runs each block's forward again); every other kernel never.  Any failure
+exits non-zero.  The last lines are the five kernels' JSON record, the
+``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without a
+CUDA card it exits 2 and prints no result.
 """
 import concurrent.futures
 import gc
@@ -78,18 +107,34 @@ DEVICE = "cuda"
 F32_TOL = (2e-5, 2e-5)
 BF16_TOL = (4e-3, 2.0 ** -7)
 
-# the main path's model and engine (phase 5; profile_engine.py uses them too)
+# the main path's model and engine (phase 8; profile_engine.py uses them too)
 MAIN_PATH_ARCH = "llama3.2-3b"
 MAIN_PATH_NEW_TOKENS = 32
 MAIN_PATH_ENGINE = dict(max_num_seqs=8, max_num_batched_tokens=512,
                         max_len=1024, prefill_buckets=(16, 32, 64),
-                        block_size=16)
-# the training main path (phase 10)
+                        paged=True, block_size=16)
+# the training main path (phase 16)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
 # gradients of the flash kernel's Function vs autograd of the plain version
 # in float32: 1e-4 for f32 inputs; 2e-2 for bf16 (the reference's own bf16
 # limit for this kernel, tests/test_kernels.py)
 F32_GRAD_TOL, BF16_GRAD_TOL = 1e-4, 2e-2
+
+
+# the slot-pool serving of the state-carrying families (phases 9-11)
+STATE_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b")
+STATE_ENGINE = dict(max_num_seqs=8, max_num_batched_tokens=1024, max_len=512)
+ZAMBA_ATTN_LAYERS = 9  # zamba2-2.7b: 54 mamba layers, the shared block
+#                        after every 6
+WKV_SHAPE = (1, 256, 32, 64, 32)  # rwkv6-1.6b prefill: B, T, H, hd, chunk
+SSD_SHAPE = (1, 384, 80, 64, 64, 128)  # zamba2-2.7b prefill: B, T, H, P, N, L
+# WKV/SSD kernel vs plain in float32: 1e-4 relative with the same floor,
+# the reference's own limit for these scans (tests/test_kernels.py): exps
+# and chunk sums taken in another order
+SCAN_F32_TOL = (1e-4, 1e-4)
+# an f32 engine token may differ from the kernel-free oracle's only where
+# the oracle's top-two logits are closer than this (ROADMAP's rule)
+MODEL_GAP_TOL = 1e-3
 
 
 def main_path_prompt_lens(rng, n):
@@ -102,9 +147,38 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+# kernel name -> (its wrapper module, the wrapper's launch counter); main()
+# fills it after the imports
+COUNTERS = {}
+
+
+def zero_launches():
+    """Set every kernel's launch count to 0 (just before a phase's run)."""
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+def check_launches(where, **expected):
+    """Every kernel's launches since ``zero_launches()``: the named ones
+    must equal ``expected``, every other kernel must not have run."""
+    got = {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+    want = {name: expected.get(name, 0) for name in COUNTERS}
+    check(got == want, f"{where}: launches {got} != expected {want}")
+    return got
+
+
 def check(cond, msg):
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def within(got, plain, tol):
+    """(max |got - plain|, whether |got - plain| <= atol + rtol |plain|
+    everywhere) for tol = (atol, rtol)."""
+    atol, rtol = tol
+    diff = (got.float() - plain.float()).abs()
+    return float(diff.max()), bool(
+        (diff <= atol + rtol * plain.float().abs()).all())
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -168,9 +242,7 @@ def phase_kernel(torch, ops, ref, kernel):
         plain = ref.paged_decode_ref(q.reshape(n, Hkv, G, D), ks[0], vs[0],
                                      bt, ln).reshape(out.shape)
         torch.cuda.synchronize()
-        diff = (out.float() - plain.float()).abs()
-        err = float(diff.max())
-        ok = bool((diff <= atol + rtol * plain.float().abs()).all())
+        err, ok = within(out, plain, (atol, rtol))
         check(ok, f"{name}: kernel vs plain max error {err} > "
                   f"{atol} + {rtol} x |plain|")
         # relocate physical blocks: output must not change at all
@@ -201,14 +273,10 @@ def phase_kernel(torch, ops, ref, kernel):
     main_err = 0.0
     for layer in (0, L - 1):
         got = ops.paged_decode_attention(q, ks[layer], vs[layer], bt, ln)
-        plain = ref.paged_decode_ref(qg, ks[layer], vs[layer], bt,
-                                     ln).float()
-        diff = (got.reshape(plain.shape).float() - plain).abs()
-        atol, rtol = BF16_TOL
-        check(bool((diff <= atol + rtol * plain.abs()).all()),
-              f"llama3.2-3b main shape: kernel vs plain error "
-              f"{float(diff.max())}")
-        main_err = max(main_err, float(diff.max()))
+        plain = ref.paged_decode_ref(qg, ks[layer], vs[layer], bt, ln)
+        err, ok = within(got.reshape(plain.shape), plain, BF16_TOL)
+        check(ok, f"llama3.2-3b main shape: kernel vs plain error {err}")
+        main_err = max(main_err, err)
     worst["llama3.2-3b"] = max(worst["llama3.2-3b"], main_err)
 
     def run_kernel():
@@ -261,7 +329,7 @@ def phase_kernel(torch, ops, ref, kernel):
     return cases, timing, worst
 
 
-def phase_model(torch, configs, get_model, engine_mod, ops, fa):
+def phase_model(torch, configs, get_model, engine_mod):
     """rhapsody-demo full config, f32: paged engine == contiguous oracle."""
     cfg = configs.get_config("rhapsody-demo")
     api = get_model(cfg)
@@ -285,43 +353,42 @@ def phase_model(torch, configs, get_model, engine_mod, ops, fa):
     eng = engine_mod.InferenceEngine(
         cfg, params, device=DEVICE, max_num_seqs=4,
         max_num_batched_tokens=256, max_len=128, prefill_buckets=(16, 32),
-        block_size=16)
-    ops.launches = fa.launches = 0
+        paged=True, block_size=16)
+    zero_launches()
     uids = [eng.submit(p, max_new_tokens=steps) for p in prompts]
     done = eng.run()
     torch.cuda.synchronize()
-    launches = ops.launches
-    check(fa.launches == 0, "serving launched the flash kernel")
+    launches = check_launches("model", paged_decode_attention=cfg.n_layers
+                              * eng.stats.decode_steps)[
+        "paged_decode_attention"]
     got = [done[u].output for u in uids]
     check(got == oracle, f"paged transcripts {got} != oracle {oracle}")
-    check(launches == cfg.n_layers * eng.stats.decode_steps > 0,
-          f"launches {launches} != {cfg.n_layers} x "
-          f"{eng.stats.decode_steps} decode steps")
+    check(launches > 0, "model: no decode step ran")
     return {"prompts": len(prompts), "new_tokens": steps,
             "transcripts_equal": True, "launches": launches,
             "decode_steps": eng.stats.decode_steps}
 
 
-def phase_launcher(ops, fa, serve):
+def phase_launcher(serve):
     """The launcher with its defaults: rhapsody-demo, 2 replicas."""
-    ops.launches = fa.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     out = serve.main([] if DEVICE == "cuda" else ["--device", DEVICE])
-    launches = ops.launches
-    check(fa.launches == 0, "launcher: serving launched the flash kernel")
+    launches = check_launches(
+        "launcher", paged_decode_attention=4 * out["decode_steps"])[
+        "paged_decode_attention"]
     res = out["results"]
     check(len(res) == 16 and all(len(r["tokens"]) == 8 for r in res),
           "launcher: a request came back short")
     check(all(e is None for e in out["errors"]),
           f"launcher: replica errors {out['errors']}")
-    check(launches == 4 * out["decode_steps"] > 0,
-          f"launcher: launches {launches} != 4 x {out['decode_steps']}")
+    check(launches > 0, "launcher: no decode step ran")
     return {"requests": len(res), "launches": launches,
             "decode_steps": out["decode_steps"],
             "seconds": time.perf_counter() - t0}
 
 
-def phase_main_path(torch, configs, core, client, ops, fa):
+def phase_main_path(torch, configs, core, client):
     """llama3.2-3b at full width behind Rhapsody: 2 replicas, 16 requests,
     served twice with fresh prompts of the same lengths.  The first pass
     pays every first call (matmul shapes, allocator growth); the second
@@ -371,19 +438,18 @@ def phase_main_path(torch, configs, core, client, ops, fa):
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ops.launches = fa.launches = 0
+        zero_launches()
         prompts, cold = serve_pass()
         _, warm = serve_pass()
-        launches = ops.launches
-        check(fa.launches == 0, "main path: serving launched the flash "
-                                "kernel")
         errors = [inst.error for inst in rs.instances]
         decode_steps = sum(inst.servicer.stats.decode_steps
                            for inst in rs.instances)
+        launches = check_launches(
+            "main path", paged_decode_attention=cfg.n_layers * decode_steps)[
+            "paged_decode_attention"]
         stats = rs.stats()
         check(all(e is None for e in errors), f"replica errors {errors}")
-        check(launches == cfg.n_layers * decode_steps > 0,
-              f"launches {launches} != {cfg.n_layers} x {decode_steps}")
+        check(launches > 0, "main path: no decode step ran")
         # the served weights give finite logits of the expected shape
         eng = rs.instances[0].servicer.engine
         _, logits = eng.api.prefill(
@@ -402,6 +468,466 @@ def phase_main_path(torch, configs, core, client, ops, fa):
                 "per_replica_requests": [p["requests"]
                                          for p in stats["per_replica"]],
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    finally:
+        rh.close()
+
+
+# ---------------------------------------------------------------------------
+# Slot-pool serving of the state-carrying families (rwkv6, zamba2): the
+# contiguous flash-decode, WKV6 and SSD kernels
+# ---------------------------------------------------------------------------
+
+
+def bound_ms(bytes_moved, ops, rate):
+    """The least time for the work: bytes at 3.35 TB/s or operations at
+    ``rate``, whichever is longer -> (ms, what bounds it)."""
+    byte_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    op_ms = ops / rate * 1e3
+    return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms
+                                 else "operations")
+
+
+def card_randn(torch, gen, shape, dtype, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=DEVICE)
+            * scale).to(dtype)
+
+
+def state_prompt_lens(rng, arch, n):
+    """The serving phases' prompt lengths: log-normal (median ~20 tokens)
+    up to 128, plus, for rwkv6, four of 100-400 tokens (padding and several
+    32-token chunks) and, for zamba2, 256, 384 and 256 (several 128-token
+    chunks; zamba2 prefills at most ``ssm_chunk`` tokens or a multiple of
+    it, as the reference)."""
+    lens = np.clip(np.exp(rng.normal(3.0, 0.7, n)), 4, 128).astype(int)
+    long = (rng.randint(100, 401, size=4) if arch == STATE_ARCHS[0]
+            else np.asarray([256, 384, 256]))
+    lens[3:3 + 4 * len(long):4] = long
+    return lens
+
+
+def decode_timing(torch, ops, ref, kernel, name, L, B, Hkv, G, D, S, lens):
+    """The contiguous decode kernel over ``L`` layer caches [B, S, Hkv, D]
+    in bf16, as an engine holds them (cold in the 50 MB L2 each call):
+    held against the plain version on the first and last layer, then timed
+    beside it, SDPA (GQA, length mask) and the bound."""
+    lens = [int(n) for n in lens]
+    gen = torch.Generator(device=DEVICE).manual_seed(L)
+    bf16 = torch.bfloat16
+    kc = card_randn(torch, gen, (L, B, S, Hkv, D), bf16)
+    vc = card_randn(torch, gen, (L, B, S, Hkv, D), bf16)
+    q = card_randn(torch, gen, (B, 1, Hkv * G, D), bf16)
+    ln = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    qg = q.reshape(B, Hkv, G, D)
+    err = 0.0
+    for layer in (0, L - 1):
+        got = ops.decode_attention(q, kc[layer], vc[layer], ln)
+        plain = ref.decode_ref(qg, kc[layer], vc[layer], ln)
+        e, ok = within(got.reshape(plain.shape), plain, BF16_TOL)
+        check(ok, f"{name} decode shape: kernel vs plain error {e}")
+        err = max(err, e)
+    out = torch.empty_like(qg)
+    scale = 1.0 / math.sqrt(D)
+
+    def run_kernel():
+        for layer in range(L):
+            code = kernel.decode_attention_grouped(qg, kc[layer], vc[layer],
+                                                   ln, out, scale)
+            if code:
+                raise RuntimeError(f"CUDA error {code}")
+
+    def run_plain():
+        for layer in range(L):
+            ref.decode_ref(qg, kc[layer], vc[layer], ln)
+
+    mask = (torch.arange(S, device=DEVICE)[None, :] < ln[:, None].long()
+            )[:, None, None, :]  # [B, 1, 1, S]
+    kt = [kc[layer].transpose(1, 2).contiguous() for layer in range(L)]
+    vt = [vc[layer].transpose(1, 2).contiguous() for layer in range(L)]
+    qs = q.transpose(1, 2).contiguous()  # [B, Hq, 1, D]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def run_library():
+        for layer in range(L):
+            sdpa(qs, kt[layer], vt[layer], attn_mask=mask, enable_gqa=True)
+
+    kernel_ms = cuda_ms(run_kernel, 20) / L
+    plain_ms = cuda_ms(run_plain, 3) / L
+    library_ms = cuda_ms(run_library, 5) / L
+    kernel_ms_2 = cuda_ms(run_kernel, 20) / L
+    attended = sum(min(n, S) for n in lens)
+    bytes_moved = (attended * Hkv * D * 2 * 2  # K and V rows, bf16
+                   + 2 * B * Hkv * G * D * 2 + B * 4)  # q, out; lengths
+    flops = 4 * attended * Hkv * G * D
+    bms, by = bound_ms(bytes_moved, flops, H100_BF16_FLOPS)
+    del kc, vc, kt, vt
+    torch.cuda.empty_cache()
+    return {"config": name, "layers": L, "B": B, "Hkv": Hkv, "G": G, "D": D,
+            "S": S, "lens": lens, "kernel_ms": kernel_ms,
+            "kernel_ms_repeat": kernel_ms_2, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+            "bytes": bytes_moved, "flops": flops, "max_err": err,
+            "achieved_GBps": bytes_moved / (kernel_ms * 1e-3) / 1e9}
+
+
+def phase_decode(torch, ops, ref, kernel):
+    """The contiguous decode kernel vs ``ref.decode_ref`` on the card:
+    rhapsody-demo's, llama3.2-3b's and zamba2-2.7b's heads in f32 and bf16;
+    S = 77 and the slot engine's max_len; ragged lengths and idle rows
+    whose length is past S (the kernel clamps, the plain mask admits
+    everything); then its times at zamba2's decode shape and at
+    llama3.2-3b's heads."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    cases, worst = [], 0.0
+    for name, dtype, Hkv, G, D, tol in (
+            ("rhapsody-demo", f32, 4, 2, 32, F32_TOL),
+            ("llama3.2-3b-f32", f32, 8, 3, 128, F32_TOL),
+            ("llama3.2-3b", bf16, 8, 3, 128, BF16_TOL),
+            ("zamba2-2.7b-f32", f32, 32, 1, 80, F32_TOL),
+            ("zamba2-2.7b", bf16, 32, 1, 80, BF16_TOL)):
+        for S in (77, STATE_ENGINE["max_len"]):
+            lens = [1, 31, 32, 33, S - 1, S, S + 1, S + 500]
+            B = len(lens)
+            q = card_randn(torch, gen, (B, 1, Hkv * G, D), dtype)
+            kc = card_randn(torch, gen, (B, S, Hkv, D), dtype)
+            vc = card_randn(torch, gen, (B, S, Hkv, D), dtype)
+            ln = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+            out = ops.decode_attention(q, kc, vc, ln)
+            plain = ref.decode_ref(q.reshape(B, Hkv, G, D), kc, vc,
+                                   ln).reshape(out.shape)
+            torch.cuda.synchronize()
+            err, ok = within(out, plain, tol)
+            check(ok and bool(torch.isfinite(out).all()),
+                  f"decode {name} S={S}: kernel vs plain error {err} > "
+                  f"{tol[0]} + {tol[1]} x |plain|")
+            worst = max(worst, err)
+            cases.append({"config": name, "dtype": str(dtype).split(".")[-1],
+                          "Hkv": Hkv, "G": G, "D": D, "S": S, "lens": lens,
+                          "max_err": err, "atol": tol[0], "rtol": tol[1]})
+    rng = np.random.RandomState(4)
+    zlens = state_prompt_lens(rng, STATE_ARCHS[1], 16)[:8] + \
+        rng.randint(1, 33, size=8)  # prompts and generated tokens
+    zamba = decode_timing(torch, ops, ref, kernel, "zamba2-2.7b",
+                          ZAMBA_ATTN_LAYERS, 8, 32, 1, 80,
+                          STATE_ENGINE["max_len"], zlens)
+    llama = decode_timing(torch, ops, ref, kernel, "llama3.2-3b", 28, 8, 8,
+                          3, 128, MAIN_PATH_ENGINE["max_len"],
+                          rng.randint(480, 545, size=8))
+    worst = max(worst, zamba["max_err"], llama["max_err"])
+    return cases, zamba, llama, worst
+
+
+def phase_wkv(torch, ops, ref, kernel):
+    """The WKV6 kernel vs ``ref.wkv_chunked_ref`` on the card (f32 and bf16
+    r/k/v; smoke and full-width shapes; a T that is no multiple of the
+    chunk; a non-zero initial state): y and the final state; then its time
+    at the rwkv6-1.6b prefill shape."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+
+    def inputs(dtype, B, T, H, hd, s0_scale):
+        r, k, v = (card_randn(torch, gen, (B, T, H, hd), dtype, 0.5)
+                   for _ in range(3))
+        lw = -torch.exp(card_randn(torch, gen, (B, T, H, hd), f32) - 1.0)
+        u = card_randn(torch, gen, (H, hd), f32, 0.1)
+        s0 = card_randn(torch, gen, (B, H, hd, hd), f32, s0_scale)
+        return r, k, v, lw, u, s0
+
+    cases, worst = [], 0.0
+    for dtype, tol in ((f32, SCAN_F32_TOL), (bf16, BF16_TOL)):
+        for B, T, H, hd, chunk in ((2, 37, 4, 16, 8), (1, 200, 32, 64, 32),
+                                   WKV_SHAPE):
+            r, k, v, lw, u, s0 = inputs(dtype, B, T, H, hd, 0.1)
+            y, s = ops.wkv(r, k, v, lw, u, chunk=chunk, s0=s0)
+            pad = -T % chunk
+            padded = [torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                      for t in (r, k, v, lw)]
+            py, ps = ref.wkv_chunked_ref(*padded, u, chunk, s0)
+            torch.cuda.synchronize()
+            err, ok = within(y, py[:, :T], tol)
+            serr, sok = within(s, ps, SCAN_F32_TOL)
+            check(ok and sok, f"wkv {dtype} {(B, T, H, hd, chunk)}: y error "
+                              f"{err}, state error {serr}")
+            worst = max(worst, err, serr)
+            cases.append({"dtype": str(dtype).split(".")[-1], "B": B, "T": T,
+                          "H": H, "hd": hd, "chunk": chunk, "max_err": err,
+                          "state_err": serr, "atol": tol[0], "rtol": tol[1]})
+    # the prefill's shape: bf16 r/k/v, float32 decay, zero initial state
+    B, T, H, hd, L = WKV_SHAPE
+    r, k, v, lw, u, s0 = inputs(bf16, B, T, H, hd, 0.0)
+    y, s = torch.empty_like(r), torch.empty_like(s0)
+
+    def run_kernel():
+        code = kernel.wkv6_forward(r, k, v, lw, u, s0, y, s, L)
+        if code:
+            raise RuntimeError(f"CUDA error {code}")
+
+    kernel_ms = cuda_ms(run_kernel, 50)
+    plain_ms = cuda_ms(lambda: ref.wkv_chunked_ref(r, k, v, lw, u, L, s0), 5)
+    kernel_ms_2 = cuda_ms(run_kernel, 50)
+    n = B * T * H * hd
+    bytes_moved = (3 * n * 2 + n * 4 + H * hd * 4  # r/k/v bf16, lw, u
+                   + 2 * B * H * hd * hd * 4 + n * 2)  # s0, s; y bf16
+    ops_count = B * T * H * (7 * L * hd + 4 * hd * hd)
+    bms, by = bound_ms(bytes_moved, ops_count, H100_BF16_FLOPS)
+    return cases, {"config": "rwkv6-1.6b", "B": B, "T": T, "H": H, "hd": hd,
+                   "chunk": L, "dtype": "bfloat16", "kernel_ms": kernel_ms,
+                   "kernel_ms_repeat": kernel_ms_2, "plain_ms": plain_ms,
+                   "library_ms": None, "bound_ms": bms, "bound_by": by,
+                   "bytes": bytes_moved, "operations": ops_count}, worst
+
+
+def phase_ssd(torch, ops, ref, kernel):
+    """The SSD kernel vs ``ref.ssd_chunked_ref`` on the card (f32 and bf16
+    x/B/C; smoke and full-width shapes; a 37-token prompt as one chunk of
+    37; a non-zero initial state): y and the final state; then its time at
+    the zamba2-2.7b prefill shape."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+
+    def inputs(dtype, B, T, H, P, N, h0_scale):
+        x = card_randn(torch, gen, (B, T, H, P), dtype)
+        dt = torch.nn.functional.softplus(
+            card_randn(torch, gen, (B, T, H), f32) - 2.0)
+        A = -(1.0 + 15.0 * torch.rand((H,), generator=gen, device=DEVICE))
+        Bm = card_randn(torch, gen, (B, T, N), dtype)
+        Cm = card_randn(torch, gen, (B, T, N), dtype)
+        h0 = card_randn(torch, gen, (B, H, N, P), f32, h0_scale)
+        return x, dt, A, Bm, Cm, h0
+
+    cases, worst = [], 0.0
+    for dtype, tol in ((f32, SCAN_F32_TOL), (bf16, BF16_TOL)):
+        for shape in ((2, 96, 4, 16, 16, 16), (1, 37, 4, 16, 16, 128),
+                      SSD_SHAPE):
+            B, T, H, P, N, chunk = shape
+            x, dt, A, Bm, Cm, h0 = inputs(dtype, B, T, H, P, N, 0.1)
+            y, h = ops.ssd(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+            py, ph = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, min(chunk, T), h0)
+            torch.cuda.synchronize()
+            err, ok = within(y, py, tol)
+            serr, sok = within(h, ph, SCAN_F32_TOL)
+            check(ok and sok, f"ssd {dtype} {shape}: y error {err}, state "
+                              f"error {serr}")
+            worst = max(worst, err, serr)
+            cases.append({"dtype": str(dtype).split(".")[-1], "B": B, "T": T,
+                          "H": H, "P": P, "N": N, "chunk": min(chunk, T),
+                          "max_err": err, "state_err": serr, "atol": tol[0],
+                          "rtol": tol[1]})
+    # the prefill's shape: bf16 x/B/C, float32 dt and A, no initial state
+    B, T, H, P, N, L = SSD_SHAPE
+    x, dt, A, Bm, Cm, _ = inputs(bf16, B, T, H, P, N, 0.0)
+    y = torch.empty_like(x)
+    h = torch.empty((B, H, N, P), dtype=f32, device=DEVICE)
+
+    def run_kernel():
+        code = kernel.ssd_forward(x, dt, A, Bm, Cm, None, y, h, L)
+        if code:
+            raise RuntimeError(f"CUDA error {code}")
+
+    kernel_ms = cuda_ms(run_kernel, 50)
+    plain_ms = cuda_ms(lambda: ref.ssd_chunked_ref(x, dt, A, Bm, Cm, L), 5)
+    kernel_ms_2 = cuda_ms(run_kernel, 50)
+    bytes_moved = (2 * B * T * H * P * 2  # x in, y out (bf16)
+                   + B * T * H * 4 + H * 4  # dt, A
+                   + 2 * B * T * N * 2  # B, C (bf16)
+                   + B * H * N * P * 4)  # final state
+    ops_count = 2 * B * T * H * (L * N + L * P + 2 * N * P)
+    bms, by = bound_ms(bytes_moved, ops_count, H100_BF16_FLOPS)
+    return cases, {"config": "zamba2-2.7b", "B": B, "T": T, "H": H, "P": P,
+                   "N": N, "chunk": L, "dtype": "bfloat16",
+                   "kernel_ms": kernel_ms, "kernel_ms_repeat": kernel_ms_2,
+                   "plain_ms": plain_ms, "library_ms": None,
+                   "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+                   "operations": ops_count}, worst
+
+
+def oracle_logits(torch, get_model, cfg, params, tokens):
+    """Last-position logits of a forward over ``tokens`` that launches no
+    kernel: rwkv6 through ``wkv_recurrent`` (``chunked=False``), zamba2
+    through ``mamba_block_apply(recurrent_oracle=True)`` and the shared
+    block's prefill (PyTorch attention), dense through its prefill (the
+    same)."""
+    from repro_torch.models import mamba2, nn, rwkv6
+    from repro_torch.models import transformer as tfm
+
+    t = torch.tensor([tokens], device=DEVICE)
+    if cfg.family == "ssm":
+        x = nn.layernorm_apply(params["ln_in"], nn.embedding_apply(
+            params["embed"], t, cfg.cdtype), cfg.norm_eps)
+        for bp in params["blocks"]:
+            x, _ = rwkv6.rwkv_block_apply(bp, x, cfg, chunked=False)
+        x = nn.layernorm_apply(params["ln_f"], x[:, -1:], cfg.norm_eps)
+    elif cfg.family == "hybrid":
+        x = nn.embedding_apply(params["embed"], t, cfg.cdtype)
+        pos = torch.arange(len(tokens), device=DEVICE)[None, :]
+        for group in params["groups"]:
+            for bp in group:
+                x = mamba2.mamba_block_apply(bp, x, cfg,
+                                             recurrent_oracle=True)
+            x, _ = tfm.block_prefill(params["shared"], x, cfg,
+                                     max_len=len(tokens), positions=pos)
+        x = nn.rmsnorm_apply(params["ln_f"], x[:, -1:], cfg.norm_eps)
+    else:
+        _, logits = get_model(cfg).prefill(params, {"tokens": t}, cfg,
+                                           max_len=len(tokens))
+        return logits[0]
+    return nn.linear_apply(params["unembed"], x, torch.float32)[0, 0]
+
+
+def phase_state_model(torch, configs, get_model, engine_mod):
+    """f32 on the card: rwkv6-1.6b (2 layers) and zamba2-2.7b (2 groups),
+    full width, and rhapsody-demo, through the slot engine (paged=False):
+    its greedy transcripts against a recurrent oracle on the same card that
+    runs no kernel, teacher-forced on the engine's transcript (a token may
+    differ only where the oracle's top-two gap is under MODEL_GAP_TOL)."""
+    records = []
+    for arch, cut, lens in (
+            ("rwkv6-1.6b", {"n_layers": 2}, (3, 17, 40, 100)),
+            ("zamba2-2.7b", {"n_layers": 12}, (3, 17, 64, 128, 256)),
+            ("rhapsody-demo", {}, (3, 8, 9, 17, 30))):
+        cfg = configs.get_config(arch).scaled(
+            param_dtype="float32", compute_dtype="float32", **cut)
+        api = get_model(cfg)
+        params = api.init(torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                          device=DEVICE)
+        rng = np.random.RandomState(len(lens))
+        prompts = [list(map(int, rng.randint(1, cfg.vocab, size=n)))
+                   for n in lens]
+        steps = 6
+        eng = engine_mod.InferenceEngine(
+            cfg, params, device=DEVICE, paged=False, max_num_seqs=4,
+            max_num_batched_tokens=512, max_len=320,
+            prefill_buckets=(16, 32, 64))
+        zero_launches()
+        uids = [eng.submit(p, max_new_tokens=steps) for p in prompts]
+        done = eng.run()
+        torch.cuda.synchronize()
+        if cfg.family == "ssm":
+            want = {"wkv6": cfg.n_layers * len(prompts)}
+        elif cfg.family == "hybrid":
+            want = {"ssd": cfg.n_layers * len(prompts),
+                    "decode_attention": (cfg.n_layers // cfg.attn_every)
+                    * eng.stats.decode_steps}
+        else:
+            want = {"decode_attention": cfg.n_layers * eng.stats.decode_steps}
+        launches = check_launches(f"model {arch}", **want)
+        check(eng.stats.decode_steps > 0, f"model {arch}: no decode step")
+        outs = [done[u].output for u in uids]
+        zero_launches()
+        flips = []
+        for p, out in zip(prompts, outs):
+            for i, tok in enumerate(out):
+                logits = oracle_logits(torch, get_model, cfg, params,
+                                       p + out[:i])
+                best = int(logits.argmax())
+                if tok != best:
+                    gap = float(logits[best] - logits[tok])
+                    check(gap < MODEL_GAP_TOL,
+                          f"model {arch}: engine token {tok} != oracle {best} "
+                          f"at step {i} of a {len(p)}-token prompt, gap "
+                          f"{gap}")
+                    flips.append({"prompt_len": len(p), "step": i,
+                                  "gap": gap})
+        check_launches(f"model {arch} oracle")  # the oracle ran no kernel
+        records.append({"config": arch, "cut": cut, "prompt_lens": lens,
+                        "new_tokens": steps, "transcripts_equal": not flips,
+                        "teacher_forced_flips": flips, "launches": launches,
+                        "decode_steps": eng.stats.decode_steps})
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return records
+
+
+def phase_state_serving(torch, configs, core, client, arch):
+    """rwkv6-1.6b or zamba2-2.7b at full width (bf16, random weights from
+    seed 0) behind ``Rhapsody`` with 2 replicas through the default
+    ``LLMServicer`` (auto: the slot pool): 16 requests of 32 new tokens,
+    served twice (cold, then warm) with prompts of the same lengths."""
+    cfg = configs.get_config(arch)
+    replicas, n_req, mnt = 2, 16, MAIN_PATH_NEW_TOKENS
+    rh = core.Rhapsody(core.ResourceDescription(nodes=replicas,
+                                                cores_per_node=16),
+                       n_workers=2)
+    try:
+        t_up = time.perf_counter()
+        rs = rh.add_service(core.ServiceDescription(
+            name="llm", replicas=replicas, ready_timeout=600,
+            factory=client.llm_service_factory(cfg, device=DEVICE,
+                                               **STATE_ENGINE)))
+        setup_s = time.perf_counter() - t_up
+        check(all(not inst.servicer.engine.paged for inst in rs.instances),
+              f"{arch}: the servicer did not resolve to the slot pool")
+        rng = np.random.RandomState(1)
+        lens = state_prompt_lens(rng, arch, n_req)
+
+        def serve_pass():
+            prompts = [list(map(int, rng.randint(0, cfg.vocab, size=int(n))))
+                       for n in lens]
+            descs = [core.TaskDescription(
+                kind=core.TaskKind.INFERENCE, service="llm",
+                payload={"prompt": p, "max_new_tokens": mnt},
+                task_type="inference") for p in prompts]
+            t0 = time.perf_counter()
+            uids = rh.submit(descs)
+            check(rh.wait(uids, timeout=600), f"{arch}: serving timed out")
+            results = [rh.result(u) for u in uids]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            check(all(r is not None and len(r["tokens"]) == mnt
+                      and all(0 <= t < cfg.vocab for t in r["tokens"])
+                      for r in results),
+                  f"{arch}: a request came back short or out of the "
+                  f"vocabulary")
+            lat = sorted(r["latency_s"] for r in results)
+            gen_tokens = sum(len(r["tokens"]) for r in results)
+            all_tokens = gen_tokens + sum(r["n_prompt"] for r in results)
+            return prompts, {
+                "seconds": dt, "tok_per_s": all_tokens / dt,
+                "gen_tok_per_s": gen_tokens / dt,
+                "latency_p50_s": lat[len(lat) // 2],
+                "latency_p95_s": lat[int(len(lat) * 0.95)]}
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        prompts, cold = serve_pass()
+        _, warm = serve_pass()
+        errors = [inst.error for inst in rs.instances]
+        check(all(e is None for e in errors), f"{arch}: replica errors "
+                                              f"{errors}")
+        decode_steps = sum(inst.servicer.stats.decode_steps
+                           for inst in rs.instances)
+        prefills = 2 * n_req  # exact-length prefills: no prefix reuse here
+        if cfg.family == "ssm":
+            want = {"wkv6": cfg.n_layers * prefills}
+        else:
+            want = {"ssd": cfg.n_layers * prefills,
+                    "decode_attention": (cfg.n_layers // cfg.attn_every)
+                    * decode_steps}
+        launches = check_launches(arch, **want)
+        check(decode_steps > 0, f"{arch}: no decode step ran")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        stats = rs.stats()
+        eng = rs.instances[0].servicer.engine
+        _, logits = eng.api.prefill(
+            eng.params, {"tokens": torch.tensor([prompts[0]], device=DEVICE)},
+            cfg, max_len=eng.max_len)
+        check(tuple(logits.shape) == (1, cfg.vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"{arch}: prefill logits not finite")
+        return {"config": cfg.name, "layers": cfg.n_layers,
+                "d_model": cfg.d_model, "vocab": cfg.vocab,
+                "dtype": cfg.compute_dtype, "replicas": replicas,
+                "engine": STATE_ENGINE, "requests_per_pass": n_req,
+                "max_new_tokens": mnt,
+                "prompt_lens": [int(x) for x in lens],
+                "setup_seconds": setup_s, "cold": cold, "warm": warm,
+                "launches": launches, "decode_steps": decode_steps,
+                "prefills": prefills,
+                "per_replica_requests": [p["requests"]
+                                         for p in stats["per_replica"]],
+                "peak_mem_gb": peak}
     finally:
         rh.close()
 
@@ -426,11 +952,10 @@ def flash_case(torch, fa, fa_ref, name, dtype, B, S, Hq, Hkv, D, tol, gtol):
     _, lse = fa._launch(q, k, v)
     plain, plain_lse = fa_ref.attention_fwd_ref(q, k, v)
     torch.cuda.synchronize()
-    diff = (out.detach().float() - plain.float()).abs()
-    err = float(diff.max())
+    err, ok = within(out.detach(), plain, tol)
     lse_err = float((lse - plain_lse).abs().max())
-    check(bool((diff <= atol + rtol * plain.float().abs()).all()),
-          f"flash {name} S={S}: out error {err} > {atol} + {rtol} x |plain|")
+    check(ok, f"flash {name} S={S}: out error {err} > {atol} + {rtol} x "
+              f"|plain|")
     check(lse_err <= 2e-5 + 2e-5 * float(plain_lse.abs().max()),
           f"flash {name} S={S}: lse error {lse_err}")
     gen = torch.Generator(device=DEVICE).manual_seed(S + 1)
@@ -518,8 +1043,7 @@ def phase_flash_timing(torch, fa_kernel, fa, fa_ref):
             "achieved_TFLOPs": flops / (kernel_ms * 1e-3) / 1e12}
 
 
-def phase_train_step(torch, configs, get_model, fa, ops, optim, train,
-                     data):
+def phase_train_step(torch, configs, get_model, optim, train, data):
     """rhapsody-demo full config, f32: one step on the card equals the same
     step on the CPU; then 30 steps on the card, where the loss falls."""
     cfg = configs.get_config("rhapsody-demo")
@@ -540,12 +1064,12 @@ def phase_train_step(torch, configs, get_model, fa, ops, optim, train,
                               device="cpu").next_batch()
     step = train.make_train_step(api, cfg, tcfg)
     _, m_cpu = step(cpu, batch)
-    ops.launches = fa.launches = 0
+    zero_launches()
     _, m_card = step(card, {k: v.to(DEVICE) for k, v in batch.items()})
     torch.cuda.synchronize()
-    one_step = fa.launches
-    check(one_step == 2 * cfg.n_layers and ops.launches == 0,
-          f"train step: flash launches {one_step} != 2 x {cfg.n_layers}")
+    one_step = check_launches("train step",
+                              flash_attention=2 * cfg.n_layers)[
+        "flash_attention"]
     loss_cpu, loss_card = float(m_cpu["loss"]), float(m_card["loss"])
     check(abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu),
           f"train step: loss {loss_card} on the card != {loss_cpu} on the "
@@ -572,17 +1096,17 @@ def phase_train_step(torch, configs, get_model, fa, ops, optim, train,
                              api, cfg, tcfg.optimizer, device=DEVICE)
     with torch.no_grad():
         held_before = float(api.loss(state["params"], held, cfg)[0])
-    ops.launches = fa.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     state, hist = train.train_loop(api, cfg, tcfg, steps=30,
                                    data_iter=iter(pipe), state=state,
                                    log_every=1)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = fa.launches
+    launches = check_launches("30 steps",
+                              flash_attention=2 * cfg.n_layers * 30)[
+        "flash_attention"]
     losses = [h["loss"] for h in hist]
-    check(launches == 2 * cfg.n_layers * 30 and ops.launches == 0,
-          f"30 steps: flash launches {launches} != 2 x {cfg.n_layers} x 30")
     with torch.no_grad():
         held_after = float(api.loss(state["params"], held, cfg)[0])
     check(all(math.isfinite(x) for x in losses)
@@ -597,24 +1121,23 @@ def phase_train_step(torch, configs, get_model, fa, ops, optim, train,
             "seconds": seconds}
 
 
-def phase_train_launcher(fa, ops, launch_train):
+def phase_train_launcher(launch_train):
     """The trainer launcher with its defaults except --steps 20."""
-    ops.launches = fa.launches = 0
+    zero_launches()
     out = launch_train.main(["--steps", "20"]
                             + ([] if DEVICE == "cuda" else
                                ["--device", DEVICE]))
-    launches = fa.launches
+    launches = check_launches("trainer launcher",
+                              flash_attention=2 * 4 * 20)["flash_attention"]
     losses = out["losses"]
     check(len(losses) == 20 and all(math.isfinite(x) for x in losses),
           f"trainer launcher: losses {losses}")
-    check(launches == 2 * 4 * 20 and ops.launches == 0,
-          f"trainer launcher: flash launches {launches} != 2 x 4 x 20")
     return {"losses": losses, "launches": launches,
             "seconds": out["seconds"], "device": out["device"]}
 
 
 def train_main_path():
-    """The training main path (phase 10; profile_train.py builds it here
+    """The training main path (phase 16; profile_train.py builds it here
     too): llama3.2-3b, AdamW, the synthetic corpus at global batch 2 x seq
     2048 on the card, the state from seed 0 -> (cfg, api, tcfg, pipe,
     state, step)."""
@@ -638,7 +1161,7 @@ def train_main_path():
     return cfg, api, tcfg, pipe, state, train.make_train_step(api, cfg, tcfg)
 
 
-def phase_train_main_path(torch, fa, ops, optim):
+def phase_train_main_path(torch, optim):
     """llama3.2-3b at full width: DataPipeline -> init_state ->
     make_train_step, global batch 2, seq 2048, 3 AdamW steps."""
     t_up = time.perf_counter()
@@ -651,7 +1174,7 @@ def phase_train_main_path(torch, fa, ops, optim):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_up
     torch.cuda.reset_peak_memory_stats()
-    ops.launches = fa.launches = 0
+    zero_launches()
     times, losses, norms = [], [], []
     for _ in range(TRAIN_STEPS):
         batch = pipe.next_batch()
@@ -661,10 +1184,9 @@ def phase_train_main_path(torch, fa, ops, optim):
         times.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
-    launches = fa.launches
-    check(launches == 2 * cfg.n_layers * TRAIN_STEPS and ops.launches == 0,
-          f"training main path: flash launches {launches} != 2 x "
-          f"{cfg.n_layers} x {TRAIN_STEPS}")
+    launches = check_launches(
+        "training main path",
+        flash_attention=2 * cfg.n_layers * TRAIN_STEPS)["flash_attention"]
     check(all(math.isfinite(x) for x in losses + norms),
           f"training main path: loss {losses} / grad norm {norms}")
     check(1.0 < losses[0] < 3 * math.log(cfg.vocab),
@@ -699,12 +1221,26 @@ def main():
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.mamba2 import kernel as ssd_kernel
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.mamba2 import ref as ssd_ref
+    from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
     from repro_torch.launch import serve
     from repro_torch.launch import train as launch_train
     from repro_torch.models import get_model
     from repro_torch.serving import client, engine
     from repro_torch.substrate import data
     from repro_torch.training import optim, train
+
+    COUNTERS.update({
+        "paged_decode_attention": (ops, "launches"),
+        "decode_attention": (ops, "contiguous_launches"),
+        "flash_attention": (fa, "launches"),
+        "wkv6": (wkv_ops, "launches"),
+        "ssd": (ssd_ops, "launches"),
+    })
 
     # 0. device
     smi = subprocess.run(
@@ -719,10 +1255,11 @@ def main():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    # 1. build both kernels at once, one nvcc each
+    # 1. build the five kernels' four sources at once, one nvcc each
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(kernel.load), pool.submit(fa_kernel.load)]:
+    loaders = (kernel.load, fa_kernel.load, wkv_kernel.load, ssd_kernel.load)
+    with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
+        for fut in [pool.submit(load) for load in loaders]:
             fut.result()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {name: {
@@ -736,70 +1273,101 @@ def main():
     cases, timing, worst = phase_kernel(torch, ops, ref, kernel)
     emit({"phase": "kernel", "cases": cases, "timing": timing})
 
-    # 3. model on the card, f32
-    emit({"phase": "model", **phase_model(torch, configs, get_model, engine,
-                                          ops, fa)})
+    # 3-5. contiguous decode, WKV6 and SSD kernels vs plain, with times
+    dec_cases, dec_timing, dec_llama, dec_worst = phase_decode(
+        torch, ops, ref, kernel)
+    emit({"phase": "decode_kernel", "cases": dec_cases,
+          "timing": dec_timing, "timing_llama_heads": dec_llama})
+    wkv_cases, wkv_timing, wkv_worst = phase_wkv(torch, wkv_ops, wkv_ref,
+                                                 wkv_kernel)
+    emit({"phase": "wkv_kernel", "cases": wkv_cases, "timing": wkv_timing})
+    ssd_cases, ssd_timing, ssd_worst = phase_ssd(torch, ssd_ops, ssd_ref,
+                                                 ssd_kernel)
+    emit({"phase": "ssd_kernel", "cases": ssd_cases, "timing": ssd_timing})
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 4. the launcher end to end
-    emit({"phase": "launcher", **phase_launcher(ops, fa, serve)})
+    # 6. model on the card, f32
+    emit({"phase": "model", **phase_model(torch, configs, get_model,
+                                          engine)})
 
-    # 5. the serving main path at a real model's full width
-    main_path = phase_main_path(torch, configs, core, client, ops, fa)
+    # 7. the launcher end to end
+    emit({"phase": "launcher", **phase_launcher(serve)})
+
+    # 8. the serving main path at a real model's full width
+    main_path = phase_main_path(torch, configs, core, client)
     emit({"phase": "main_path", **main_path})
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 6. flash kernel vs plain, with the gradient
+    # 9. the state-carrying families and the dense slot pool on the card,
+    # f32, against a recurrent oracle that runs no kernel
+    emit({"phase": "state_model", "models": phase_state_model(
+        torch, configs, get_model, engine)})
+
+    # 10-11. slot-pool serving of rwkv6-1.6b and zamba2-2.7b at full width
+    state_paths = {}
+    for arch in STATE_ARCHS:
+        state_paths[arch] = phase_state_serving(torch, configs, core, client,
+                                                arch)
+        emit({"phase": "state_serving", **state_paths[arch]})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 12. flash kernel vs plain, with the gradient
     flash_cases, flash_worst = phase_flash(torch, fa, fa_ref)
     emit({"phase": "flash", "cases": flash_cases})
 
-    # 7. flash timing at the training shape
+    # 13. flash timing at the training shape
     flash_timing = phase_flash_timing(torch, fa_kernel, fa, fa_ref)
     emit({"phase": "flash_timing", **flash_timing})
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 8. one train step on the card vs the CPU; 30 steps on the card
+    # 14. one train step on the card vs the CPU; 30 steps on the card
     emit({"phase": "train_step", **phase_train_step(
-        torch, configs, get_model, fa, ops, optim, train, data)})
+        torch, configs, get_model, optim, train, data)})
 
-    # 9. the trainer launcher
-    emit({"phase": "train_launcher", **phase_train_launcher(
-        fa, ops, launch_train)})
+    # 15. the trainer launcher
+    emit({"phase": "train_launcher", **phase_train_launcher(launch_train)})
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 10. the training main path at a real model's full width
-    train_path = phase_train_main_path(torch, fa, ops, optim)
+    # 16. the training main path at a real model's full width
+    train_path = phase_train_main_path(torch, optim)
     emit({"phase": "train_main_path", **train_path})
 
-    emit({"kernels": [{
-        "name": "paged_decode_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/decode_attention/csrc/"
-                  "paged_decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention/kernel.py:147",
-        "launches": main_path["launches"],
-        "max_abs_err": max(worst.values()),
-        "ms": timing["kernel_ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-    }, {
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
-        "launches": train_path["launches"],
-        "max_abs_err": max(flash_worst, flash_timing["max_err"]),
-        "ms": flash_timing["kernel_ms"],
-        "plain_ms": flash_timing["plain_ms"],
-        "bound_ms": flash_timing["bound_ms"],
-        "bound_by": flash_timing["bound_by"],
-        "library_ms": flash_timing["library_ms"],
-    }]})
+    decode_src = ("src/repro_torch/kernels/decode_attention/csrc/"
+                  "decode_attention.cu")
+    rwkv, zamba = (state_paths[arch] for arch in STATE_ARCHS)
+
+    def line(name, source, replaces, launches, err, t):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": t["kernel_ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+    emit({"kernels": [
+        line("paged_decode_attention", decode_src,
+             "src/repro/kernels/decode_attention/kernel.py:147",
+             main_path["launches"], max(worst.values()), timing),
+        line("decode_attention", decode_src,
+             "src/repro/kernels/decode_attention/kernel.py:74",
+             zamba["launches"]["decode_attention"], dec_worst, dec_timing),
+        line("flash_attention",
+             "src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:70",
+             train_path["launches"],
+             max(flash_worst, flash_timing["max_err"]), flash_timing),
+        line("ssd", "src/repro_torch/kernels/mamba2/csrc/ssd.cu",
+             "src/repro/kernels/mamba2/kernel.py:61",
+             zamba["launches"]["ssd"], ssd_worst, ssd_timing),
+        line("wkv6", "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+             "src/repro/kernels/rwkv6/kernel.py:60",
+             rwkv["launches"]["wkv6"], wkv_worst, wkv_timing),
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where a serving replica's time goes on the card: step times and a
-``torch.profiler`` breakdown of the port's paged engine.
+``torch.profiler`` breakdown of one of the port's engines.
 
-    python3 profile_engine.py [--engines N] [--trace PATH]
+    python3 profile_engine.py [--arch ARCH] [--engines N] [--trace PATH]
 
-One ``InferenceEngine`` (no middleware) with the main path's model and
-engine settings, taken from ``chip_smoke.py`` phase 5 (llama3.2-3b full
-published config, random weights from seed 0), and 8 requests of 32 new
-tokens with phase 5's prompt lengths.  It serves the requests twice: the first pass is cold (first calls of
+One ``InferenceEngine`` (no middleware) with a full published config and
+random weights from seed 0: by default the main path's llama3.2-3b on the
+paged engine, with ``chip_smoke.py`` phase 8's settings and prompt
+lengths; with ``--arch rwkv6-1.6b`` or ``zamba2-2.7b`` the slot pool with
+phases 10-11's settings and prompt lengths.  Eight requests of 32 new
+tokens.  It serves the requests twice: the first pass is cold (first calls of
 every kernel and matmul shape), the second warm.  Every step ends in
 ``torch.cuda.synchronize()``, so step times are device-complete.  The
 profiler then records a few warm decode steps and prints the CUDA and CPU
@@ -31,7 +33,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from chip_smoke import (MAIN_PATH_ARCH, MAIN_PATH_ENGINE,  # noqa: E402
-                        MAIN_PATH_NEW_TOKENS, main_path_prompt_lens)
+                        MAIN_PATH_NEW_TOKENS, STATE_ARCHS, STATE_ENGINE,
+                        main_path_prompt_lens, state_prompt_lens)
 
 REQUESTS = MAIN_PATH_ENGINE["max_num_seqs"]  # every decode step a full batch
 
@@ -66,6 +69,8 @@ def serve_once(torch, eng, prompts, mnt):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=MAIN_PATH_ARCH,
+                    choices=(MAIN_PATH_ARCH,) + STATE_ARCHS)
     ap.add_argument("--engines", type=int, default=1,
                     help="also serve a warm pass on N engines in N threads")
     ap.add_argument("--trace", default=None,
@@ -86,13 +91,17 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     emit({"device": smi, "torch": torch.__version__})
-    cfg = get_config(MAIN_PATH_ARCH)
+    cfg = get_config(args.arch)
     mnt = MAIN_PATH_NEW_TOKENS
-    eng = make_engine_from_scratch(cfg, seed=0, device="cuda",
-                                   **MAIN_PATH_ENGINE)
-    torch.cuda.synchronize()
     rng = np.random.RandomState(0)
-    lens = main_path_prompt_lens(rng, REQUESTS)
+    if args.arch == MAIN_PATH_ARCH:
+        engine_kw = MAIN_PATH_ENGINE
+        lens = main_path_prompt_lens(rng, REQUESTS)
+    else:
+        engine_kw = STATE_ENGINE
+        lens = state_prompt_lens(rng, args.arch, 2 * REQUESTS)[:REQUESTS]
+    eng = make_engine_from_scratch(cfg, seed=0, device="cuda", **engine_kw)
+    torch.cuda.synchronize()
     prompts = [list(map(int, rng.randint(0, cfg.vocab, size=int(n))))
                for n in lens]
     emit({"pass": "cold", **serve_once(torch, eng, prompts, mnt)})
@@ -110,7 +119,7 @@ def main():
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     n_steps = 5
-    ops.launches = 0
+    ops.launches = ops.contiguous_launches = 0
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
@@ -128,8 +137,10 @@ def main():
     kernel_rows = [e for e in ka
                    if dev_us(e) > 0 and e.self_cpu_time_total == 0]
     device_us = sum(dev_us(e) for e in kernel_rows)
-    emit({"profile_window_s": window, "decode_steps": n_steps,
-          "launches": ops.launches,
+    emit({"arch": args.arch, "profile_window_s": window,
+          "decode_steps": n_steps,
+          "decode_launches": {"paged": ops.launches,
+                              "contiguous": ops.contiguous_launches},
           "device_kernel_us": device_us,
           "device_busy_share": device_us / (window * 1e6),
           "top_device": [{"name": e.key[:80], "us": dev_us(e),
@@ -146,7 +157,7 @@ def main():
     if args.engines > 1:
         eng.run()  # drain the profiled requests
         engines = [eng] + [make_engine_from_scratch(
-            cfg, seed=0, device="cuda", **MAIN_PATH_ENGINE)
+            cfg, seed=0, device="cuda", **engine_kw)
             for _ in range(args.engines - 1)]
         for e in engines[1:]:  # warm the new engines one at a time
             serve_once(torch, e, prompts, mnt)

@@ -4,7 +4,7 @@
 
     python3 profile_train.py [--steps N] [--trace PATH]
 
-Builds the training main path of ``chip_smoke.py`` phase 10 with its
+Builds the training main path of ``chip_smoke.py`` phase 16 with its
 ``train_main_path`` (llama3.2-3b
 full published config, bf16, remat full, random weights from seed 0,
 global batch 2 x seq 2048 from the synthetic corpus, AdamW) and runs

@@ -1,8 +1,10 @@
-"""ctypes binding of the hand-written Hopper paged flash-decode kernel.
+"""ctypes binding of the hand-written Hopper flash-decode kernels.
 
-The CUDA source is ``csrc/paged_decode_attention.cu`` (its header states
-the design, the TPU kernel it replaces and its bound).  It is compiled at
-first use by ``repro_torch.kernels.build``; nothing here runs at import.
+The CUDA source is ``csrc/decode_attention.cu`` (its header states the
+design, the TPU kernels it replaces and its bound): one tile loop with two
+entry points, over a block-paged store and over contiguous slot caches.
+It is compiled at first use by ``repro_torch.kernels.build``; nothing here
+runs at import.
 """
 from __future__ import annotations
 
@@ -13,22 +15,26 @@ import torch
 
 from repro_torch.kernels.build import load_library
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_decode_attention.cu"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+_lib = None
 
 
 def load():
-    """Build (once) and return the C entry point with its types set."""
-    global _fn
-    if _fn is None:
-        fn = load_library("paged_decode_attention",
-                          SOURCE).paged_decode_attention
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+    """Build (once) and return the library with both entry points typed."""
+    global _lib
+    if _lib is None:
+        lib = load_library("decode_attention", SOURCE)
+        lib.paged_decode_attention.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.paged_decode_attention.restype = ctypes.c_int
+        lib.decode_attention.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.decode_attention.restype = ctypes.c_int
+        _lib = lib
+    return _lib
 
 
 def paged_decode_attention_grouped(q, k_store, v_store, block_tables,
@@ -41,7 +47,22 @@ def paged_decode_attention_grouped(q, k_store, v_store, block_tables,
     bs = k_store.shape[1]
     mb = block_tables.shape[1]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    return load()(
+    return load().paged_decode_attention(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k_store.data_ptr(),
         v_store.data_ptr(), block_tables.data_ptr(), kv_length.data_ptr(),
         out.data_ptr(), B, Hkv, G, D, bs, mb, scale, stream)
+
+
+def decode_attention_grouped(q, k_cache, v_cache, kv_length, out,
+                             scale: float):
+    """Launch on the current stream.  q/out [B,Hkv,G,D]; caches [B,S,Hkv,D];
+    lengths [B] int32 (clamped to S by the kernel); all contiguous on one
+    CUDA device (the caller checks).  Returns the CUDA error code of the
+    launch (0 on success)."""
+    B, Hkv, G, D = q.shape
+    S = k_cache.shape[1]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return load().decode_attention(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), kv_length.data_ptr(), out.data_ptr(), B, Hkv, G,
+        D, S, scale, stream)

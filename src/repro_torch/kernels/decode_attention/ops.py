@@ -1,13 +1,17 @@
-"""Paged flash-decode on model-layout tensors: the CUDA kernel or its plain
+"""Flash-decode on model-layout tensors: the CUDA kernel or its plain
 version, chosen by where the tensors lie.
 
-A CUDA tensor launches the hand-written Hopper kernel
-(``csrc/paged_decode_attention.cu``, replacing the TPU kernel
+Two wrappers over one hand-written Hopper kernel
+(``csrc/decode_attention.cu``): ``paged_decode_attention`` reads K/V
+through block tables (replacing the TPU kernel
 ``paged_decode_attention_grouped`` at
-``src/repro/kernels/decode_attention/kernel.py:147``) or raises; a CPU
-tensor runs ``ref.paged_decode_ref``.  There is no fallback from one to
-the other.  ``launches`` counts kernel launches, so a run can show that
-its decode went through the kernel.
+``src/repro/kernels/decode_attention/kernel.py:147``) and
+``decode_attention`` reads contiguous slot caches (replacing
+``decode_attention_grouped`` at ``kernel.py:74``).  A CUDA tensor launches
+the kernel or raises; a CPU tensor runs ``ref.paged_decode_ref`` /
+``ref.decode_ref``.  There is no fallback from one to the other.
+``launches`` and ``contiguous_launches`` count kernel launches, so a run
+can show that its decode went through the kernel.
 """
 from __future__ import annotations
 
@@ -17,51 +21,51 @@ import threading
 import torch
 
 from . import ref
-from .kernel import paged_decode_attention_grouped
+from .kernel import decode_attention_grouped, paged_decode_attention_grouped
 
-launches = 0  # kernel launches (CPU calls do not count)
+launches = 0  # paged kernel launches (CPU calls do not count)
+contiguous_launches = 0  # contiguous kernel launches
 _count_lock = threading.Lock()
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (32, 64, 80, 128)
 KERNEL_MAX_GROUP = 8
 KERNEL_MAX_BLOCK_SIZE = 64
 
 
-def _check(q, k_store, v_store, block_tables, kv_length):
-    tensors = (q, k_store, v_store, block_tables, kv_length)
+def _check(name, q, k, v, kv_length, *extra):
+    """Checks both wrappers share: q [B,1,Hq,D]; k/v 4-D of one shape whose
+    last two dims are (Hkv, D), Hq % Hkv == 0; kv_length [B] int32; one
+    device, one dtype, contiguous."""
+    tensors = (q, k, v, kv_length, *extra)
     if len({t.device for t in tensors}) != 1:
-        raise ValueError("paged_decode_attention: all inputs must be on one "
-                         f"device, got {[str(t.device) for t in tensors]}")
+        raise ValueError(f"{name}: all inputs must be on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be [B, 1, Hq, D], got {tuple(q.shape)}")
     B, _, Hq, D = q.shape
-    if k_store.dim() != 4 or k_store.shape != v_store.shape:
-        raise ValueError("k/v stores must both be [num_blocks, block_size, "
-                         f"Hkv, D], got {tuple(k_store.shape)} and "
-                         f"{tuple(v_store.shape)}")
-    Hkv = k_store.shape[2]
-    if k_store.shape[3] != D or Hq % Hkv:
-        raise ValueError(f"q heads/dim {Hq}/{D} do not fit store heads/dim "
-                         f"{Hkv}/{k_store.shape[3]}")
-    if block_tables.dim() != 2 or block_tables.shape[0] != B or \
-            tuple(kv_length.shape) != (B,):
-        raise ValueError(f"block_tables must be [{B}, max_blocks] and "
-                         f"kv_length [{B}], got {tuple(block_tables.shape)} "
-                         f"and {tuple(kv_length.shape)}")
-    if q.dtype != k_store.dtype or k_store.dtype != v_store.dtype:
-        raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k_store.dtype}, "
-                        f"{v_store.dtype}")
-    if block_tables.dtype != torch.int32 or kv_length.dtype != torch.int32:
-        raise TypeError("block_tables and kv_length must be int32, got "
-                        f"{block_tables.dtype} and {kv_length.dtype}")
+    if k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: k/v must both be 4-D [..., Hkv, D] of one "
+                         f"shape, got {tuple(k.shape)} and {tuple(v.shape)}")
+    Hkv = k.shape[2]
+    if k.shape[3] != D or Hq % Hkv:
+        raise ValueError(f"q heads/dim {Hq}/{D} do not fit k/v heads/dim "
+                         f"{Hkv}/{k.shape[3]}")
+    if tuple(kv_length.shape) != (B,):
+        raise ValueError(f"kv_length must be [{B}], got "
+                         f"{tuple(kv_length.shape)}")
+    if q.dtype != k.dtype or k.dtype != v.dtype:
+        raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if kv_length.dtype != torch.int32:
+        raise TypeError(f"kv_length must be int32, got {kv_length.dtype}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("paged_decode_attention needs contiguous inputs")
+        raise ValueError(f"{name} needs contiguous inputs")
 
 
-def _check_kernel_limits(q, k_store, v_store):
+def _check_kernel_limits(q, k, v):
     _, _, Hq, D = q.shape
-    Hkv, bs = k_store.shape[2], k_store.shape[1]
+    Hkv = k.shape[2]
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"CUDA kernel takes {KERNEL_DTYPES}, not {q.dtype}")
     if D not in KERNEL_HEAD_DIMS:
@@ -70,12 +74,25 @@ def _check_kernel_limits(q, k_store, v_store):
     if Hq // Hkv > KERNEL_MAX_GROUP:
         raise ValueError(f"CUDA kernel takes at most {KERNEL_MAX_GROUP} query "
                          f"heads per kv head, not {Hq // Hkv}")
-    if bs > KERNEL_MAX_BLOCK_SIZE:
-        raise ValueError(f"CUDA kernel takes block_size <= "
-                         f"{KERNEL_MAX_BLOCK_SIZE}, not {bs}")
-    if k_store.data_ptr() % 16 or v_store.data_ptr() % 16:
-        raise ValueError("CUDA kernel stages K/V with 16-byte loads: the "
-                         "stores must be 16-byte aligned")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("CUDA kernel stages K/V with 16-byte loads: k and v "
+                         "must be 16-byte aligned")
+
+
+def _launch(name, launch, q, k, v, *args):
+    """Check the kernel's limits, launch on a CUDA tensor, count it."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no {name} for device {q.device}")
+    _check_kernel_limits(q, k, v)
+    B, _, Hq, D = q.shape
+    qg = q.reshape(B, k.shape[2], Hq // k.shape[2], D)
+    out = torch.empty_like(qg)
+    if B:
+        err = launch(qg, k, v, *args, out, 1.0 / math.sqrt(D))
+        if err:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                               f"{err}")
+    return out.reshape(B, 1, Hq, D)
 
 
 def paged_decode_attention(q, k_store, v_store, block_tables, kv_length):
@@ -83,26 +100,48 @@ def paged_decode_attention(q, k_store, v_store, block_tables, kv_length):
     [B, max_blocks] int32; kv_length [B] int32 (valid positions, >= 1,
     including the current token) -> [B,1,Hq,D]."""
     global launches
-    _check(q, k_store, v_store, block_tables, kv_length)
+    _check("paged_decode_attention", q, k_store, v_store, kv_length,
+           block_tables)
     B, _, Hq, D = q.shape
-    Hkv = k_store.shape[2]
-    qg = q.reshape(B, Hkv, Hq // Hkv, D)
+    if block_tables.dim() != 2 or block_tables.shape[0] != B:
+        raise ValueError(f"block_tables must be [{B}, max_blocks], got "
+                         f"{tuple(block_tables.shape)}")
+    if block_tables.dtype != torch.int32:
+        raise TypeError(f"block_tables must be int32, got "
+                        f"{block_tables.dtype}")
     if q.device.type == "cpu":
+        qg = q.reshape(B, k_store.shape[2], Hq // k_store.shape[2], D)
         out = ref.paged_decode_ref(qg, k_store, v_store, block_tables,
                                    kv_length)
         return out.reshape(B, 1, Hq, D)
-    if q.device.type != "cuda":
-        raise ValueError(f"no paged_decode_attention for device {q.device}")
-    _check_kernel_limits(q, k_store, v_store)
-    out = torch.empty_like(qg)
+    if k_store.shape[1] > KERNEL_MAX_BLOCK_SIZE:
+        raise ValueError(f"CUDA kernel takes block_size <= "
+                         f"{KERNEL_MAX_BLOCK_SIZE}, not {k_store.shape[1]}")
+    out = _launch("paged_decode_attention", paged_decode_attention_grouped,
+                  q, k_store, v_store, block_tables, kv_length)
     if B:
-        err = paged_decode_attention_grouped(qg, k_store, v_store,
-                                             block_tables, kv_length, out,
-                                             1.0 / math.sqrt(D))
-        if err:
-            raise RuntimeError(
-                f"paged_decode_attention kernel launch failed: CUDA error "
-                f"{err}")
         with _count_lock:
             launches += 1
-    return out.reshape(B, 1, Hq, D)
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, kv_length):
+    """q [B,1,Hq,D]; caches [B,S,Hkv,D]; kv_length [B] int32 (valid
+    positions, >= 1, including the current token; a length past S attends
+    all S positions, as the reference's mask does) -> [B,1,Hq,D]."""
+    global contiguous_launches
+    _check("decode_attention", q, k_cache, v_cache, kv_length)
+    B, _, Hq, D = q.shape
+    if k_cache.shape[0] != B:
+        raise ValueError(f"caches must be [{B}, S, Hkv, D], got "
+                         f"{tuple(k_cache.shape)}")
+    if q.device.type == "cpu":
+        qg = q.reshape(B, k_cache.shape[2], Hq // k_cache.shape[2], D)
+        return ref.decode_ref(qg, k_cache, v_cache,
+                              kv_length).reshape(B, 1, Hq, D)
+    out = _launch("decode_attention", decode_attention_grouped, q, k_cache,
+                  v_cache, kv_length)
+    if B:
+        with _count_lock:
+            contiguous_launches += 1
+    return out

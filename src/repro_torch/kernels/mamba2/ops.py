@@ -1,0 +1,97 @@
+"""Chunked Mamba2 SSD on model-layout tensors: the CUDA kernel or its plain
+version, chosen by where the tensors lie.
+
+A CUDA tensor launches the hand-written Hopper kernel (``csrc/ssd.cu``,
+replacing the TPU kernel ``ssd_bthp`` at
+``src/repro/kernels/mamba2/kernel.py:61``) or raises; a CPU tensor runs
+``ref.ssd_chunked_ref``.  There is no fallback from one to the other.
+``launches`` counts kernel launches, so a run can show that its prefill
+went through the kernel.
+"""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from . import ref
+from .kernel import ssd_forward
+
+launches = 0  # kernel launches (CPU calls do not count)
+_count_lock = threading.Lock()
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+KERNEL_MAX_CHUNK = 128
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+
+
+def _check(x, dt, A, Bm, Cm, h0):
+    tensors = [t for t in (x, dt, A, Bm, Cm, h0) if t is not None]
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("ssd: all inputs must be on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if x.dim() != 4:
+        raise ValueError(f"ssd: x must be [B,T,H,P], got {tuple(x.shape)}")
+    B, T, H, P = x.shape
+    N = Bm.shape[-1] if Bm.dim() == 3 else -1
+    if (tuple(dt.shape) != (B, T, H) or tuple(A.shape) != (H,)
+            or tuple(Bm.shape) != (B, T, N) or Cm.shape != Bm.shape):
+        raise ValueError(
+            f"ssd: x {tuple(x.shape)} needs dt [{B},{T},{H}], A [{H}] and "
+            f"B/C [{B},{T},N], got {tuple(dt.shape)}, {tuple(A.shape)}, "
+            f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
+    if h0 is not None and tuple(h0.shape) != (B, H, N, P):
+        raise ValueError(f"ssd: h0 must be [{B}, {H}, {N}, {P}], got "
+                         f"{tuple(h0.shape)}")
+    if not x.dtype == Bm.dtype == Cm.dtype:
+        raise TypeError(f"ssd: x/B/C dtypes differ: {x.dtype}, {Bm.dtype}, "
+                        f"{Cm.dtype}")
+    if any(t.dtype != torch.float32 for t in (dt, A, h0) if t is not None):
+        raise TypeError("ssd: dt, A and h0 must be float32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ssd needs contiguous inputs")
+
+
+def _launch(x, dt, A, Bm, Cm, h0, chunk):
+    if x.device.type != "cuda":
+        raise ValueError(f"no ssd for device {x.device}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"CUDA kernel takes {KERNEL_DTYPES}, not {x.dtype}")
+    if chunk > KERNEL_MAX_CHUNK:
+        raise ValueError(f"CUDA kernel takes a chunk of at most "
+                         f"{KERNEL_MAX_CHUNK} tokens, not {chunk}")
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    smem = 4 * (N * P + chunk * P + 2 * chunk * (N + 1) + chunk * chunk
+                + 2 * chunk)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"CUDA kernel keeps a chunk in shared memory: "
+                         f"N {N}, P {P} and chunk {chunk} need {smem} bytes, "
+                         f"over {SMEM_LIMIT}")
+    y = torch.empty_like(x)
+    h = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
+    err = ssd_forward(x, dt, A, Bm, Cm, h0, y, h, chunk)
+    if err:
+        raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
+    return y, h
+
+
+def ssd(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
+    """Chunked SSD: x [B,T,H,P]; dt [B,T,H] float32; A [H] float32
+    (negative); Bm/Cm [B,T,N] in x's dtype; h0 [B,H,N,P] float32 or None
+    (zeros) -> (y [B,T,H,P] in x's dtype, h_final [B,H,N,P] float32).
+
+    The chunk is ``min(chunk, T)``; a T that is not a multiple of it raises
+    ``ValueError``, as the reference's ``ssd_chunked`` does."""
+    global launches
+    _check(x, dt, A, Bm, Cm, h0)
+    T = x.shape[1]
+    L = min(chunk, T)
+    if T % L:
+        raise ValueError(f"T={T} not divisible by chunk={L}")
+    if x.device.type == "cpu":
+        return ref.ssd_chunked_ref(x, dt, A, Bm, Cm, L, h0)
+    y, h = _launch(x, dt, A, Bm, Cm, h0, L)
+    with _count_lock:
+        launches += 1
+    return y, h

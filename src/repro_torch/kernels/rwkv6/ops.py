@@ -1,0 +1,91 @@
+"""Chunked WKV6 on model-layout tensors: the CUDA kernel or its plain
+version, chosen by where the tensors lie.
+
+A CUDA tensor launches the hand-written Hopper kernel (``csrc/wkv6.cu``,
+replacing the TPU kernel ``wkv_bhtc`` at
+``src/repro/kernels/rwkv6/kernel.py:60``) or raises; a CPU tensor runs
+``ref.wkv_chunked_ref``.  There is no fallback from one to the other.
+``launches`` counts kernel launches, so a run can show that its prefill
+went through the kernel.
+"""
+from __future__ import annotations
+
+import threading
+
+import torch
+import torch.nn.functional as F
+
+from . import ref
+from .kernel import wkv6_forward
+
+launches = 0  # kernel launches (CPU calls do not count)
+_count_lock = threading.Lock()
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+
+
+def _check(r, k, v, lw, u, s0):
+    tensors = [t for t in (r, k, v, lw, u, s0) if t is not None]
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("wkv: all inputs must be on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if r.dim() != 4 or not r.shape == k.shape == v.shape == lw.shape:
+        raise ValueError("wkv: r/k/v/lw must all be [B,T,H,hd], got "
+                         f"{[tuple(t.shape) for t in (r, k, v, lw)]}")
+    B, _, H, hd = r.shape
+    if tuple(u.shape) != (H, hd):
+        raise ValueError(f"wkv: u must be [{H}, {hd}], got {tuple(u.shape)}")
+    if s0 is not None and tuple(s0.shape) != (B, H, hd, hd):
+        raise ValueError(f"wkv: s0 must be [{B}, {H}, {hd}, {hd}], got "
+                         f"{tuple(s0.shape)}")
+    if not r.dtype == k.dtype == v.dtype:
+        raise TypeError(f"wkv: r/k/v dtypes differ: {r.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if any(t.dtype != torch.float32 for t in (lw, u, s0) if t is not None):
+        raise TypeError("wkv: lw, u and s0 must be float32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("wkv needs contiguous inputs")
+
+
+def _launch(r, k, v, lw, u, s0, chunk):
+    if r.device.type != "cuda":
+        raise ValueError(f"no wkv for device {r.device}")
+    if r.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"CUDA kernel takes {KERNEL_DTYPES}, not {r.dtype}")
+    B, T, H, hd = r.shape
+    smem = 4 * (hd * hd + 4 * chunk * (hd + 1) + chunk * chunk)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"CUDA kernel keeps a chunk in shared memory: "
+                         f"head_dim {hd} and chunk {chunk} need {smem} "
+                         f"bytes, over {SMEM_LIMIT}")
+    y = torch.empty_like(r)
+    s = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    err = wkv6_forward(r, k, v, lw, u, s0, y, s, chunk)
+    if err:
+        raise RuntimeError(f"wkv kernel launch failed: CUDA error {err}")
+    return y, s
+
+
+def wkv(r, k, v, lw, u, *, chunk: int, s0=None):
+    """Chunked WKV6: r/k/v [B,T,H,hd] in one dtype; lw [B,T,H,hd] float32
+    log-decay (<= 0); u [H,hd] float32; s0 [B,H,hd,hd] float32 or None
+    (zeros) -> (y [B,T,H,hd] in r's dtype, s_final [B,H,hd,hd] float32).
+
+    The chunk is ``min(chunk, T)``; T is padded to a multiple of it as the
+    reference's ``wkv_chunked`` pads (r/k/v = 0 and lw = 0, which leaves
+    the state as it is), and y is cut back to T."""
+    global launches
+    _check(r, k, v, lw, u, s0)
+    T = r.shape[1]
+    L = min(chunk, T)
+    pad = -T % L
+    if pad:
+        r, k, v, lw = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v, lw))
+    if r.device.type == "cpu":
+        y, s = ref.wkv_chunked_ref(r, k, v, lw, u, L, s0)
+    else:
+        y, s = _launch(r, k, v, lw, u, s0, L)
+        with _count_lock:
+            launches += 1
+    return y[:, :T], s

@@ -1,7 +1,9 @@
 """Model registry: the uniform API that training and serving drive.
 
-Only the dense family is ported so far; the others raise, naming the
-ROADMAP item that ports them.
+The dense family, rwkv6 (``ssm``) and zamba2 (``hybrid``) are ported; the
+other families raise, naming the ROADMAP item that ports them.  The
+state-carrying families serve (forward, prefill, decode) but do not train
+yet: their ``loss`` raises.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
+from . import mamba2, rwkv6
 from . import transformer as tfm
 from .config import ModelConfig
 
@@ -23,7 +26,7 @@ class ModelApi:
     init: Callable  # (generator, cfg, *, device) -> params
     loss: Callable  # (params, batch, cfg) -> (loss, metrics)
     forward: Callable  # (params, batch, cfg) -> (logits, aux)
-    prefill: Callable  # (params, batch, cfg, *, max_len, last_only) -> (cache, logits)
+    prefill: Callable  # (params, batch, cfg, *, max_len[, last_only: dense]) -> (cache, logits)
     decode: Callable  # (params, cache, tokens [B], cfg) -> (cache, logits [B,V])
     extend: Optional[Callable] = None  # (params, cache, tokens [B,T], cfg) -> (cache, logits [B,T,V])
     decode_paged: Optional[Callable] = None  # (params, store, block_tables, lens, tokens [B], write_phys, write_off, cfg) -> (store, logits [B,V])
@@ -33,13 +36,11 @@ _NOT_PORTED = {
     "moe": "ROADMAP Queue 1 item 7 (MoE)",
     "encdec": "ROADMAP Queue 1 item 9 (encoder-decoder and VLM)",
     "vlm": "ROADMAP Queue 1 item 9 (encoder-decoder and VLM)",
-    "hybrid": "ROADMAP Queue 1 item 11 (state-carrying families)",
-    "ssm": "ROADMAP Queue 1 item 11 (state-carrying families)",
 }
 
 
-def _require_dense(cfg: ModelConfig):
-    if cfg.family != "dense" or cfg.is_moe:
+def _require_ported(cfg: ModelConfig):
+    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.is_moe:
         item = _NOT_PORTED.get("moe" if cfg.is_moe else cfg.family,
                                "the ROADMAP")
         raise NotImplementedError(
@@ -47,12 +48,34 @@ def _require_dense(cfg: ModelConfig):
             f"yet: {item}")
 
 
+def _no_training(params, batch, cfg: ModelConfig):
+    raise NotImplementedError(
+        f"training the {cfg.family} family is not ported to PyTorch yet: "
+        f"ROADMAP Queue 1 item 14 (training the state-carrying families)")
+
+
 def get_model(cfg: ModelConfig) -> ModelApi:
-    _require_dense(cfg)
+    _require_ported(cfg)
     if cfg.positions not in ("rope", "none"):
         raise NotImplementedError(
             f"positions={cfg.positions!r} is not ported yet: ROADMAP Queue 1 "
             f"item 9 (encoder-decoder and VLM)")
+    if cfg.family == "hybrid":
+        return ModelApi(
+            init=mamba2.hybrid_init,
+            loss=_no_training,
+            forward=mamba2.hybrid_forward,
+            prefill=mamba2.hybrid_prefill,
+            decode=mamba2.hybrid_decode_step,
+        )
+    if cfg.family == "ssm":
+        return ModelApi(
+            init=rwkv6.rwkv_init,
+            loss=_no_training,
+            forward=rwkv6.rwkv_forward,
+            prefill=rwkv6.rwkv_prefill,
+            decode=rwkv6.rwkv_decode_step,
+        )
     return ModelApi(
         init=tfm.lm_init,
         loss=tfm.loss_fn,
@@ -74,10 +97,10 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int,
                device=None) -> dict[str, Any]:
     """Random token batch drawn from ``gen`` on ``device`` (the CUDA card
     unless the caller asks for the CPU): tokens, next-token targets
-    (tokens rolled left by one) and an all-ones loss mask.  The dense
-    family only; the frontend stubs of encdec/vlm come with their
+    (tokens rolled left by one) and an all-ones loss mask.  The ported
+    families only; the frontend stubs of encdec/vlm come with their
     families."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     device = resolve_device(device)
     if gen is None:
         gen = torch.Generator(device=device).manual_seed(0)

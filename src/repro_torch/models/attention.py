@@ -1,13 +1,14 @@
 """Attention: GQA + RoPE (+ optional qk-norm / qkv-bias).
 
 The counterpart of the JAX package's ``models/attention.py`` for the paths
-a dense decoder trains and serves with: the full-sequence training forward
-(``attention_apply``, through the causal flash-attention kernel), prefill,
-chunked extend, contiguous decode and paged decode.  Scores are float32
-and masked with ``NEG_INF = -1e30`` (never ``-inf``; the kernels skip
-masked positions, which adds the same zeros): masked columns then
-underflow to exact zeros in the softmax, which keeps chunked extend equal
-to one full prefill and paged decode equal to slot decode.
+a dense decoder (and zamba2's shared block) trains and serves with: the
+full-sequence training forward (``attention_apply``, through the causal
+flash-attention kernel), prefill, chunked extend, contiguous decode
+(through the contiguous flash-decode kernel) and paged decode.  Scores
+are float32 and masked with ``NEG_INF = -1e30`` (never ``-inf``; the
+kernels skip masked positions, which adds the same zeros): masked columns
+then underflow to exact zeros in the softmax, which keeps chunked extend
+equal to one full prefill and paged decode equal to slot decode.
 
 Where the reference updates caches functionally (``.at[].set`` under
 ``donate_argnums``), these functions write into the caller's cache
@@ -121,27 +122,6 @@ def full_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
-def decode_attention(q, k_cache, v_cache, kv_length):
-    """One-step decode: q [B,1,Hq,D] vs caches [B,Smax,Hkv,D].
-
-    ``kv_length``: [B] number of valid cache entries (includes current
-    token).  Float32 scores and values, as the reference's
-    ``preferred_element_type=float32`` einsums."""
-    B, _, Hq, D = q.shape
-    Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(B, 1, Hkv, Hq // Hkv, D)
-    scale = 1.0 / math.sqrt(D)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
-                          k_cache.float()) * scale
-    valid = (torch.arange(Smax, device=q.device)[None, :]
-             < kv_length[:, None])
-    logits = torch.where(valid[:, None, None, None, :], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v_cache.dtype).float(),
-                       v_cache.float())
-    return out.reshape(B, 1, Hq, D).to(q.dtype)
-
-
 # ---------------------------------------------------------------------------
 # Training forward
 # ---------------------------------------------------------------------------
@@ -224,17 +204,28 @@ def attention_decode(p, x, cache_k, cache_v, kv_length, cfg: ModelConfig):
     """Single-token decode step against contiguous caches.
 
     x: [B,1,d]; cache_k/v: [B,Smax,Hkv,D], written IN PLACE at
-    ``kv_length``; kv_length: [B] valid entries *before* this token.
+    ``kv_length``; kv_length: [B] valid entries *before* this token.  A row
+    whose cache is full (``kv_length >= Smax``, as a free slot's length
+    grows past it) drops its write and attends every position, as the
+    reference does (its ``.at[].set`` drops the out-of-range write and its
+    mask admits all Smax positions).  Attention runs
+    ``ops.decode_attention``: the hand-written CUDA kernel whenever the
+    tensors are on the card, its plain version on the CPU.
     Returns (out [B,1,d], cache_k, cache_v, new_len)."""
     B = x.shape[0]
+    Smax = cache_k.shape[1]
     pos = kv_length[:, None]
     q, k_new, v_new = _project_qkv(p, x, x, cfg, pos, pos,
                                    rope=cfg.positions == "rope")
     bidx = torch.arange(B, device=x.device)
-    cache_k[bidx, kv_length] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[bidx, kv_length] = v_new[:, 0].to(cache_v.dtype)
+    fits = (kv_length < Smax)[:, None, None]
+    wpos = kv_length.clamp(max=Smax - 1).long()
+    cache_k[bidx, wpos] = torch.where(fits, k_new[:, 0].to(cache_k.dtype),
+                                      cache_k[bidx, wpos])
+    cache_v[bidx, wpos] = torch.where(fits, v_new[:, 0].to(cache_v.dtype),
+                                      cache_v[bidx, wpos])
     new_len = kv_length + 1
-    out = decode_attention(q, cache_k, cache_v, new_len)
+    out = da_ops.decode_attention(q, cache_k, cache_v, new_len)
     out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
     return nn.linear_apply(p["o"], out, cfg.cdtype), cache_k, cache_v, new_len
 

@@ -2,29 +2,39 @@
 
 The input is the reference tree as nested dicts of numpy arrays (for
 example ``jax.tree.map(np.asarray, nn.split(api.init(key, cfg))[0])``).
-Layouts are kept: linear weights stay ``[d_in, d_out]``; the stacked
-``blocks`` leaves ``[L, ...]`` are unstacked into the port's per-layer
-list.  Float leaves are stored in ``cfg.param_dtype``.
+Layouts are kept: linear weights stay ``[d_in, d_out]``; stacked layer
+leaves are unstacked into the port's per-layer lists (``blocks`` ``[L,
+...]`` of dense and rwkv6 into a list of L dicts; zamba2's ``groups`` ``[G,
+K, ...]`` into G lists of K dicts).  Float leaves keep their type (the
+reference keeps a few float32 leaves, such as rwkv6's decay base and
+zamba2's ``A_log``, in float32 in a bf16 model).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .config import ModelConfig
+from .config import DTYPES, ModelConfig
+
+_TOP_LEVEL = {
+    "dense": {"embed", "ln_f", "blocks", "unembed"},
+    "ssm": {"embed", "ln_in", "blocks", "ln_f", "unembed"},
+    "hybrid": {"embed", "groups", "shared", "ln_f", "unembed"},
+}
 
 
-def _tensor(a, dtype, device):
+def _tensor(a, device):
     a = np.asarray(a)
     if a.dtype.kind == "f" or a.dtype.name == "bfloat16":
+        dtype = DTYPES.get(a.dtype.name, torch.float32)
         return torch.from_numpy(np.array(a, np.float32)).to(device, dtype)
     return torch.from_numpy(a.copy()).to(device)
 
 
-def _convert(tree, dtype, device):
+def _convert(tree, device):
     if isinstance(tree, dict):
-        return {k: _convert(v, dtype, device) for k, v in tree.items()}
-    return _tensor(tree, dtype, device)
+        return {k: _convert(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
 
 
 def _unstack(tree, i):
@@ -34,14 +44,22 @@ def _unstack(tree, i):
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cpu"):
-    """Convert a reference dense-LM tree into the port's parameter dict."""
-    extra = set(tree) - {"embed", "ln_f", "blocks", "unembed"}
+    """Convert a reference dense-LM, rwkv6 or zamba2 tree into the port's
+    parameter dict."""
+    expected = _TOP_LEVEL.get(cfg.family, _TOP_LEVEL["dense"])
+    extra = set(tree) - expected
     if extra:
         raise NotImplementedError(
             f"parameter groups {sorted(extra)} belong to families the port "
             f"does not run yet")
-    out = _convert({k: v for k, v in tree.items() if k != "blocks"},
-                   cfg.pdtype, device)
-    blocks = _convert(tree["blocks"], cfg.pdtype, device)
-    out["blocks"] = [_unstack(blocks, i) for i in range(cfg.n_layers)]
+    out = _convert({k: v for k, v in tree.items()
+                    if k not in ("blocks", "groups")}, device)
+    if "blocks" in tree:
+        blocks = _convert(tree["blocks"], device)
+        out["blocks"] = [_unstack(blocks, i) for i in range(cfg.n_layers)]
+    if "groups" in tree:
+        groups = _convert(tree["groups"], device)
+        G, K = cfg.n_layers // cfg.attn_every, cfg.attn_every
+        out["groups"] = [[_unstack(_unstack(groups, g), i) for i in range(K)]
+                         for g in range(G)]
     return out

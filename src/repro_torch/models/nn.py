@@ -1,10 +1,10 @@
 """Functional layer library: plain dicts of tensors, init + apply functions.
 
-The counterpart of the JAX package's ``models/nn.py`` for the layers a dense
-decoder serves with.  Layouts are kept so weights carry over unchanged:
+The counterpart of the JAX package's ``models/nn.py`` for the layers the
+ported families use.  Layouts are kept so weights carry over unchanged:
 linear weights are ``[d_in, d_out]`` and apply as ``x @ w`` after casting
-BOTH operands to the compute dtype; rmsnorm and rope compute in float32;
-rope splits the head dim into halves (no interleave).
+BOTH operands to the compute dtype; rmsnorm, layernorm and rope compute in
+float32; rope splits the head dim into halves (no interleave).
 
 Initializers draw from a ``torch.Generator`` on the target device, so a
 large model is made directly on the card.  They draw the same
@@ -72,6 +72,21 @@ def rmsnorm_apply(p, x, eps=1e-6):
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(dt)
+
+
+def layernorm_init(d, *, dtype=torch.float32, device="cpu"):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm_apply(p, x, eps=1e-5):
+    dt = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(dt)
 
 
 def embedding_init(gen, vocab, d, *, dtype=torch.float32, device="cpu"):

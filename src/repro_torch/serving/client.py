@@ -2,7 +2,9 @@
 abstraction and the continuous-batching engine (Figs. 1-2: AI workers).
 
 The counterpart of the JAX package's ``serving/client.py`` for the unified
-``phase="serve"`` replica on the block-paged engine.  Speculative decoding
+``phase="serve"`` replica: dense configs get the block-paged engine by
+default, state-carrying ones (rwkv6, zamba2) the slot pool.  Speculative
+decoding
 (``draft_group``), disaggregated phases and QoS scheduling are not ported
 yet and raise (ROADMAP Queue 1 item 8).
 """
@@ -18,12 +20,19 @@ from .engine import InferenceEngine, make_engine_from_scratch
 _NOT_PORTED = "not ported to PyTorch yet: ROADMAP Queue 1 item 8"
 
 
-def _resolve_paged(engine_kw: dict) -> dict:
-    """Paged-by-default policy: ``paged=None`` (or absent) means the
-    block-paged pool, as for every dense replica of the reference."""
+def _resolve_paged(cfg: ModelConfig, engine_kw: dict) -> dict:
+    """Paged-by-default policy for replicas: dense/moe engines get the
+    block-paged pool unless the caller opts out (``paged=False``);
+    state-carrying and prefix-offset families (ssm/hybrid/vlm/encdec)
+    keep the slot pool.  ``paged=None`` (or absent) means "auto"."""
     kw = dict(engine_kw)
     if kw.get("paged") is None:
-        kw["paged"] = True
+        kw["paged"] = cfg.family in ("dense", "moe")
+    if not kw["paged"]:
+        # the slot-pool engine does not take paged-only tuning knobs
+        for k in ("block_size", "num_blocks", "prefill_chunk",
+                  "max_running", "paged_decode_mode"):
+            kw.pop(k, None)
     return kw
 
 
@@ -61,7 +70,7 @@ class LLMServicer:
         if qos or qos_class_weights is not None:
             raise NotImplementedError(f"QoS scheduling is {_NOT_PORTED}")
         self.phase = phase
-        engine_kw = _resolve_paged(engine_kw)
+        engine_kw = _resolve_paged(cfg, engine_kw)
         if params is None:
             self.engine = make_engine_from_scratch(cfg, seed=seed,
                                                    device=device, **engine_kw)
@@ -129,7 +138,8 @@ class LLMServicer:
         return None  # no draft: speculative decoding is not ported yet
 
     def block_telemetry(self):
-        """Live paged-pool gauges the replica set aggregates per group."""
+        """Live paged-pool gauges the replica set aggregates per group
+        (None on the slot pool)."""
         return self.engine.block_telemetry()
 
     def qos_stats(self):

@@ -1,7 +1,22 @@
-"""Continuous-batching inference engine on a block-paged KV cache.
+"""Continuous-batching inference engine on a slot pool or a block-paged KV
+cache.
 
-The counterpart of the JAX package's ``InferenceEngine(paged=True)`` with
-``paged_decode_mode="direct"``.  Each ``step()``:
+The counterpart of the JAX package's ``InferenceEngine``.
+
+``paged=False`` (the default, as in the reference) runs the slot pool
+(``CachePool``), the engine of every family: dense, ``ssm`` (rwkv6) and
+``hybrid`` (zamba2).  Each ``step()`` admits queued requests while a slot
+is free and the prefill-token budget allows (dense prompts right-padded
+into buckets; state-carrying families prefilled at the prompt's exact
+length, since their state depends on every token; over-long prompts keep
+their last ``max_len - 1`` tokens), then runs one batched decode over
+EVERY slot, free ones included, as the reference does.  Dense slots keep
+their KV resident after retirement, and a later prompt extending a
+resident sequence resumes it: the slot's length is rewound to the shared
+prefix and the rest of the prompt is fed through decode.
+
+``paged=True`` runs the block-paged pool with
+``paged_decode_mode="direct"`` (dense only).  Each ``step()``:
 
   1. admits queued requests while the pool's free + reclaimable blocks can
      cover their whole generation (admission by block reservation, so a
@@ -16,13 +31,13 @@ The counterpart of the JAX package's ``InferenceEngine(paged=True)`` with
      attention reads K/V through the block table (the hand-written CUDA
      kernel on the card).
 
-Greedy output is token-for-token the reference engine's.  The stores are
-updated in place where the reference donates them to jitted functions,
-and there is one host sync per prefill chunk and per decode step.
+Greedy output is token-for-token the reference engine's.  Caches and
+stores are updated in place where the reference donates them to jitted
+functions, and there is one host sync per prefill and per decode step.
 
-Not ported yet (ROADMAP Queue 1 item 8): the slot pool (``paged=False``),
-``paged_decode_mode="gather"``, speculative decoding, sequence
-export/import and preemption.
+Not ported yet (ROADMAP Queue 1 item 8): ``paged_decode_mode="gather"``,
+the slot pool's ``set_lens``/``reset_slot``, speculative decoding,
+sequence export/import and preemption.
 """
 from __future__ import annotations
 
@@ -39,7 +54,8 @@ from repro_torch.core.prefix import RadixIndex
 from repro_torch.device import resolve_device
 from repro_torch.models import ModelApi, get_model
 from repro_torch.models.config import ModelConfig
-from .kvcache import PagedCachePool, gather_block_view, scatter_block_writes
+from .kvcache import (CachePool, PagedCachePool, gather_block_view,
+                      scatter_block_writes)
 from .sampling import sample
 
 _NOT_PORTED = "not ported to PyTorch yet: ROADMAP Queue 1 item 8"
@@ -59,6 +75,10 @@ class Request:
     submitted_at: float = 0.0
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
+    slot: Optional[int] = None
+    # slot-pool prefix resume: prompt suffix still to be fed through decode
+    # (one token per step); no output is emitted while any remain
+    pending_prefix: list = dataclasses.field(default_factory=list)
     cached_prefix: int = 0  # prompt tokens whose prefill was skipped
     truncated: bool = False  # prompt exceeded max_len: the cache does not
     #                          cover the full prompt
@@ -97,8 +117,8 @@ class EngineStats:
     steps: int = 0
     decode_tokens: int = 0
     prefill_tokens: int = 0
-    decode_steps: int = 0  # batched decode forwards (one kernel launch per
-    #                        layer each on the card)
+    decode_steps: int = 0  # batched decode forwards (one decode-kernel
+    #                        launch per attention layer each on the card)
     active_slot_steps: int = 0
     slot_steps: int = 0
     prefix_reuse_hits: int = 0  # admissions that resumed resident KV
@@ -125,7 +145,8 @@ class EngineStats:
 
 
 class InferenceEngine:
-    """Single-model continuous-batching engine over a block-paged KV pool.
+    """Single-model continuous-batching engine over a slot pool
+    (``paged=False``) or a block-paged KV pool (``paged=True``).
 
     ``device`` defaults to the CUDA card (``repro_torch.device``); the
     params must already live there."""
@@ -133,20 +154,15 @@ class InferenceEngine:
     def __init__(self, cfg: ModelConfig, params, *, max_num_seqs: int = 8,
                  max_num_batched_tokens: int = 2048, max_len: int = 512,
                  prefill_buckets=(32, 64, 128, 256, 512), seed: int = 0,
-                 enable_prefix_reuse: bool = True, paged: bool = True,
+                 enable_prefix_reuse: bool = True, paged: bool = False,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  max_running: Optional[int] = None,
                  paged_decode_mode: str = "direct", device=None):
-        if not paged:
-            raise NotImplementedError(f"the slot-pool engine is {_NOT_PORTED}")
         if paged_decode_mode not in ("direct", "gather"):
             raise ValueError(
                 f"paged_decode_mode must be 'direct' or 'gather', "
                 f"not {paged_decode_mode!r}")
-        if paged_decode_mode != "direct":
-            raise NotImplementedError(
-                f"paged_decode_mode='gather' is {_NOT_PORTED}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.api: ModelApi = get_model(cfg)
@@ -156,10 +172,11 @@ class InferenceEngine:
         self.max_len = max_len
         self.buckets = tuple(b for b in prefill_buckets if b <= max_len) or (max_len,)
         self.queue: list[Request] = []
-        self.running: dict[int, Request] = {}  # uid -> request
+        self.running: dict[int, Request] = {}  # slot (or uid) -> request
         # radix index over token sequences whose KV is still resident
-        # (value = residency id); admission finds the deepest resident
-        # common prefix in one O(len(prompt)) descent
+        # (value = slot id, or a residency id in paged mode); admission
+        # finds the deepest resident common prefix in one O(len(prompt))
+        # descent
         self._prefix_index = RadixIndex()
         # residency gossip PUSH channel: called (no args) whenever resident
         # KV is dropped, so the replica set can refresh the router's view
@@ -168,10 +185,30 @@ class InferenceEngine:
         self._uid = itertools.count()
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-        self.paged = True
-        self.paged_decode_mode = paged_decode_mode
-        self._prefix_reuse = enable_prefix_reuse
+        # state-carrying families prefill at the exact prompt length; prefix
+        # reuse needs prompt token i <-> cache position i (dense only: the
+        # recurrent state has nothing to rewind)
+        self._exact_prefill = cfg.family in ("ssm", "hybrid")
+        self._prefix_reuse = (enable_prefix_reuse
+                              and cfg.family in ("dense", "moe"))
+        self.paged = paged
+        if not paged:
+            self.pool = CachePool(cfg, max_num_seqs, max_len,
+                                  device=self.device)
+            self._resident_len: dict[int, int] = {}  # slot -> covered len
+            self._last_tokens = torch.zeros((max_num_seqs,),
+                                            dtype=torch.int64,
+                                            device=self.device)
+            return
 
+        if cfg.family not in ("dense", "moe") or self.api.extend is None:
+            raise ValueError(
+                f"paged=True requires a pure text-decoder family with "
+                f"chunked extend (dense/moe), not {cfg.family!r}")
+        if paged_decode_mode != "direct":
+            raise NotImplementedError(
+                f"paged_decode_mode='gather' is {_NOT_PORTED}")
+        self.paged_decode_mode = paged_decode_mode
         self.block_size = block_size
         # memory parity by default: same KV cells as a slot pool of
         # max_num_seqs x max_len (+1 for the reserved null block)
@@ -230,54 +267,45 @@ class InferenceEngine:
 
     def step(self) -> list:
         """One engine iteration. Returns [(uid, token), ...] emitted."""
-        self._admit_paged()
-        self.stats.peak_running = max(self.stats.peak_running,
-                                      len(self.running))
-        self._prefill_step_paged()
-        events = self._decode_step_paged()
+        if self.paged:
+            return self._step_paged()
+        self._admit()
+        events = []
+        if self.running:
+            events = self._decode_step()
         self.stats.steps += 1
         self.stats.active_slot_steps += len(self.running)
-        self.stats.slot_steps += max(self.max_num_seqs, len(self.running))
-        self.stats.shared_block_peak = max(self.stats.shared_block_peak,
-                                           self.pool.block_savings())
-        self.stats.free_blocks = self.pool.n_free
-        self.stats.reserved_blocks = self._reserved
+        self.stats.slot_steps += self.max_num_seqs
         return events
 
     def collect_finished(self) -> list:
-        """Retire finished requests.  With prefix reuse on, the block table
-        transfers to a residency entry (the references move, they are not
-        duplicated), so the blocks stay shareable until block-granular
-        eviction reclaims them."""
+        """Retire finished requests, freeing their slots.  With prefix
+        reuse on, a freed slot's KV stays resident and the sequence it
+        covers is remembered, so a later prompt extending it can skip that
+        prefill."""
+        if self.paged:
+            return self._collect_finished_paged()
         done = []
-        for uid, req in list(self.running.items()):
-            if not req.done:
-                continue
-            del self.running[uid]
-            if req in self._prefill_order:
-                self._prefill_order.remove(req)
-            self._reserved -= req.reserve_left
-            req.reserve_left = 0
-            if self._prefix_reuse and not req.truncated and req.table:
-                seq = tuple(req.prompt) + tuple(req.output)
-                res_id = next(self._res_counter)
-                self._residency[res_id] = _Residency(tuple(req.table),
-                                                     len(seq))
-                for b in req.table:
-                    self._res_holds[b] = self._res_holds.get(b, 0) + 1
-                self._prefix_index.insert(seq, res_id)
-            else:
-                for b in req.table:
-                    self.pool.alloc.free(b)
-            req.table = []
-            done.append(req)
-        self.stats.free_blocks = self.pool.n_free
-        self.stats.reserved_blocks = self._reserved
+        for slot, req in list(self.running.items()):
+            if req.done:
+                del self.running[slot]
+                if self._prefix_reuse and not req.truncated:
+                    seq = tuple(req.prompt) + tuple(req.output)
+                    self._drop_residency(slot)  # stale entry, if any
+                    self._prefix_index.insert(seq, slot)
+                    self._resident_len[slot] = len(seq)
+                    self.pool.free(slot, resident=True)
+                else:
+                    self.pool.free(slot)
+                done.append(req)
         return done
 
-    def block_telemetry(self) -> dict:
+    def block_telemetry(self) -> Optional[dict]:
         """Live physical-block telemetry the replica set aggregates per
-        model group and gossips to headroom-aware routers."""
+        model group and gossips to headroom-aware routers (None for the
+        slot pool)."""
+        if not self.paged:
+            return None
         return {
             "free_blocks": self.pool.n_free,
             "total_blocks": self.pool.alloc.capacity,
@@ -329,6 +357,202 @@ class InferenceEngine:
             req.output[-1] == req.eos_id
         if len(req.output) >= req.max_new_tokens or hit_eos:
             req.finished_at = time.perf_counter()
+
+    def _first_token(self, req: Request, logits_last) -> int:
+        if req.temperature > 0:
+            return int(sample(logits_last[None, :], self._gen,
+                              temperature=req.temperature)[0])
+        return int(torch.argmax(logits_last))
+
+    # ------------------------------------------------------------------
+    # Internals (slot pool)
+    # ------------------------------------------------------------------
+    def _prefill(self, tokens: np.ndarray):
+        kw = {"max_len": self.max_len}
+        if not self._exact_prefill:
+            kw["last_only"] = False
+        return self.api.prefill(self.params, {"tokens": self._tensor(tokens)},
+                                self.cfg, **kw)
+
+    def _admit(self):
+        budget = self.max_num_batched_tokens
+        while self.queue and self.pool.n_free > 0:
+            req = self.queue[0]
+            if self._prefix_reuse and self._try_resume(req):
+                self.queue.pop(0)  # resumed: no prefill, no budget charge
+                continue
+            n = min(req.n_prompt, self.max_len - 1)
+            bucket = n if self._exact_prefill else _bucket(n, self.buckets)
+            n = min(n, bucket)  # over-long prompts keep their last n tokens
+            if bucket > budget:
+                break
+            self.queue.pop(0)
+            slot = self.pool.allocate()  # blank-preferring: resident KV is
+            self._drop_residency(slot)  # only evicted when no blank is left
+            req.truncated = n < req.n_prompt
+            budget -= bucket
+            tokens = np.zeros((1, bucket), np.int64)
+            tokens[0, :n] = req.prompt[-n:]  # right-pad into the bucket
+            cache, logits = self._prefill(tokens)
+            self.pool.insert(slot, cache)
+            if not self._exact_prefill:
+                self.pool.set_len(slot, n)
+                logits_last = logits[0, n - 1]
+            else:
+                logits_last = logits[0]
+            self.stats.prefill_tokens += bucket
+            tok = self._first_token(req, logits_last)
+            req.slot = slot
+            req.output.append(tok)
+            req.first_token_at = time.perf_counter()
+            self._last_tokens[slot] = tok
+            self.running[slot] = req
+            self._check_done(req)
+
+    def _drop_residency(self, slot: Optional[int], notify: bool = True):
+        """Forget a slot's resident sequence (its cache is being replaced
+        or re-claimed), notifying the push listener when coverage the
+        router may rely on disappeared.  A take-for-resume passes
+        ``notify=False``: it is a hit, not an eviction."""
+        if slot is None:
+            return
+        had = self._resident_len.pop(slot, None) is not None
+        self._prefix_index.remove_value(slot)
+        if notify and had and self.on_residency_drop is not None:
+            try:
+                self.on_residency_drop()
+            except Exception:
+                pass  # gossip is best-effort; serving must not care
+
+    def _try_resume(self, req: Request) -> bool:
+        """Prefix-reuse fast path: claim the freed slot whose resident KV
+        shares the deepest usable prefix with ``req.prompt``, rewind its
+        length to that prefix and feed the rest of the prompt through the
+        batched decode.  A resident sequence of length L has KV for its
+        first L - 1 tokens; the resume must cover at least half the
+        prompt (the uncovered suffix is fed one token per step)."""
+        m = req.n_prompt
+        if m >= self.max_len:  # would be truncated: prefix math breaks
+            return False
+        threshold = max(1, (m + 1) // 2)
+        candidates = []
+        for slot, d in self._prefix_index.match_lengths(req.prompt).items():
+            L = self._resident_len.get(slot)
+            if L is None:
+                continue
+            covered = min(d, L - 1, m - 1)
+            if covered >= threshold:
+                candidates.append((covered, slot, L, d))
+        candidates.sort(reverse=True)  # deepest usable rewind first
+        for covered, slot, L, d in candidates:
+            if not self.pool.take(slot):
+                continue
+            self._drop_residency(slot, notify=False)
+            self.pool.set_len(slot, covered)
+            self._last_tokens[slot] = req.prompt[covered]
+            req.pending_prefix = list(req.prompt[covered + 1:])
+            req.cached_prefix = covered
+            req.slot = slot
+            self.running[slot] = req
+            self.stats.prefix_reuse_hits += 1
+            if d < L and d < m:  # a true divergence, not a replay
+                self.stats.prefix_partial_hits += 1
+            self.stats.prefix_cached_tokens += covered
+            self.stats.prefill_tokens += 1  # the feed queued into
+            #                  _last_tokens; the rest count as they are fed
+            return True
+        return False
+
+    def _decode_step(self) -> list:
+        """One batched decode over every slot (free ones too, on stale
+        tokens, as the reference does)."""
+        self.pool.cache, logits = self.api.decode(
+            self.params, self.pool.cache, self._last_tokens, self.cfg)
+        self.stats.decode_steps += 1
+        temps = np.zeros((self.max_num_seqs,), np.float32)
+        for slot, req in self.running.items():
+            temps[slot] = req.temperature
+        # all-greedy batches skip the sampled path
+        tokens = torch.argmax(logits, dim=-1)
+        if np.any(temps > 0):
+            sampled = sample(logits, self._gen, temperature=1.0)
+            tokens = torch.where(self._tensor(temps) > 0, sampled, tokens)
+        tokens_np = tokens.cpu().numpy()
+        # only a resumed request forces the host-side token rewrite (and
+        # the re-upload below)
+        has_pending = any(req.pending_prefix
+                          for req in self.running.values())
+        if has_pending:
+            tokens_np = tokens_np.copy()
+        events = []
+        for slot, req in list(self.running.items()):
+            if req.done:
+                continue
+            if req.pending_prefix:
+                # a resumed request still feeding its prompt suffix: feed
+                # the next prompt token instead of the model's prediction
+                tokens_np[slot] = req.pending_prefix.pop(0)
+                self.stats.prefill_tokens += 1
+                continue
+            tok = int(tokens_np[slot])
+            req.output.append(tok)
+            if req.first_token_at is None:  # resumed: first real token
+                req.first_token_at = time.perf_counter()
+            events.append((req.uid, tok))
+            self.stats.decode_tokens += 1
+            self._check_done(req)
+        self._last_tokens = self._tensor(tokens_np) if has_pending else tokens
+        return events
+
+    # ------------------------------------------------------------------
+    # Internals (paged pool)
+    # ------------------------------------------------------------------
+
+    def _step_paged(self) -> list:
+        self._admit_paged()
+        self.stats.peak_running = max(self.stats.peak_running,
+                                      len(self.running))
+        self._prefill_step_paged()
+        events = self._decode_step_paged()
+        self.stats.steps += 1
+        self.stats.active_slot_steps += len(self.running)
+        self.stats.slot_steps += max(self.max_num_seqs, len(self.running))
+        self.stats.shared_block_peak = max(self.stats.shared_block_peak,
+                                           self.pool.block_savings())
+        self.stats.free_blocks = self.pool.n_free
+        self.stats.reserved_blocks = self._reserved
+        return events
+
+    def _collect_finished_paged(self) -> list:
+        """Retire finished requests.  With prefix reuse on, the block table
+        transfers to a residency entry (the references move, they are not
+        duplicated), so the blocks stay shareable until block-granular
+        eviction reclaims them."""
+        done = []
+        for uid, req in list(self.running.items()):
+            if not req.done:
+                continue
+            del self.running[uid]
+            if req in self._prefill_order:
+                self._prefill_order.remove(req)
+            self._reserved -= req.reserve_left
+            req.reserve_left = 0
+            if self._prefix_reuse and not req.truncated and req.table:
+                seq = tuple(req.prompt) + tuple(req.output)
+                res_id = next(self._res_counter)
+                self._residency[res_id] = _Residency(tuple(req.table),
+                                                     len(seq))
+                for b in req.table:
+                    self._res_holds[b] = self._res_holds.get(b, 0) + 1
+                self._prefix_index.insert(seq, res_id)
+            else:
+                for b in req.table:
+                    self.pool.alloc.free(b)
+            req.table = []
+            done.append(req)
+        self.stats.free_blocks = self.pool.n_free
+        self.stats.reserved_blocks = self._reserved
+        return done
 
     def _blocks_needed(self, total_len: int, covered: int) -> int:
         """Blocks a sequence of ``total_len`` tokens must be able to
@@ -471,12 +695,6 @@ class InferenceEngine:
             else:
                 assert lb == len(req.table), "non-contiguous block write"
                 req.table.append(self._alloc_block(req))
-
-    def _first_token(self, req: Request, logits_last) -> int:
-        if req.temperature > 0:
-            return int(sample(logits_last[None, :], self._gen,
-                              temperature=req.temperature)[0])
-        return int(torch.argmax(logits_last))
 
     def _prefill_step_paged(self):
         """Feed one prompt chunk per prefilling sequence (admission FIFO)

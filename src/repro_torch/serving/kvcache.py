@@ -1,7 +1,14 @@
-"""Block-paged KV cache for the serving engine.
+"""KV-cache pools for the serving engine: slot-granular and block-paged.
 
-The counterpart of the JAX package's ``PagedCachePool`` and its helpers:
-each of the K and V stores is allocated once as ``[L, num_blocks,
+``CachePool`` is the counterpart of the JAX package's slot pool: one
+``[..., max_seqs, ...]`` region per cache leaf, laid out by
+``cache_template`` for the dense, ``ssm`` (rwkv6) and ``hybrid`` (zamba2)
+families, allocated once on the engine's device and updated in place;
+admit/evict at whole-slot granularity, blank slots first.  It is the pool
+of every state-carrying family, which has no per-position KV to page.
+
+The block-paged pool is the counterpart of the JAX package's
+``PagedCachePool`` and its helpers: each of the K and V stores is allocated once as ``[L, num_blocks,
 block_size, Hkv, D]`` in the compute dtype on the engine's device; a
 sequence is a *block table* (list of physical block ids) and
 ``BlockAllocator`` hands out blocks with per-block refcounts, so
@@ -22,6 +29,174 @@ from typing import Optional
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.mamba2 import ssm_dims
+
+
+# ---------------------------------------------------------------------------
+# Slot pool
+# ---------------------------------------------------------------------------
+
+
+def cache_template(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The slot cache's leaves as nested dicts of ``(shape, dtype)``: the
+    layout each family's ``prefill`` returns at batch 1 and its ``decode``
+    reads (the part of the reference's ``launch/specs.py:cache_template``
+    that the slot pool uses)."""
+    cd = cfg.cdtype
+    f32, i32 = torch.float32, torch.int32
+    if cfg.family == "hybrid":
+        G = cfg.n_layers // cfg.attn_every
+        K = cfg.attn_every
+        d_in, H, N, _ = ssm_dims(cfg)
+        W = cfg.ssm_conv
+        kv = (G, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {
+            "ssm": {"conv": {"x": ((G, K, batch, W - 1, d_in), cd),
+                             "B": ((G, K, batch, W - 1, N), cd),
+                             "C": ((G, K, batch, W - 1, N), cd)},
+                    "ssm": ((G, K, batch, H, N, cfg.ssm_head_dim), f32)},
+            "attn": {"k": (kv, cd), "v": (kv, cd), "len": ((G, batch), i32)},
+        }
+    if cfg.family == "ssm":
+        L, d, hd = cfg.n_layers, cfg.d_model, cfg.rwkv_head_dim
+        return {
+            "att": {"shift": ((L, batch, d), cd),
+                    "wkv": ((L, batch, d // hd, hd, hd), f32)},
+            "ffn": {"shift": ((L, batch, d), cd)},
+        }
+    kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": (kv, cd), "v": (kv, cd), "len": ((batch,), i32)}
+
+
+def batch_dim_for(keys, rank: int) -> int:
+    """The slot (batch) dim of a cache leaf, from its name and rank."""
+    name = keys[-1]
+    if name in ("k", "v", "wkv", "ssm"):
+        return rank - 4
+    if name == "len":
+        return rank - 1
+    if name == "shift":
+        return rank - 2
+    if len(keys) >= 2 and keys[-2] == "conv":
+        return rank - 3
+    raise ValueError(f"unknown cache leaf {keys}")
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _build(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _build(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+class CachePool:
+    """Zero-initialized cache for ``max_seqs`` slots + residency-aware
+    slot allocator.
+
+    A freed slot may stay *resident*: its KV still covers a token sequence
+    the engine's radix residency index remembers, so a later prompt can
+    resume it.  ``allocate()`` prefers blank free slots (FIFO) and only
+    recycles a resident one when no blank slot is left; among resident
+    slots, free order approximates least-recent retirement, so the coldest
+    cache is evicted first.  The free list is two deques, so
+    ``allocate()`` is O(1)."""
+
+    def __init__(self, cfg: ModelConfig, max_seqs: int, max_len: int, *,
+                 device="cpu"):
+        self.cfg = cfg
+        self.max_seqs = max_seqs
+        self.max_len = max_len
+        self.cache = _build(cache_template(cfg, max_seqs, max_len),
+                            lambda sd: torch.zeros(sd[0], dtype=sd[1],
+                                                   device=device))
+        self._free_blank: deque[int] = deque(range(max_seqs))
+        self._free_resident: deque[int] = deque()
+        self._resident: set[int] = set()
+
+    # -- slot allocation ------------------------------------------------
+    def allocate(self) -> Optional[int]:
+        """Pop a free slot, blank ones first; the caller must drop any
+        residency bookkeeping for the returned slot (its cache is about
+        to be replaced)."""
+        if self._free_blank:
+            return self._free_blank.popleft()
+        if self._free_resident:  # no blank slot left: evict the coldest
+            slot = self._free_resident.popleft()
+            self._resident.discard(slot)
+            return slot
+        return None
+
+    def free(self, slot: int, resident: bool = False):
+        """Return a slot to the pool; ``resident=True`` marks its KV as
+        still covering a resumable sequence (prefix reuse)."""
+        if resident:
+            self._resident.add(slot)
+            self._free_resident.append(slot)
+        else:
+            self._resident.discard(slot)
+            self._free_blank.append(slot)
+
+    def take(self, slot: int) -> bool:
+        """Claim a SPECIFIC free slot (prefix-reuse admission).  Returns
+        False if it is not free."""
+        for q in (self._free_resident, self._free_blank):
+            try:
+                q.remove(slot)
+            except ValueError:
+                continue
+            self._resident.discard(slot)
+            return True
+        return False
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free_blank) + len(self._free_resident)
+
+    @property
+    def n_free_blank(self) -> int:
+        """Free slots with no resident cache (allocate() serves these
+        first)."""
+        return len(self._free_blank)
+
+    # -- data movement ----------------------------------------------------
+    def insert(self, slot: int, prefill_cache):
+        """Write a single-request prefill cache (batch 1) into ``slot``, in
+        place; a leaf covering fewer positions than the pool is
+        zero-padded."""
+        for path, leaf in _leaves(self.cache):
+            new = _leaf(prefill_cache, path)
+            dst = leaf.select(batch_dim_for(path, leaf.dim()), slot)
+            src = new.select(batch_dim_for(path, new.dim()), 0)
+            if src.shape != dst.shape:
+                dst.zero_()
+                dst = dst[tuple(slice(0, n) for n in src.shape)]
+            dst.copy_(src)
+
+    def set_len(self, slot: int, n: int):
+        """Fix the true sequence length of a right-padded bucketed
+        prefill."""
+        for path, leaf in _leaves(self.cache):
+            if path[-1] == "len":
+                leaf.select(batch_dim_for(path, leaf.dim()), slot).fill_(n)
+
+
+# ---------------------------------------------------------------------------
+# Block-paged pool
+# ---------------------------------------------------------------------------
+
 
 NULL_BLOCK = 0  # physical block 0 is never allocated: padded rows write here
 

@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels against their plain versions, on the card,
-and one training step on the card against the same step on the CPU.
+"""The hand-written CUDA kernels against their plain versions, on the card;
+one training step and the slot engine on the card against the same work
+on the CPU.
 
 Needs a CUDA card and imports neither JAX nor the JAX package, so it runs
 where the port runs:
@@ -15,6 +16,17 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.decode_attention import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.mamba2 import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.mamba2 import ref as ssd_ref  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
+
+# WKV/SSD kernel vs plain in float32: 1e-4 relative (with the same floor),
+# the reference's own limit for these scans (tests/test_kernels.py): exps
+# and sums over a chunk taken in another order.  bf16 outputs are rounded
+# to bf16 on both sides: 4e-3 plus one bf16 ulp (2^-7) of the value.
+F32_SCAN_TOL = (1e-4, 1e-4)
+BF16_TOL = (4e-3, 2.0 ** -7)
 
 
 @pytest.fixture
@@ -178,3 +190,159 @@ def test_cuda_train_step_matches_cpu_step(cuda):
                     optim.tree_leaves(cpu["params"])):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=2e-3,
                                    atol=2e-5)
+
+
+def _close(got, want, tol):
+    atol, rtol = tol
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,Hkv,G,D", [
+    ("float32", 4, 2, 32), ("float32", 8, 3, 128), ("float32", 32, 1, 80),
+    ("bfloat16", 8, 3, 128), ("bfloat16", 32, 1, 80)])
+def test_cuda_contiguous_decode_matches_plain(cuda, dtype, Hkv, G, D):
+    """The contiguous flash-decode kernel vs ``ref.decode_ref`` on slot
+    caches [B, S, Hkv, D] of an S that is no multiple of the tile, ragged
+    lengths, and idle rows whose length is past S (the kernel clamps it,
+    the plain version's mask admits every position)."""
+    S = 77
+    lens = [1, 31, 32, 33, S - 1, S, S + 1, S + 500]
+    rng = np.random.RandomState(5)
+    B = len(lens)
+    dt = getattr(torch, dtype)
+    q, kc, vc = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                 .cuda().to(dt) for shape in ((B, 1, Hkv * G, D),
+                                              (B, S, Hkv, D),
+                                              (B, S, Hkv, D)))
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = ops.contiguous_launches
+    out = ops.decode_attention(q, kc, vc, ln)
+    torch.cuda.synchronize()
+    assert ops.contiguous_launches == before + 1
+    plain = ref.decode_ref(q.reshape(B, Hkv, G, D), kc, vc, ln)
+    _close(out, plain.reshape(out.shape),
+           (2e-5, 2e-5) if dtype == "float32" else BF16_TOL)
+    assert bool(torch.isfinite(out).all())
+
+
+def _scan_inputs(seed, shapes, dtypes):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda().to(d)
+            for s, d in zip(shapes, dtypes)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,T,H,hd,chunk", [
+    ("float32", 2, 37, 4, 16, 8), ("float32", 1, 256, 32, 64, 32),
+    ("bfloat16", 1, 256, 32, 64, 32), ("bfloat16", 2, 70, 4, 16, 8)])
+def test_cuda_wkv_matches_plain(cuda, dtype, B, T, H, hd, chunk):
+    """The WKV6 kernel vs ``ref.wkv_chunked_ref`` (on the same padded
+    inputs): y and the final state, from a non-zero initial state, with a
+    T that is no multiple of the chunk."""
+    dt = getattr(torch, dtype)
+    f32 = torch.float32
+    r, k, v, lw, u, s0 = _scan_inputs(
+        11, [(B, T, H, hd)] * 4 + [(H, hd), (B, H, hd, hd)],
+        [dt, dt, dt, f32, f32, f32])
+    r, k = r * 0.5, k * 0.5
+    lw = -torch.exp(lw - 1.0)
+    u, s0 = u * 0.1, s0 * 0.1
+    before = wkv_ops.launches
+    y, s = wkv_ops.wkv(r, k, v, lw, u, chunk=chunk, s0=s0)
+    torch.cuda.synchronize()
+    assert wkv_ops.launches == before + 1
+    pad = -T % chunk
+    padded = [torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+              for t in (r, k, v, lw)]
+    py, ps = wkv_ref.wkv_chunked_ref(*padded, u, chunk, s0)
+    _close(y, py[:, :T], F32_SCAN_TOL if dtype == "float32" else BF16_TOL)
+    _close(s, ps, F32_SCAN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,T,H,P,N,chunk", [
+    ("float32", 2, 64, 3, 8, 4, 16), ("float32", 1, 37, 4, 16, 16, 37),
+    ("float32", 1, 384, 80, 64, 64, 128), ("bfloat16", 1, 384, 80, 64, 64, 128),
+    ("bfloat16", 2, 96, 4, 16, 16, 16)])
+def test_cuda_ssd_matches_plain(cuda, dtype, B, T, H, P, N, chunk):
+    """The SSD kernel vs ``ref.ssd_chunked_ref``: y and the final state,
+    from a non-zero initial state, chunks of any length up to 128 (a
+    37-token prompt runs as one chunk of 37)."""
+    dt = getattr(torch, dtype)
+    f32 = torch.float32
+    x, dts, A, Bm, Cm, h0 = _scan_inputs(
+        12, [(B, T, H, P), (B, T, H), (H,), (B, T, N), (B, T, N),
+             (B, H, N, P)], [dt, f32, f32, dt, dt, f32])
+    dts = torch.nn.functional.softplus(dts - 2.0)
+    A = -torch.exp(A)
+    h0 = h0 * 0.1
+    before = ssd_ops.launches
+    y, h = ssd_ops.ssd(x, dts, A, Bm, Cm, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    py, ph = ssd_ref.ssd_chunked_ref(x, dts, A, Bm, Cm, min(chunk, T), h0)
+    _close(y, py, F32_SCAN_TOL if dtype == "float32" else BF16_TOL)
+    _close(h, ph, F32_SCAN_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_wrappers_reject_what_the_kernels_cannot_take(cuda):
+    f32 = torch.float32
+    x, dts, A, Bm, Cm = _scan_inputs(
+        1, [(1, 256, 2, 8), (1, 256, 2), (2,), (1, 256, 4), (1, 256, 4)],
+        [f32] * 5)
+    before = ssd_ops.launches
+    with pytest.raises(ValueError, match="at most 128"):
+        ssd_ops.ssd(x, dts, A, Bm, Cm, chunk=256)
+    with pytest.raises(ValueError, match="not divisible"):
+        ssd_ops.ssd(x[:, :200].contiguous(), dts[:, :200].contiguous(), A,
+                    Bm[:, :200].contiguous(), Cm[:, :200].contiguous(),
+                    chunk=128)
+    assert ssd_ops.launches == before
+    r, lw, u = _scan_inputs(2, [(1, 8, 2, 16), (1, 8, 2, 16), (2, 16)],
+                            [torch.float16, f32, f32])
+    before = wkv_ops.launches
+    with pytest.raises(TypeError):
+        wkv_ops.wkv(r, r, r, lw, u, chunk=8)
+    assert wkv_ops.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_slot_engine_matches_cpu_run(cuda):
+    """rhapsody-demo (f32) through the slot engine on the card (the
+    contiguous decode kernel) and on the CPU (its plain version), same
+    weights and prompts: identical greedy transcripts and counters; the
+    kernel ran n_layers times per decode step, and the full slot's length
+    ran past max_len on the way."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.training import optim
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("rhapsody-demo")
+    params = get_model(cfg).init(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    card_params = optim.tree_map(lambda t: t.cuda(), params)
+    rng = np.random.RandomState(1)
+    prompts = [list(map(int, rng.randint(1, cfg.vocab, size=n)))
+               for n in (3, 8, 9, 17, 30)]
+    runs = []
+    for device, p in (("cpu", params), ("cuda", card_params)):
+        eng = InferenceEngine(cfg, p, device=device, paged=False,
+                              max_num_seqs=2, max_num_batched_tokens=64,
+                              max_len=40, prefill_buckets=(16, 32))
+        before = ops.contiguous_launches
+        uids = [eng.submit(q, max_new_tokens=6) for q in prompts]
+        uids.append(eng.submit(prompts[0], max_new_tokens=45))
+        done = eng.run()
+        runs.append(([done[u].output for u in uids], eng.stats,
+                     ops.contiguous_launches - before))
+    (cpu_out, cpu_stats, cpu_launches), (out, stats, launches) = runs
+    assert out == cpu_out
+    assert cpu_launches == 0
+    assert launches == cfg.n_layers * stats.decode_steps > 0
+    for name in ("steps", "decode_steps", "prefill_tokens", "decode_tokens"):
+        assert getattr(stats, name) == getattr(cpu_stats, name), name

@@ -116,7 +116,7 @@ def test_engine_matches_reference(scenario, lm):
     ref_eng, ref_out = run(lambda **kw: JaxEngine(cfg, params, paged=True,
                                                   **kw))
     eng, out = run(lambda **kw: InferenceEngine(tcfg, tparams, device="cpu",
-                                                **kw))
+                                                paged=True, **kw))
     assert out == ref_out
     for name in COUNTERS:
         assert getattr(eng.stats, name) == getattr(ref_eng.stats, name), name
@@ -125,16 +125,20 @@ def test_engine_matches_reference(scenario, lm):
 
 
 def test_engine_refuses_what_is_not_ported(lm):
+    """``paged=False`` builds the slot pool, as the reference's default;
+    the paged engine's ``"gather"`` mode and preemption still raise."""
     _, _, _, tcfg, tparams = lm
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        InferenceEngine(tcfg, tparams, device="cpu", paged=False)
+    slot = InferenceEngine(tcfg, tparams, device="cpu", **ENGINE_KW)
+    assert not slot.paged and slot.pool.n_free == ENGINE_KW["max_num_seqs"]
+    assert slot.block_telemetry() is None
     with pytest.raises(NotImplementedError, match="gather"):
-        InferenceEngine(tcfg, tparams, device="cpu",
+        InferenceEngine(tcfg, tparams, device="cpu", paged=True,
                         paged_decode_mode="gather")
     with pytest.raises(ValueError, match="paged_decode_mode"):
-        InferenceEngine(tcfg, tparams, device="cpu",
+        InferenceEngine(tcfg, tparams, device="cpu", paged=True,
                         paged_decode_mode="telepathy")
-    eng = InferenceEngine(tcfg, tparams, device="cpu", **ENGINE_KW)
+    eng = InferenceEngine(tcfg, tparams, device="cpu", paged=True,
+                          **ENGINE_KW)
     with pytest.raises(NotImplementedError):
         eng.preempt_sequence(0)
 
@@ -143,8 +147,8 @@ def test_sampled_requests_terminate(lm):
     """temperature > 0 runs the sampled prefill/decode paths (no parity
     claim: the generators differ)."""
     _, _, _, tcfg, tparams = lm
-    eng = InferenceEngine(tcfg, tparams, device="cpu", **ENGINE_KW,
-                          block_size=8)
+    eng = InferenceEngine(tcfg, tparams, device="cpu", paged=True,
+                          **ENGINE_KW, block_size=8)
     eng.submit([3, 1, 4, 1, 5, 9], max_new_tokens=5, temperature=0.8)
     (req,) = eng.run().values()
     assert len(req.output) == 5

@@ -1,7 +1,8 @@
-"""The main path end to end: ``Rhapsody`` -> ``ReplicaSet`` (2 replicas)
--> ``LLMServicer`` -> the paged engine, in both packages on the same
-weights and the same requests: every request's greedy tokens must be
-identical.  Then the port's launcher, on the CPU."""
+"""The serving paths end to end: ``Rhapsody`` -> ``ReplicaSet`` (2
+replicas) -> ``LLMServicer`` -> the paged engine (dense) or the slot pool
+(rwkv6), in both packages on the same weights and the same requests:
+every request's greedy tokens must be identical.  The servicer's pool
+policy, then the port's launcher, on the CPU."""
 import numpy as np
 import pytest
 
@@ -41,8 +42,11 @@ def _serve(core, factory, prompts):
         rh.close()
 
 
-def test_two_replica_service_matches_reference():
-    cfg, _, params, tcfg, tparams = build()
+@pytest.mark.parametrize("arch", [None, "rwkv6-1.6b"])
+def test_two_replica_service_matches_reference(arch):
+    """Dense replicas auto-resolve to the paged engine, rwkv6 replicas to
+    the slot pool (the paged knobs of ``ENGINE_KW`` are stripped)."""
+    cfg, _, params, tcfg, tparams = build(arch=arch)
     rng = np.random.RandomState(0)
     prompts = [list(map(int, rng.randint(1, cfg.vocab, size=n)))
                for n in (4, 9, 13, 20, 6, 31, 11, 17)]
@@ -53,6 +57,27 @@ def test_two_replica_service_matches_reference():
     assert out == ref
     assert all(len(t) == 5 for t in out)
     assert sum(per_replica) == len(prompts) and len(per_replica) == 2
+
+
+def test_servicer_resolves_the_pool_as_the_reference():
+    """``paged=None`` gives dense configs the paged engine and rwkv6 /
+    zamba2 the slot pool with the paged-only knobs stripped; an explicit
+    ``paged=False`` forces the slot pool; ``paged=True`` is refused for a
+    state-carrying family with the reference's ``ValueError``."""
+    _, _, _, tcfg, tparams = build()
+    knobs = dict(max_num_seqs=2, max_len=32, prefill_buckets=(16,),
+                 block_size=8, num_blocks=16, device="cpu")
+    assert LLMServicer(tcfg, tparams, **knobs).engine.paged
+    s = LLMServicer(tcfg, tparams, paged=False, **knobs)
+    assert not s.engine.paged and s.block_telemetry() is None
+    for arch in ("rwkv6-1.6b", "zamba2-2.7b"):
+        _, _, _, scfg, sparams = build(arch=arch)
+        s = LLMServicer(scfg, sparams, **knobs)
+        assert not s.engine.paged and s.block_telemetry() is None
+        s.warmup()
+        assert s.stats.prefill_tokens == 4 and not s.engine.running
+        with pytest.raises(ValueError, match="paged=True requires"):
+            LLMServicer(scfg, sparams, paged=True, **knobs)
 
 
 def test_servicer_hooks_and_unported_options():
@@ -87,3 +112,15 @@ def test_launcher_runs_on_cpu(capsys):
     assert "per-replica requests" in printed
     with pytest.raises(NotImplementedError, match="not yet ported"):
         serve.main(["--device", "cpu", "--disagg"])
+
+
+@pytest.mark.parametrize("flags", [["--arch", "rwkv6-1.6b"], ["--no-paged"]])
+def test_launcher_serves_the_slot_pool_on_cpu(flags, capsys):
+    """rwkv6 (its smoke config, as the launcher's config choice says) and
+    a dense ``--no-paged`` launch run on the slot pool."""
+    out = serve.main(["--device", "cpu", "--smoke", "--replicas", "2",
+                      "--requests", "4", "--max-new-tokens", "3"] + flags)
+    assert all(len(r["tokens"]) == 3 for r in out["results"])
+    assert out["errors"] == [None, None]
+    assert out["decode_steps"] > 0
+    assert "paged-block telemetry" not in capsys.readouterr().out
