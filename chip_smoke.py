@@ -11,7 +11,10 @@ Phases, each printing one JSON line:
    (``kernels/decode_attention/csrc``), the causal flash attention
    (``kernels/flash_attention/csrc``), the chunked WKV6
    (``kernels/rwkv6/csrc``) and the chunked Mamba2 SSD
-   (``kernels/mamba2/csrc``); ptxas registers and spills of each.
+   (``kernels/mamba2/csrc``); ptxas registers and spill bytes of every
+   kernel template, and the counts of wgmma (HGMMA), TMA (UTMALDG,
+   UTMASTG) and mbarrier (SYNCS) instructions in the flash library's SASS
+   (``cuobjdump -sass``).
 2. paged decode kernel vs plain: against ``ref.paged_decode_ref`` on the
    card (rhapsody-demo f32, llama3.2-3b's heads in f32 and bf16; ragged
    lengths, permuted tables, null-block padding rows; f32 within 2e-5,
@@ -44,6 +47,10 @@ Phases, each printing one JSON line:
    (2 groups) at full width, and rhapsody-demo, through the slot engine
    (``paged=False``): greedy transcripts against a recurrent oracle on the
    card that runs no kernel, teacher-forced on the engine's transcript.
+   Then zamba2-2.7b's ``forward`` (SSD and flash kernels, head_dim 80) on
+   one prompt: f32 cut to 12 layers against the same oracle's logits
+   (2 flash launches), and bf16 at 54 layers, finite (9 flash launches),
+   timed cold and warm.
 10-11. slot-pool serving at full width: rwkv6-1.6b (24 layers, d 2048,
    vocab 65536) and zamba2-2.7b (54 layers, d 2560, vocab 32000), bf16,
    random weights from seed 0, behind ``Rhapsody`` with 2 replicas
@@ -51,15 +58,18 @@ Phases, each printing one JSON line:
    of 32 new tokens, cold then warm; prompts up to 400 tokens (rwkv6) and
    256/384-token ones (zamba2) besides the log-normal ones.
 12. flash kernel vs plain: out and lse against ``ref.attention_fwd_ref``
-   (rhapsody-demo heads in f32, llama3.2-3b heads in f32 and bf16; B 2,
-   S in {1, 63, 64, 65, 200, 1024}; the same limits as phase 2), and the
-   gradient of ``FlashAttention`` against autograd of the plain version in
-   float32 (1e-4 for f32 inputs, 2e-2 for bf16).
+   (rhapsody-demo heads, D 32, in f32; zamba2-2.7b's, D 80, and
+   llama3.2-3b's, D 128, in f32 and bf16; B 2, S in ``FLASH_SEQS``, the
+   edges of the 128-row query tiles and the diagonal tile; the same limits
+   as phase 2), and the gradient of ``FlashAttention`` against autograd of
+   the plain version in float32 (1e-4 for f32 inputs, 2e-2 for bf16).
 13. flash at the llama3.2-3b training shape (B 2, S 2048, Hq 24, Hkv 8,
-   D 128, bf16): the wrapper's out, lse and gradient against the plain
-   version as in phase 12, then the times of the kernel, the plain
-   version, the library yardstick (SDPA, causal, GQA), ``attention_bwd``
-   and the bound.
+   D 128, bf16) and at zamba2-2.7b's (B 1, S 384, Hq = Hkv = 32, D 80):
+   the wrapper's out, lse and gradient against the plain version as in
+   phase 12, then the times of the kernel, the plain version, the library
+   yardstick (SDPA, causal, GQA) and the bound (and ``attention_bwd`` at
+   the training shape); fails if the flash SASS holds no HGMMA or no
+   UTMALDG.
 14. train step: rhapsody-demo (full config, f32): one step on the card
    equals the same step on the CPU (loss within 1e-5 relative, every
    parameter within atol 2e-5, rtol 2e-3; Adam eps 1e-3, so the first
@@ -79,7 +89,8 @@ slot-pool phases launch WKV6 n_layers x prefills (rwkv6), SSD n_layers x
 prefills and the contiguous decode n_layers / attn_every x decode steps
 (zamba2), or the contiguous decode n_layers x decode steps (dense); a
 training phase launches the flash kernel 2 x n_layers x steps times (remat
-runs each block's forward again); every other kernel never.  Any failure
+runs each block's forward again), zamba2's forward SSD n_layers and flash
+n_layers / attn_every times; every other kernel never.  Any failure
 exits non-zero.  The last lines are the five kernels' JSON record, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without a
 CUDA card it exits 2 and prints no result.
@@ -119,6 +130,14 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
 # in float32: 1e-4 for f32 inputs; 2e-2 for bf16 (the reference's own bf16
 # limit for this kernel, tests/test_kernels.py)
 F32_GRAD_TOL, BF16_GRAD_TOL = 1e-4, 2e-2
+# the flash checks' sequence lengths: the 128-row query tiles' edges and
+# the diagonal tile, ragged and whole
+FLASH_SEQS = (1, 63, 64, 65, 127, 128, 129, 200, 1024, 2048)
+# zamba2's training forward (SSD and flash kernels) vs the kernel-free
+# oracle, last-position logits in float32 through 12 layers at d 2560:
+# chunked scan vs recurrence and tiled vs one-pass softmax sum in another
+# order (the CPU parity tests hold 1e-4 at smoke width)
+HYBRID_F32_TOL = (1e-3, 1e-3)
 
 
 # the slot-pool serving of the state-carrying families (phases 9-11)
@@ -196,6 +215,47 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def ptxas_entries(text):
+    """Each kernel's registers and spill bytes from nvcc's ``-Xptxas -v``
+    output, its name demangled by ``cu++filt``."""
+    import re
+
+    from repro_torch.kernels import build
+
+    entries = []
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entries.append({"entry": m[1]})
+        elif entries and "spill stores" in ln:
+            stores, loads = re.findall(r"(\d+) bytes spill", ln)
+            entries[-1].update(spill_stores=int(stores),
+                               spill_loads=int(loads))
+        elif entries and re.search(r"Used \d+ registers", ln):
+            entries[-1]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln)[1])
+    if entries:
+        names = subprocess.run(
+            [build.cuda_tool("cu++filt"), *(e["entry"] for e in entries)],
+            capture_output=True, text=True, check=True).stdout.splitlines()
+        for e, name in zip(entries, names):
+            e["entry"] = name
+    return entries
+
+
+def sass_counts(path):
+    """Hopper instructions in a built library's SASS (``cuobjdump -sass``):
+    HGMMA (wgmma), UTMALDG and UTMASTG (TMA loads and stores), SYNCS
+    (mbarrier operations)."""
+    from repro_torch.kernels import build
+
+    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", path],
+                          capture_output=True, text=True,
+                          check=True).stdout.splitlines()
+    return {op: sum(op in ln for ln in sass)
+            for op in ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")}
 
 
 def paged_inputs(torch, rng, *, L, B, Hkv, G, D, bs, mb, num_blocks, lens,
@@ -839,6 +899,58 @@ def phase_state_model(torch, configs, get_model, engine_mod):
     return records
 
 
+def phase_hybrid_forward(torch, configs, get_model):
+    """zamba2-2.7b's ``forward`` (the training forward: the SSD kernel in
+    every Mamba2 layer, the flash kernel at head_dim 80 in every shared
+    block) on one prompt on the card, random weights from seed 0.  In f32
+    cut to 12 layers, its last-position logits against ``oracle_logits``
+    (no kernel) within ``HYBRID_F32_TOL``; in bf16 at the full 54 layers,
+    finite logits, timed cold and warm."""
+    records = []
+    for dtype, cut, T in (("float32", {"n_layers": 12}, 256),
+                          ("bfloat16", {}, 384)):
+        cfg = configs.get_config("zamba2-2.7b").scaled(
+            param_dtype=dtype, compute_dtype=dtype, **cut)
+        api = get_model(cfg)
+        params = api.init(torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                          device=DEVICE)
+        tokens = [int(t) for t in
+                  np.random.RandomState(T).randint(1, cfg.vocab, size=T)]
+        batch = {"tokens": torch.tensor([tokens], device=DEVICE)}
+        want = {"ssd": cfg.n_layers,
+                "flash_attention": cfg.n_layers // cfg.attn_every}
+        seconds = []
+        for _ in range(2):  # cold, then warm
+            zero_launches()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, _ = api.forward(params, batch, cfg)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            launches = check_launches(f"zamba2 forward {dtype}", **want)
+        check(tuple(logits.shape) == (1, T, cfg.vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"zamba2 forward {dtype}: logits not finite or misshapen")
+        rec = {"config": cfg.name, "dtype": dtype, "layers": cfg.n_layers,
+               "T": T, "launches": launches, "seconds_cold": seconds[0],
+               "seconds_warm": seconds[1]}
+        if dtype == "float32":
+            zero_launches()
+            with torch.no_grad():
+                oracle = oracle_logits(torch, get_model, cfg, params, tokens)
+            check_launches("zamba2 forward oracle")  # it ran no kernel
+            err, ok = within(logits[0, -1], oracle, HYBRID_F32_TOL)
+            check(ok, f"zamba2 forward f32: logits vs oracle error {err} > "
+                      f"{HYBRID_F32_TOL[0]} + {HYBRID_F32_TOL[1]} x |oracle|")
+            rec.update(max_err=err, atol=HYBRID_F32_TOL[0],
+                       rtol=HYBRID_F32_TOL[1])
+        records.append(rec)
+        del params, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return records
+
+
 def phase_state_serving(torch, configs, core, client, arch):
     """rwkv6-1.6b or zamba2-2.7b at full width (bf16, random weights from
     seed 0) behind ``Rhapsody`` with 2 replicas through the default
@@ -978,32 +1090,31 @@ def flash_case(torch, fa, fa_ref, name, dtype, B, S, Hq, Hkv, D, tol, gtol):
 
 
 def phase_flash(torch, fa, fa_ref):
-    """Flash kernel vs plain on the card: out, lse and the gradient."""
+    """Flash kernel vs plain on the card: out, lse and the gradient, for
+    each body and head_dim on a path (D 32 f32; D 80 and 128, f32 and
+    bf16) at every length of ``FLASH_SEQS``."""
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = []
     for name, dtype, Hq, Hkv, D, tol, gtol in (
-            ("rhapsody-demo", torch.float32, 8, 4, 32, F32_TOL,
-             F32_GRAD_TOL),
-            ("llama3.2-3b-f32", torch.float32, 24, 8, 128, F32_TOL,
-             F32_GRAD_TOL),
-            ("llama3.2-3b", torch.bfloat16, 24, 8, 128, BF16_TOL,
-             BF16_GRAD_TOL)):
-        for S in (1, 63, 64, 65, 200, 1024):
+            ("rhapsody-demo", f32, 8, 4, 32, F32_TOL, F32_GRAD_TOL),
+            ("zamba2-2.7b-f32", f32, 32, 32, 80, F32_TOL, F32_GRAD_TOL),
+            ("zamba2-2.7b", bf16, 32, 32, 80, BF16_TOL, BF16_GRAD_TOL),
+            ("llama3.2-3b-f32", f32, 24, 8, 128, F32_TOL, F32_GRAD_TOL),
+            ("llama3.2-3b", bf16, 24, 8, 128, BF16_TOL, BF16_GRAD_TOL)):
+        for S in FLASH_SEQS:
             cases.append(flash_case(torch, fa, fa_ref, name, dtype, 2, S,
                                     Hq, Hkv, D, tol, gtol)[0])
+        gc.collect()
+        torch.cuda.empty_cache()
     return cases, max(c["max_err"] for c in cases)
 
 
-def phase_flash_timing(torch, fa_kernel, fa, fa_ref):
-    """The flash kernel at the llama3.2-3b training shape: the wrapper and
-    its gradient held against the plain version there, then the raw
-    kernel's time beside the plain version's, the library yardstick's,
-    the plain backward's and the bound."""
-    B, S, Hq, Hkv, D = TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128
-    case, (q, k, v, out, lse) = flash_case(
-        torch, fa, fa_ref, "llama3.2-3b", torch.bfloat16, B, S, Hq, Hkv, D,
-        BF16_TOL, BF16_GRAD_TOL)
-    gc.collect()
-    torch.cuda.empty_cache()
+def flash_times(torch, fa_kernel, fa_ref, q, k, v, out, lse):
+    """The raw kernel's time on (q, k, v) beside the plain version's, the
+    library yardstick's (SDPA, causal, GQA; never called by the port) and
+    the bound."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
     scale = 1.0 / math.sqrt(D)
     out_t, lse_t = torch.empty_like(out), torch.empty_like(lse)
 
@@ -1018,29 +1129,53 @@ def phase_flash_timing(torch, fa_kernel, fa, fa_ref):
     def run_library():
         sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
 
-    dout = torch.randn(out.shape, device=DEVICE).to(out.dtype)
     kernel_ms = cuda_ms(run_kernel, 20)
     plain_ms = cuda_ms(lambda: fa_ref.attention_fwd_ref(q, k, v), 3)
     library_ms = cuda_ms(run_library, 20)
-    bwd_ms = cuda_ms(lambda: fa_ref.attention_bwd(q, k, v, out, lse, dout),
-                     3)
     kernel_ms_2 = cuda_ms(run_kernel, 20)
-    itemsize = 2
-    bytes_moved = ((2 * B * S * Hq * D + 2 * B * S * Hkv * D) * itemsize
-                   + B * Hq * S * 4)  # q, k, v, out; lse
+    bytes_moved = ((2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+                   * q.element_size() + B * Hq * S * 4)  # q, k, v, out; lse
     flops = 4 * B * Hq * D * S * (S + 1) // 2  # causal q.k and p.v
-    byte_ms = bytes_moved / H100_BYTES_PER_S * 1e3
-    op_ms = flops / H100_BF16_FLOPS * 1e3
-    return {"config": "llama3.2-3b", "B": B, "S": S, "Hq": Hq, "Hkv": Hkv,
-            "D": D, "dtype": "bfloat16", "kernel_ms": kernel_ms,
+    bms, by = bound_ms(bytes_moved, flops, H100_BF16_FLOPS)
+    return {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
+            "dtype": str(q.dtype).split(".")[-1], "kernel_ms": kernel_ms,
             "kernel_ms_repeat": kernel_ms_2, "plain_ms": plain_ms,
-            "library_ms": library_ms, "attention_bwd_ms": bwd_ms,
-            "bound_ms": max(byte_ms, op_ms),
-            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
             "bytes": bytes_moved, "flops": flops,
-            "max_err": case["max_err"], "lse_err": case["lse_err"],
-            "grad_err": case["grad_err"],
-            "achieved_TFLOPs": flops / (kernel_ms * 1e-3) / 1e12}
+            "achieved_TFLOPs": flops / (kernel_ms * 1e-3) / 1e12,
+            "percent_of_bound": 100 * bms / kernel_ms}
+
+
+def phase_flash_timing(torch, fa_kernel, fa, fa_ref, sass):
+    """The flash kernel at the llama3.2-3b training shape and at zamba2's
+    (B 1, S 384, Hq = Hkv = 32, D 80): the wrapper and its gradient held
+    against the plain version there, then the raw kernel's times (and the
+    plain backward's at the training shape).  Fails unless the library's
+    SASS holds wgmma (HGMMA) and TMA loads (UTMALDG)."""
+    check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
+          f"flash library SASS has no wgmma or no TMA load: {sass}")
+    records = {}
+    for name, B, S, Hq, Hkv, D in (
+            ("llama3.2-3b", TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128),
+            ("zamba2-2.7b", 1, 384, 32, 32, 80)):
+        case, (q, k, v, out, lse) = flash_case(
+            torch, fa, fa_ref, name, torch.bfloat16, B, S, Hq, Hkv, D,
+            BF16_TOL, BF16_GRAD_TOL)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = {"config": name, **flash_times(torch, fa_kernel, fa_ref, q, k,
+                                             v, out, lse),
+               "max_err": case["max_err"], "lse_err": case["lse_err"],
+               "grad_err": case["grad_err"]}
+        if name == "llama3.2-3b":
+            dout = torch.randn(out.shape, device=DEVICE).to(out.dtype)
+            rec["attention_bwd_ms"] = cuda_ms(
+                lambda: fa_ref.attention_bwd(q, k, v, out, lse, dout), 3)
+        records[name] = rec
+        del q, k, v, out, lse
+        gc.collect()
+        torch.cuda.empty_cache()
+    return records
 
 
 def phase_train_step(torch, configs, get_model, optim, train, data):
@@ -1261,13 +1396,14 @@ def main():
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(load) for load in loaders]:
             fut.result()
+    flash_sass = sass_counts(build.build_log["flash_attention"]["path"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {name: {
               "library": os.path.relpath(log["path"], ROOT),
               "seconds": log["seconds"],
-              "ptxas": [ln.strip() for ln in log["ptxas"].splitlines()
-                        if "registers" in ln or "spill" in ln]}
-              for name, log in build.build_log.items()}})
+              "entries": ptxas_entries(log["ptxas"])}
+              for name, log in build.build_log.items()},
+          "flash_sass": flash_sass})
 
     # 2. paged decode kernel vs plain
     cases, timing, worst = phase_kernel(torch, ops, ref, kernel)
@@ -1303,7 +1439,8 @@ def main():
     # 9. the state-carrying families and the dense slot pool on the card,
     # f32, against a recurrent oracle that runs no kernel
     emit({"phase": "state_model", "models": phase_state_model(
-        torch, configs, get_model, engine)})
+        torch, configs, get_model, engine),
+        "zamba2_forward": phase_hybrid_forward(torch, configs, get_model)})
 
     # 10-11. slot-pool serving of rwkv6-1.6b and zamba2-2.7b at full width
     state_paths = {}
@@ -1318,9 +1455,11 @@ def main():
     flash_cases, flash_worst = phase_flash(torch, fa, fa_ref)
     emit({"phase": "flash", "cases": flash_cases})
 
-    # 13. flash timing at the training shape
-    flash_timing = phase_flash_timing(torch, fa_kernel, fa, fa_ref)
-    emit({"phase": "flash_timing", **flash_timing})
+    # 13. flash timing at the training shape and at zamba2's
+    flash_timings = phase_flash_timing(torch, fa_kernel, fa, fa_ref,
+                                       flash_sass)
+    flash_timing = flash_timings["llama3.2-3b"]
+    emit({"phase": "flash_timing", "sass": flash_sass, **flash_timings})
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1360,7 +1499,9 @@ def main():
              "flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:70",
              train_path["launches"],
-             max(flash_worst, flash_timing["max_err"]), flash_timing),
+             max([flash_worst] + [t["max_err"]
+                                  for t in flash_timings.values()]),
+             flash_timing),
         line("ssd", "src/repro_torch/kernels/mamba2/csrc/ssd.cu",
              "src/repro/kernels/mamba2/kernel.py:61",
              zamba["launches"]["ssd"], ssd_worst, ssd_timing),

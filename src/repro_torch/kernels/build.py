@@ -30,15 +30,17 @@ _libs: dict = {}
 build_log: dict = {}  # library name -> {"seconds", "ptxas", "path"}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``,
+    ``cu++filt``): on ``PATH`` or under ``$CUDA_HOME/bin``."""
+    found = shutil.which(name)
     if found:
         return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the port's kernels")
+    raise RuntimeError(f"{name} not found: the CUDA toolkit is needed to "
+                       "build the port's kernels")
 
 
 def load_library(name: str, source: Path) -> ctypes.CDLL:
@@ -59,7 +61,7 @@ def load_library(name: str, source: Path) -> ctypes.CDLL:
         if not target.exists():
             tmp = BUILD_DIR / f".{name}-{digest}.{os.getpid()}.tmp.so"
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                [cuda_tool(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                 capture_output=True, text=True)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)

@@ -25,7 +25,7 @@ launches = 0  # kernel launches (CPU calls do not count)
 _count_lock = threading.Lock()
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (32, 64, 80, 128)
 
 
 def _check(q, k, v):
@@ -59,9 +59,9 @@ def _check_kernel_limits(q, k, v):
                              "contiguous")
         if t.data_ptr() % 16 or any(s * t.element_size() % 16
                                     for s in t.stride()[:3]):
-            raise ValueError(f"CUDA kernel stages rows with 16-byte loads: "
-                             f"{name} and its strides must be 16-byte "
-                             "aligned")
+            raise ValueError(f"CUDA kernel reads tiles through TMA: {name}'s "
+                             "base address and its batch, sequence and head "
+                             "strides must be multiples of 16 bytes")
 
 
 def _launch(q, k, v):

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 from .config import DTYPES, ModelConfig
 
 _TOP_LEVEL = {
@@ -43,9 +45,11 @@ def _unstack(tree, i):
     return tree[i]
 
 
-def params_from_numpy(tree, cfg: ModelConfig, device="cpu"):
+def params_from_numpy(tree, cfg: ModelConfig, device=None):
     """Convert a reference dense-LM, rwkv6 or zamba2 tree into the port's
-    parameter dict."""
+    parameter dict on ``device`` (``None`` is the CUDA card,
+    ``resolve_device``)."""
+    device = resolve_device(device)
     expected = _TOP_LEVEL.get(cfg.family, _TOP_LEVEL["dense"])
     extra = set(tree) - expected
     if extra:

@@ -24,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.mamba2 import ops as ssd_ops
 
 from . import nn
@@ -245,9 +246,12 @@ def init_ssm_state(cfg: ModelConfig, batch: int, *, device="cpu"):
 # ---------------------------------------------------------------------------
 
 
-def hybrid_init(gen, cfg: ModelConfig, *, device="cpu"):
+def hybrid_init(gen, cfg: ModelConfig, *, device=None):
+    """Zamba2 params drawn from ``gen`` on ``device``; ``None`` is the CUDA
+    card (``resolve_device``)."""
     if cfg.attn_every <= 0 or cfg.n_layers % cfg.attn_every:
         raise ValueError("hybrid needs n_layers % attn_every == 0")
+    device = resolve_device(device)
     G = cfg.n_layers // cfg.attn_every
     K = cfg.attn_every
     dt = cfg.pdtype

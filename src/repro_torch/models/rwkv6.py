@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 
 from . import nn
@@ -200,10 +201,12 @@ def rwkv_block_apply(p, x, cfg: ModelConfig, *, state=None, chunked=True):
 # ---------------------------------------------------------------------------
 
 
-def rwkv_init(gen, cfg: ModelConfig, *, device="cpu"):
+def rwkv_init(gen, cfg: ModelConfig, *, device=None):
     """RWKV6 params drawn from ``gen`` on ``device`` (the reference's
     distributions: lecun-normal linears, LoRA up-projections with std 0.01,
-    zero mixing coefficients and bonus, decay base -1)."""
+    zero mixing coefficients and bonus, decay base -1); ``None`` is the
+    CUDA card (``resolve_device``)."""
+    device = resolve_device(device)
     dt = cfg.pdtype
     return {
         "embed": nn.embedding_init(gen, cfg.vocab, cfg.d_model, dtype=dt,

@@ -23,6 +23,8 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.device import resolve_device
+
 from . import attention as attn
 from . import nn
 from .config import ModelConfig
@@ -104,9 +106,11 @@ def block_extend(p, x, cache_k, cache_v, lens, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def lm_init(gen, cfg: ModelConfig, *, device="cpu"):
+def lm_init(gen, cfg: ModelConfig, *, device=None):
     """Dense LM params drawn from ``gen`` on ``device`` (lecun-normal
-    linears, ``o`` with std 1/sqrt(nh*hd), embedding std 1, rmsnorm ones)."""
+    linears, ``o`` with std 1/sqrt(nh*hd), embedding std 1, rmsnorm ones);
+    ``None`` is the CUDA card (``resolve_device``)."""
+    device = resolve_device(device)
     dt = cfg.pdtype
     p: dict[str, Any] = {
         "embed": nn.embedding_init(gen, cfg.vocab, cfg.d_model, dtype=dt,

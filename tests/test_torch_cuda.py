@@ -106,8 +106,11 @@ def _qkv(seed, B, S, Hq, Hkv, D, dtype):
     ("float32", 8, 4, 32, 2e-5, 2e-5, 1e-4),
     ("float32", 24, 8, 128, 2e-5, 2e-5, 1e-4),
     ("bfloat16", 24, 8, 128, 4e-3, 2.0 ** -7, 2e-2),
-    ("bfloat16", 4, 2, 64, 4e-3, 2.0 ** -7, 2e-2)])
-@pytest.mark.parametrize("S", [1, 63, 64, 65, 200])
+    ("bfloat16", 4, 2, 64, 4e-3, 2.0 ** -7, 2e-2),
+    ("bfloat16", 8, 4, 32, 4e-3, 2.0 ** -7, 2e-2),
+    ("float32", 32, 32, 80, 2e-5, 2e-5, 1e-4),
+    ("bfloat16", 32, 32, 80, 4e-3, 2.0 ** -7, 2e-2)])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 129, 200, 2048])
 def test_cuda_flash_kernel_matches_plain(cuda, dtype, Hq, Hkv, D, atol, rtol,
                                          gtol, S):
     """The causal flash kernel's out and lse vs ``attention_fwd_ref`` on the
@@ -137,13 +140,17 @@ def test_cuda_flash_kernel_matches_plain(cuda, dtype, Hq, Hkv, D, atol, rtol,
 def test_cuda_flash_wrapper_rejects_what_the_kernel_cannot_take(cuda):
     before = fa_ops.launches
     with pytest.raises(ValueError, match="head_dim"):
-        fa_ops.flash_attention(*_qkv(1, 1, 8, 4, 2, 16, "float32"))
+        fa_ops.flash_attention(*_qkv(1, 1, 8, 4, 2, 48, "bfloat16"))
     with pytest.raises(TypeError):
         fa_ops.flash_attention(*_qkv(1, 1, 8, 4, 2, 32, "float16"))
-    q, k, v = _qkv(1, 1, 8, 4, 2, 32, "float32")
+    q, k, v = _qkv(1, 1, 8, 4, 2, 32, "bfloat16")
     with pytest.raises(ValueError, match="contiguous"):
         fa_ops.flash_attention(q, k, v.transpose(2, 3).contiguous()
                                .transpose(2, 3))
+    # a head stride of 36 bf16 (72 bytes): D contiguous, but no TMA row
+    wide = _qkv(1, 1, 8, 4, 2, 36, "bfloat16")[0]
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa_ops.flash_attention(wide[..., :32], k, v)
     assert fa_ops.launches == before
 
 

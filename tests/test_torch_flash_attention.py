@@ -25,6 +25,7 @@ SHAPES = [  # B, S, Hq, Hkv, D, block_q, block_k (tests/test_kernels.py)
     (1, 256, 2, 2, 64, 64, 128),
     (2, 64, 8, 2, 16, 64, 32),
     (1, 128, 4, 1, 32, 128, 64),
+    (1, 128, 4, 4, 80, 64, 64),  # zamba2-2.7b's head_dim
 ]
 
 

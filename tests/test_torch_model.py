@@ -67,6 +67,29 @@ def test_weight_bridge(lm):
     assert abs(mine["embed"]["table"].std().item() - 1) < 0.1
 
 
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-1.6b",
+                                  "zamba2-2.7b"])
+def test_init_and_weight_bridge_default_to_the_card(arch, monkeypatch):
+    """With no ``device``, ``init`` and ``params_from_numpy`` go to the CUDA
+    card, as the port's other entry points do: without one they raise
+    ``RuntimeError``; ``device="cpu"`` asks for the CPU."""
+    from repro_torch.models.convert import params_from_numpy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config(arch)
+    api = get_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.init(torch.Generator().manual_seed(0), cfg)
+    params = api.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tree = {k: v for k, v in params.items() if k not in ("blocks", "groups")}
+    tree = {k: {n: t.float().numpy() for n, t in v.items()}
+            for k, v in tree.items() if k in ("embed", "ln_f")}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy(tree, cfg)
+    assert params_from_numpy(tree, cfg, device="cpu")["embed"][
+        "table"].device.type == "cpu"
+
 def test_prefill_decode_extend_match_reference(lm):
     cfg, api, params, tcfg, tp = lm
     tapi = get_model(tcfg)

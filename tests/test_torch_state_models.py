@@ -80,6 +80,23 @@ def test_forward_matches_reference(lm):
     assert float(aux) == 0.0
 
 
+
+def test_zamba2_forward_at_head_dim_80_matches_reference():
+    """zamba2-2.7b's shared attention block has head_dim 80, a width the
+    flash kernel takes since its Hopper rebuild; at the smoke widths
+    otherwise, ``hybrid_forward`` (the plain flash forward on the CPU)
+    gives the reference's logits."""
+    from repro.configs import get_smoke_config
+
+    cfg, api, params, tcfg, tp = build(
+        cfg=get_smoke_config("zamba2-2.7b", head_dim=80))
+    toks = np.random.RandomState(3).randint(0, cfg.vocab, size=(2, 32))
+    jl, _ = api.forward(params, {"tokens": jnp.asarray(toks, jnp.int32)},
+                        cfg)
+    tl, _ = get_model(tcfg).forward(tp, {"tokens": torch.from_numpy(toks)},
+                                    tcfg)
+    _close(jl, tl)
+
 @pytest.mark.parametrize("i", range(2))
 def test_prefill_state_and_decode_match_reference(lm, i):
     arch, (cfg, api, params, tcfg, tp) = lm
