@@ -358,9 +358,6 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
 
 // Keep the compiler from moving accumulator accesses across a wgmma.
 template <int N>
@@ -465,6 +462,101 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// S = Q K^T for this warpgroup's 64 rows and a tile of 128 keys:
+// ceil(D/16) k-steps, each 32 bytes further into a 64-column slab.
+template <int kKSteps>
+__device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t q_wg,
+                                         uint32_t k_t) {
+  fence_regs(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kKSteps; ++kk) {
+    const uint32_t off = (kk / 4) * kSlabBytes + (kk % 4) * 32;
+    wgmma_ss_n128(sc, desc_b128(q_wg + off, 16, 1024),
+                  desc_b128(k_t + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V: P from registers; V [128 keys][64 N slab] read MN-major (the
+// transposed descriptor), the next 64 columns one slab further (the
+// leading byte offset).
+template <int N>
+__device__ __forceinline__ void issue_pv(float (&o)[N],
+                                         const uint32_t (&pa)[kBN / 16][4],
+                                         uint32_t v_t) {
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < kBN / 16; ++j)
+    wgmma_rs(o, pa[j], desc_b128(v_t + j * 16 * 128, kSlabBytes, 1024));
+  wgmma_commit();
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Online softmax on the score fragments of rows g (c < 2) and g + 8: the
+// row max over the quad, exp2 with scale * log2(e) folded in (in place),
+// the thread's share of the row sums, and the rescale a of older tiles.
+__device__ __forceinline__ void softmax_step(float (&sc)[kBN / 2], float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float& a0, float& a1,
+                                             float sl2) {
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0 * sl2), mn1 = fmaxf(m1, mx1 * sl2);
+  a0 = exp2f(m0 - mn0);
+  a1 = exp2f(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    sc[4 * j] = exp2f(fmaf(sc[4 * j], sl2, -mn0));
+    sc[4 * j + 1] = exp2f(fmaf(sc[4 * j + 1], sl2, -mn0));
+    sc[4 * j + 2] = exp2f(fmaf(sc[4 * j + 2], sl2, -mn1));
+    sc[4 * j + 3] = exp2f(fmaf(sc[4 * j + 3], sl2, -mn1));
+    sum0 += sc[4 * j] + sc[4 * j + 1];
+    sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  l0 = l0 * a0 + sum0;
+  l1 = l1 * a1 + sum1;
+}
+
+// P in bf16 as the A fragments of P V: k-step j takes the accumulators of
+// columns 16 j .. 16 j + 15, which the wgmma layouts line up in place.
+__device__ __forceinline__ void pack_p(const float (&sc)[kBN / 2],
+                                       uint32_t (&pa)[kBN / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    pa[j / 2][(j % 2) * 2] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+    pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], float a0, float a1) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    o[4 * j] *= a0;
+    o[4 * j + 1] *= a0;
+    o[4 * j + 2] *= a1;
+    o[4 * j + 3] *= a1;
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
@@ -545,96 +637,51 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     for (int j = 0; j < kDp / 2; ++j) o[j] = 0.f;
     float m0 = kNegInf, m1 = kNegInf;  // running max, in log2 units
     float l0 = 0.f, l1 = 0.f;  // this thread's share of the row sums
+    float a0, a1;  // the rescale of O for the newest tile
+    float sc[kBN / 2];  // scores, then exp2 in place
+    uint32_t pa[kBN / 16][4];  // P of the previous tile, bf16 A fragments
+
+    // tile 0, the diagonal: keys q0 .., masked after the row and past S
     mbar_wait(q_full, 0);
-
-    for (int i = 0; i <= qt; ++i) {
-      const int s = i % kStages;
-      const uint32_t parity = (i / kStages) & 1;
-      const uint32_t k_t = k_s + s * kTileBytes;
-      const uint32_t v_t = v_s + s * kTileBytes;
-
-      // S = Q K^T: 64 rows x 128 keys, ceil(D/16) k-steps
-      float sc[kBN / 2];
-      mbar_wait(k_full + 8 * s, parity);
-      fence_regs(sc);
-      wgmma_fence();
+    mbar_wait(k_full, 0);
+    issue_qk<kKSteps>(sc, q_wg, k_s);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    mbar_arrive(k_empty);
 #pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-        const uint32_t off = (kk / 4) * kSlabBytes + (kk % 4) * 32;
-        wgmma_ss_n128(sc, desc_b128(q_wg + off, 16, 1024),
-                      desc_b128(k_t + off, 16, 1024), kk > 0);
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 8 * j + 2 * c4 + (c & 1);
+        const int row = row0 + (c & 2) * 4;
+        if (col > row || q0 + col >= p.S) sc[4 * j + c] = kNegInf;
       }
-      wgmma_commit();
-      wgmma_wait_all();
+    softmax_step(sc, m0, m1, l0, l1, a0, a1, sl2);
+    pack_p(sc, pa);
+
+    // tile i: S_i = Q K_i^T and O += P_{i-1} V_{i-1} are issued together;
+    // the softmax of S_i runs while the tensor cores do P_{i-1} V_{i-1}
+    for (int i = 1; i <= qt; ++i) {
+      const int s = i % kStages, sp = (i - 1) % kStages;
+      mbar_wait(k_full + 8 * s, (i / kStages) & 1);
+      issue_qk<kKSteps>(sc, q_wg, k_s + s * kTileBytes);
+      mbar_wait(v_full + 8 * sp, ((i - 1) / kStages) & 1);
+      issue_pv(o, pa, v_s + sp * kTileBytes);
+      wgmma_wait<1>();  // S_i is in
       fence_regs(sc);
       mbar_arrive(k_empty + 8 * s);
-
-      // the diagonal tile (keys q0 ..): mask keys after the row and past S
-      if (i == 0) {
-#pragma unroll
-        for (int j = 0; j < kBN / 8; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int col = 8 * j + 2 * c4 + (c & 1);
-            const int row = row0 + (c & 2) * 4;
-            if (col > row || q0 + col >= p.S) sc[4 * j + c] = kNegInf;
-          }
-      }
-
-      // online softmax on the fragments: rows row0 (c < 2) and row0 + 8
-      float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
-        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      const float mn0 = fmaxf(m0, mx0 * sl2), mn1 = fmaxf(m1, mx1 * sl2);
-      const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      // P in bf16 as the A fragments of P V: k-step j2 takes the score
-      // accumulators of columns 16 j2 .. 16 j2 + 15
-      uint32_t pa[kBN / 16][4];
-      float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        const float e0 = exp2f(fmaf(sc[4 * j], sl2, -mn0));
-        const float e1 = exp2f(fmaf(sc[4 * j + 1], sl2, -mn0));
-        const float e2 = exp2f(fmaf(sc[4 * j + 2], sl2, -mn1));
-        const float e3 = exp2f(fmaf(sc[4 * j + 3], sl2, -mn1));
-        sum0 += e0 + e1;
-        sum1 += e2 + e3;
-        pa[j / 2][(j % 2) * 2] = pack_bf16(e0, e1);
-        pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(e2, e3);
-      }
-      l0 = l0 * a0 + sum0;
-      l1 = l1 * a1 + sum1;
-#pragma unroll
-      for (int j = 0; j < kDp / 8; ++j) {
-        o[4 * j] *= a0;
-        o[4 * j + 1] *= a0;
-        o[4 * j + 2] *= a1;
-        o[4 * j + 3] *= a1;
-      }
-
-      // O += P V: V [128 keys][kDp] read MN-major (transposed descriptor);
-      // the next 64 columns are the next slab (leading byte offset)
-      mbar_wait(v_full + 8 * s, parity);
+      softmax_step(sc, m0, m1, l0, l1, a0, a1, sl2);
+      wgmma_wait<0>();  // P_{i-1} V_{i-1} is in
       fence_regs(o);
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < kBN / 16; ++j)
-        wgmma_rs(o, pa[j], desc_b128(v_t + j * 16 * 128, kSlabBytes, 1024));
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(o);
-      mbar_arrive(v_empty + 8 * s);
+      mbar_arrive(v_empty + 8 * sp);
+      rescale(o, a0, a1);
+      pack_p(sc, pa);
     }
+    const int sl = qt % kStages;
+    mbar_wait(v_full + 8 * sl, (qt / kStages) & 1);
+    issue_pv(o, pa, v_s + sl * kTileBytes);
+    wgmma_wait<0>();
+    fence_regs(o);
 
     // epilogue: O / l in bf16 into this warpgroup's rows of the Q tile
     // (its last Q K^T has completed), swizzled as the TMA store reads it
