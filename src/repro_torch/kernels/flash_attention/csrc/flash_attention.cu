@@ -366,6 +366,14 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// 2^x on the special-function unit; exps below 2^-126 flush to zero,
+// which exp2f would instead take through a denormal rescale
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
@@ -517,17 +525,17 @@ __device__ __forceinline__ void softmax_step(float (&sc)[kBN / 2], float& m0,
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
   }
   const float mn0 = fmaxf(m0, mx0 * sl2), mn1 = fmaxf(m1, mx1 * sl2);
-  a0 = exp2f(m0 - mn0);
-  a1 = exp2f(m1 - mn1);
+  a0 = ex2(m0 - mn0);
+  a1 = ex2(m1 - mn1);
   m0 = mn0;
   m1 = mn1;
   float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
   for (int j = 0; j < kBN / 8; ++j) {
-    sc[4 * j] = exp2f(fmaf(sc[4 * j], sl2, -mn0));
-    sc[4 * j + 1] = exp2f(fmaf(sc[4 * j + 1], sl2, -mn0));
-    sc[4 * j + 2] = exp2f(fmaf(sc[4 * j + 2], sl2, -mn1));
-    sc[4 * j + 3] = exp2f(fmaf(sc[4 * j + 3], sl2, -mn1));
+    sc[4 * j] = ex2(fmaf(sc[4 * j], sl2, -mn0));
+    sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], sl2, -mn0));
+    sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], sl2, -mn1));
+    sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], sl2, -mn1));
     sum0 += sc[4 * j] + sc[4 * j + 1];
     sum1 += sc[4 * j + 2] + sc[4 * j + 3];
   }
