@@ -501,6 +501,15 @@ __device__ __forceinline__ void issue_pv(float (&o)[N],
   wgmma_commit();
 }
 
+// Named barriers over the two consumer warpgroups (256 threads): one
+// warpgroup waits for its turn to issue products, the other signals it.
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
@@ -649,10 +658,18 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     float sc[kBN / 2];  // scores, then exp2 in place
     uint32_t pa[kBN / 16][4];  // P of the previous tile, bf16 A fragments
 
+    // The warpgroups take turns to issue their products (named barriers 3
+    // and 4; warpgroup 0 first), so one's wgmmas run while the other does
+    // its softmax.  Each takes qt + 2 turns.
+    const int my_turn = 3 + wg, other_turn = 4 - wg;
+    if (wg == 1) turn_pass(3);
+
     // tile 0, the diagonal: keys q0 .., masked after the row and past S
     mbar_wait(q_full, 0);
     mbar_wait(k_full, 0);
+    turn_wait(my_turn);
     issue_qk<kKSteps>(sc, q_wg, k_s);
+    turn_pass(other_turn);
     wgmma_wait<0>();
     fence_regs(sc);
     mbar_arrive(k_empty);
@@ -672,9 +689,11 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 1; i <= qt; ++i) {
       const int s = i % kStages, sp = (i - 1) % kStages;
       mbar_wait(k_full + 8 * s, (i / kStages) & 1);
-      issue_qk<kKSteps>(sc, q_wg, k_s + s * kTileBytes);
       mbar_wait(v_full + 8 * sp, ((i - 1) / kStages) & 1);
+      turn_wait(my_turn);
+      issue_qk<kKSteps>(sc, q_wg, k_s + s * kTileBytes);
       issue_pv(o, pa, v_s + sp * kTileBytes);
+      turn_pass(other_turn);
       wgmma_wait<1>();  // S_i is in
       fence_regs(sc);
       mbar_arrive(k_empty + 8 * s);
@@ -687,7 +706,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     }
     const int sl = qt % kStages;
     mbar_wait(v_full + 8 * sl, (qt / kStages) & 1);
+    turn_wait(my_turn);
     issue_pv(o, pa, v_s + sl * kTileBytes);
+    if (wg == 0) turn_pass(other_turn);  // no turn follows warpgroup 1's
     wgmma_wait<0>();
     fence_regs(o);
 
