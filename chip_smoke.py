@@ -233,9 +233,8 @@ def ptxas_entries(text):
             stores, loads = re.findall(r"(\d+) bytes spill", ln)
             entries[-1].update(spill_stores=int(stores),
                                spill_loads=int(loads))
-        elif entries and re.search(r"Used \d+ registers", ln):
-            entries[-1]["registers"] = int(
-                re.search(r"Used (\d+) registers", ln)[1])
+        elif entries and (m := re.search(r"Used (\d+) registers", ln)):
+            entries[-1]["registers"] = int(m[1])
     if entries:
         names = subprocess.run(
             [build.cuda_tool("cu++filt"), *(e["entry"] for e in entries)],

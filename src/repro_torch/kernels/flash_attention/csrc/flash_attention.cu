@@ -44,9 +44,14 @@
 //   bf16 in place; V is read MN-major through the descriptor's transpose
 //   bit, so nothing is transposed in memory.
 // * The online softmax runs on the accumulator fragments: row max and sum
-//   over the four lanes of a quad, exp2 with scale * log2(e) folded in.
-//   Only the first tile (the diagonal, which also holds any keys past S)
-//   is masked; tiles above the diagonal are never loaded.
+//   over the four lanes of a quad, ex2.approx with scale * log2(e) folded
+//   in.  Only the first tile (the diagonal, which also holds any keys past
+//   S) is masked; tiles above the diagonal are never loaded.
+// * The softmax is kept off the tensor cores' critical path twice over: a
+//   warpgroup starts S_i = Q K_i^T together with O += P_{i-1} V_{i-1} and
+//   runs the softmax of S_i while the second product runs; and the two
+//   warpgroups take turns to start them (two named barriers), so one's products
+//   run during the other's softmax (FlashAttention-3's schedule).
 // * The output is scaled, rounded to bf16, written swizzled into the Q
 //   tile's shared memory and stored with one TMA store per 64 columns,
 //   which drops the rows past S and the columns past D.
@@ -61,9 +66,9 @@
 // padded columns are never stored.
 //
 // What this design still leaves: no persistent blocks (each block does one
-// tile, so the last wave runs part-empty), no ping-pong of one warpgroup's
-// softmax against the other's products and no overlap of a warpgroup's
-// own softmax with its next Q K^T, and no fp8.
+// tile, so a block's prologue and epilogue are not hidden behind another
+// tile's products and the last wave runs part-empty), the wasted upper
+// half of each diagonal tile, and no fp8.
 //
 // float32 inputs stay true float32 on the CUDA cores (256 threads, 64-row
 // query tiles, 8 rows a warp, one lane per key for the scores and
@@ -73,8 +78,8 @@
 // The wrapper checks what TMA needs (base 16-byte aligned, every stride but
 // D's a multiple of 16 bytes, D contiguous).  The C entry point returns
 // cudaGetLastError() after the launch (or cudaErrorInvalidValue for an
-// unsupported shape or a tensor map the driver refuses); the Python wrapper
-// raises on any non-zero value.
+// unsupported shape or a tensor map the CUDA driver refuses); the Python
+// wrapper raises on any non-zero value.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at
                    // run time, so the library needs no -lcuda
@@ -267,6 +272,7 @@ flash_fwd_f32(const Params p) {
 
 constexpr int kBM = 128;         // query rows per block (two warpgroups)
 constexpr int kBN = 128;         // keys per K/V tile
+static_assert(kBM == kBN, "query tile qt's diagonal is key tile qt");
 constexpr int kStages = 2;       // K/V ring depth
 constexpr int kThreads = 384;    // two consumer warpgroups + one producer
 constexpr int kSlabBytes = 128 * 128;  // 128 rows x 64 bf16 columns
@@ -414,6 +420,9 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d += A B for a 64 x N tile (N = 64 or 128): A [64][16] in registers
+// (four bf16 pairs a thread, the accumulator layout), B [16][N] MN-major
+// in shared memory (the descriptor's transpose bit).
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
@@ -473,7 +482,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
 // S = Q K^T for this warpgroup's 64 rows and a tile of 128 keys:
 // ceil(D/16) k-steps, each 32 bytes further into a 64-column slab.
 template <int kKSteps>
-__device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t q_wg,
+__device__ __forceinline__ void start_qk(float (&sc)[kBN / 2], uint32_t q_wg,
                                          uint32_t k_t) {
   fence_regs(sc);
   wgmma_fence();
@@ -490,7 +499,7 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t q_wg,
 // transposed descriptor), the next 64 columns one slab further (the
 // leading byte offset).
 template <int N>
-__device__ __forceinline__ void issue_pv(float (&o)[N],
+__device__ __forceinline__ void start_pv(float (&o)[N],
                                          const uint32_t (&pa)[kBN / 16][4],
                                          uint32_t v_t) {
   fence_regs(o);
@@ -502,7 +511,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[N],
 }
 
 // Named barriers over the two consumer warpgroups (256 threads): one
-// warpgroup waits for its turn to issue products, the other signals it.
+// warpgroup waits for its turn to start products, the other signals it.
 __device__ __forceinline__ void turn_wait(int id) {
   asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
 }
@@ -658,7 +667,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     float sc[kBN / 2];  // scores, then exp2 in place
     uint32_t pa[kBN / 16][4];  // P of the previous tile, bf16 A fragments
 
-    // The warpgroups take turns to issue their products (named barriers 3
+    // The warpgroups take turns to start their products (named barriers 3
     // and 4; warpgroup 0 first), so one's wgmmas run while the other does
     // its softmax.  Each takes qt + 2 turns.
     const int my_turn = 3 + wg, other_turn = 4 - wg;
@@ -668,7 +677,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(q_full, 0);
     mbar_wait(k_full, 0);
     turn_wait(my_turn);
-    issue_qk<kKSteps>(sc, q_wg, k_s);
+    start_qk<kKSteps>(sc, q_wg, k_s);
     turn_pass(other_turn);
     wgmma_wait<0>();
     fence_regs(sc);
@@ -684,15 +693,15 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     softmax_step(sc, m0, m1, l0, l1, a0, a1, sl2);
     pack_p(sc, pa);
 
-    // tile i: S_i = Q K_i^T and O += P_{i-1} V_{i-1} are issued together;
+    // tile i: S_i = Q K_i^T and O += P_{i-1} V_{i-1} are started together;
     // the softmax of S_i runs while the tensor cores do P_{i-1} V_{i-1}
     for (int i = 1; i <= qt; ++i) {
       const int s = i % kStages, sp = (i - 1) % kStages;
       mbar_wait(k_full + 8 * s, (i / kStages) & 1);
       mbar_wait(v_full + 8 * sp, ((i - 1) / kStages) & 1);
       turn_wait(my_turn);
-      issue_qk<kKSteps>(sc, q_wg, k_s + s * kTileBytes);
-      issue_pv(o, pa, v_s + sp * kTileBytes);
+      start_qk<kKSteps>(sc, q_wg, k_s + s * kTileBytes);
+      start_pv(o, pa, v_s + sp * kTileBytes);
       turn_pass(other_turn);
       wgmma_wait<1>();  // S_i is in
       fence_regs(sc);
@@ -707,7 +716,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     const int sl = qt % kStages;
     mbar_wait(v_full + 8 * sl, (qt / kStages) & 1);
     turn_wait(my_turn);
-    issue_pv(o, pa, v_s + sl * kTileBytes);
+    start_pv(o, pa, v_s + sl * kTileBytes);
     if (wg == 0) turn_pass(other_turn);  // no turn follows warpgroup 1's
     wgmma_wait<0>();
     fence_regs(o);
@@ -764,7 +773,8 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver, fetched once through the runtime.
+// cuTensorMapEncodeTiled from the CUDA driver, fetched once through the
+// runtime.
 EncodeTiled encoder() {
   static const EncodeTiled fn = []() -> EncodeTiled {
     void* ptr = nullptr;

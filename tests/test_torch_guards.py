@@ -34,7 +34,7 @@ def _imported_modules(path):
 
 
 @pytest.mark.parametrize("path", sorted(
-    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
+    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py", ROOT / "bench_flash.py",
      ROOT / "profile_engine.py", ROOT / "profile_train.py"]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_no_reference(path):
