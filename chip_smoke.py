@@ -16,18 +16,26 @@ Phases, each printing one JSON line:
    UTMASTG) and mbarrier (SYNCS) instructions in the flash library's SASS
    (``cuobjdump -sass``).
 2. paged decode kernel vs plain: against ``ref.paged_decode_ref`` on the
-   card (rhapsody-demo f32, llama3.2-3b's heads in f32 and bf16; ragged
+   card at every head dim (8, 16, 32, 64, 80, 128; the heads of the
+   configs that run each, ``DECODE_HEADS``) in f32 and bf16 (ragged
    lengths, permuted tables, null-block padding rows; f32 within 2e-5,
-   bf16 within 4e-3 + 2^-7 x |plain|; physical relocation exact), then its
-   time beside the plain version's, the library yardstick's
-   (``scaled_dot_product_attention``, never called by the port) and the
-   least time the card could take (its bound).
-3. contiguous decode kernel vs plain: against ``ref.decode_ref``
-   (rhapsody-demo, llama3.2-3b and zamba2-2.7b heads, D 80 included, f32
-   and bf16, the same limits; S 77 and 512; ragged lengths and idle rows
-   past S), then its times at zamba2's decode shape (B 8, Hkv 32, D 80,
-   S 512, 9 layer caches) and at llama3.2-3b's heads, beside the plain
-   version, SDPA (GQA, length mask) and the bound.
+   bf16 within 4e-3 + 2^-7 x |plain|; physical relocation exact); the
+   split's edges (one kv head of one sequence, so the kernel splits it
+   across the most blocks: lengths at the tile edges and around every
+   split boundary, split ranks left empty, lengths past the cache; both
+   entry points, two calls bit-equal, relocation exact); then its times
+   at the llama3.2-3b decode shape: eager, replayed from a CUDA graph of
+   the 28-layer loop (``graph_ms``), the host's time to issue the
+   wrapper (``host_ms``), beside the plain version, the library
+   yardstick (``scaled_dot_product_attention``, never called by the port;
+   eager and from a graph) and the least time the card could take (its
+   bound).
+3. contiguous decode kernel vs plain: against ``ref.decode_ref`` at every
+   head dim of ``DECODE_HEADS``, f32 and bf16, the same limits; S 77 and
+   512; ragged lengths and idle rows past S; then its times, as in phase
+   2, at zamba2's decode shape (B 8, Hkv 32, D 80, S 512, 9 layer caches)
+   and at llama3.2-3b's heads, beside the plain version, SDPA (GQA,
+   length mask) and the bound.
 4. WKV6 kernel vs plain: y and the final state against
    ``ref.wkv_chunked_ref`` (f32 and bf16 r/k/v; T 37, 200 and 256; a
    non-zero initial state; f32 within 1e-4 relative, the reference's own
@@ -39,7 +47,9 @@ Phases, each printing one JSON line:
 6. model: rhapsody-demo (full config, f32): the paged engine's greedy
    transcripts equal the contiguous prefill + decode_step oracle's.
 7. launcher: ``repro_torch.launch.serve`` with its defaults (rhapsody-demo,
-   2 replicas, 16 requests).
+   2 replicas, 16 requests), then ``--arch llama3.2-3b`` (its smoke
+   config, head_dim 8) and ``--arch qwen3-8b`` (16), paged and with
+   ``--no-paged`` (``SERVE_RUNS``).
 8. serving main path at full width: llama3.2-3b (bf16, 28 layers, random
    weights from a seed) behind ``Rhapsody`` with 2 replicas, 16 requests
    of 32 new tokens, served twice (cold, then warm).
@@ -76,7 +86,8 @@ Phases, each printing one JSON line:
    update is not the sign of gradients below eps); then 30 steps on the
    synthetic corpus on the card, after which the loss on a batch the steps
    did not see has fallen.
-15. trainer launcher: ``repro_torch.launch.train --steps 20``.
+15. trainer launcher: ``repro_torch.launch.train --steps 20``, then
+   ``--arch llama3.2-3b --steps 5`` (its smoke config, head_dim 8).
 16. training main path at full width: llama3.2-3b (bf16, 28 layers, remat
    full, random weights from seed 0) through ``DataPipeline``,
    ``init_state`` and ``make_train_step``: global batch 2, seq 2048,
@@ -91,7 +102,9 @@ prefills and the contiguous decode n_layers / attn_every x decode steps
 training phase launches the flash kernel 2 x n_layers x steps times (remat
 runs each block's forward again), zamba2's forward SSD n_layers and flash
 n_layers / attn_every times; every other kernel never.  Any failure
-exits non-zero.  The last lines are the five kernels' JSON record, the
+exits non-zero.  The last lines are the five kernels' JSON record (the
+decode pair's and the flash kernel's rows also carry ``graph_ms`` and
+``library_graph_ms``), the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without a
 CUDA card it exits 2 and prints no result.
 """
@@ -281,47 +294,146 @@ def paged_inputs(torch, rng, *, L, B, Hkv, G, D, bs, mb, num_blocks, lens,
             torch.from_numpy(lens).to(dev))
 
 
-def phase_kernel(torch, ops, ref, kernel):
-    """Kernel vs plain on the card; times at the llama3.2-3b decode shape."""
-    rng = np.random.RandomState(0)
-    bs = 16
-    cases = []
-    worst = {}
-    for name, dtype, Hkv, G, D, (atol, rtol) in (
-            ("rhapsody-demo", torch.float32, 4, 2, 32, F32_TOL),
-            ("llama3.2-3b-f32", torch.float32, 8, 3, 128, F32_TOL),
-            ("llama3.2-3b", torch.bfloat16, 8, 3, 128, BF16_TOL)):
-        mb = 16
-        lens = [1, bs - 1, bs, bs + 1, mb * bs, 37, 100, 200]
-        ks, vs, q, bt, ln = paged_inputs(
-            torch, rng, L=1, B=len(lens), Hkv=Hkv, G=G, D=D, bs=bs, mb=mb,
-            num_blocks=160, lens=lens, dtype=dtype, pad_rows=2)
-        out = ops.paged_decode_attention(q, ks[0], vs[0], bt, ln)
-        n = q.shape[0]
-        plain = ref.paged_decode_ref(q.reshape(n, Hkv, G, D), ks[0], vs[0],
-                                     bt, ln).reshape(out.shape)
-        torch.cuda.synchronize()
-        err, ok = within(out, plain, (atol, rtol))
-        check(ok, f"{name}: kernel vs plain max error {err} > "
-                  f"{atol} + {rtol} x |plain|")
-        # relocate physical blocks: output must not change at all
-        perm = torch.from_numpy(np.concatenate(
-            [[0], 1 + rng.permutation(ks.shape[1] - 1)])).to(DEVICE)
-        inv = torch.argsort(perm)
-        out2 = ops.paged_decode_attention(
-            q, ks[0][inv].contiguous(), vs[0][inv].contiguous(),
-            perm[bt.long()].to(torch.int32), ln)
-        check(torch.equal(out, out2), f"{name}: relocation changed output")
-        worst[name] = err
-        cases.append({"config": name, "dtype": str(dtype).split(".")[-1],
-                      "Hkv": Hkv, "G": G, "D": D, "block_size": bs,
-                      "lens": lens, "pad_rows": 2, "max_err": err,
-                      "atol": atol, "rtol": rtol, "relocation_exact": True})
+# every decode head dim, as (label, Hkv, G, D): the heads of the configs
+# that run each width (llama3.2-3b and nemotron-4-340b smoke: D 8;
+# qwen3-8b, qwen1.5-0.5b and zamba2-2.7b smoke: 16; rhapsody-demo: 32;
+# zamba2-2.7b: 80; llama3.2-3b: 128) and D 64 at four query heads a group
+DECODE_HEADS = (("llama3.2-3b-smoke", 2, 3, 8), ("qwen3-8b-smoke", 2, 2, 16),
+                ("rhapsody-demo", 4, 2, 32), ("d64-group4", 2, 4, 64),
+                ("zamba2-2.7b", 32, 1, 80), ("llama3.2-3b", 8, 3, 128))
 
-    # timing at the llama3.2-3b main-path decode shape: 28 layer stores as
-    # the engine holds them (1.9 GB, so each call finds its layer cold in
-    # the 50 MB L2), batch 8, lengths around 512, max_len 1024
-    L, B, Hkv, G, D, mb, N = 28, 8, 8, 3, 128, 64, 513
+
+def graph_ms(torch, fn, reps):
+    """Device time per replay of a CUDA graph that captures one call of
+    ``fn`` (no host dispatch inside the replays)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay, reps)
+    del graph
+    return ms
+
+
+def host_ms(torch, fn, reps, trials=7):
+    """Host wall time to issue one call of ``fn``, with no sync inside:
+    the median over ``trials`` runs of ``reps`` calls (the host's clock
+    varies more than the card's)."""
+    times = []
+    for _ in range(trials):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) / reps * 1e3)
+        torch.cuda.synchronize()
+    return sorted(times)[trials // 2]
+
+
+def decode_times(torch, L, kernel, wrapper, plain, library):
+    """Per-layer-call times of a decode kernel over ``L`` layer caches,
+    each argument a function of the layer: the raw kernel eagerly
+    (``kernel_ms``, and again at the end) and replayed from a CUDA graph of
+    the L-layer loop (``graph_ms``); the host's time to issue the wrapper
+    the model calls (``host_ms``); the plain version; the library
+    yardstick eagerly, from a graph, and its host time."""
+    def loop(fn):
+        return lambda: [fn(layer) for layer in range(L)]
+
+    t = {"kernel_ms": cuda_ms(loop(kernel), 20) / L}
+    t["plain_ms"] = cuda_ms(loop(plain), 3) / L
+    t["library_ms"] = cuda_ms(loop(library), 5) / L
+    t["library_graph_ms"] = graph_ms(torch, loop(library), 20) / L
+    t["library_host_ms"] = host_ms(torch, loop(library), 20) / L
+    t["graph_ms"] = graph_ms(torch, loop(kernel), 20) / L
+    t["host_ms"] = host_ms(torch, loop(wrapper), 20) / L
+    t["kernel_ms_repeat"] = cuda_ms(loop(kernel), 20) / L
+    return t
+
+
+def split_lens(rows, splits, cap):
+    """Lengths at the tile edges, at and around each split boundary, that
+    leave late split ranks empty, and at and past the cache's end."""
+    edges = {1, rows - 1, rows, rows + 1, rows * (splits - 1) + 1,
+             cap - 1, cap, cap + 1, cap + 500}
+    for k in (1, 2, 3):
+        edges |= {k * rows * splits - 1, k * rows * splits,
+                  k * rows * splits + 1}
+    return sorted(n for n in edges if n >= 1)
+
+
+def phase_split_edges(torch, ops, ref, kernel):
+    """Both decode entry points where the split of a sequence across a
+    cluster's blocks has its edges: one kv head of one sequence plus two
+    engine-style padding rows (length 1, all-null tables), a 1,024-position
+    cache, every head dim in f32 and bf16, at every length of
+    ``split_lens``: against the plain versions, two calls bit-equal,
+    relocated blocks bit-equal."""
+    rng = np.random.RandomState(9)
+    bs, mb, G = 16, 64, 3
+    cap = bs * mb
+    records, worst = [], 0.0
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for D in ops.KERNEL_HEAD_DIMS:
+            rows = 16 if D * dtype.itemsize >= 128 else 32
+            splits, warps = kernel.launch_shape(dtype, 3, 1, G, D, cap)
+            check(splits > 1, f"split edges D {D}: no split ({splits})")
+            lens = split_lens(rows, splits, cap)
+            err_d = 0.0
+            for n in lens:
+                ks, vs, q, bt, ln = paged_inputs(
+                    torch, rng, L=1, B=1, Hkv=1, G=G, D=D, bs=bs, mb=mb,
+                    num_blocks=mb + 1, lens=[min(n, cap)], dtype=dtype,
+                    pad_rows=2)
+                ln[0] = n
+                ks, vs = ks[0], vs[0]
+                out = ops.paged_decode_attention(q, ks, vs, bt, ln)
+                again = ops.paged_decode_attention(q, ks, vs, bt, ln)
+                plain = ref.paged_decode_ref(q.reshape(3, 1, G, D), ks, vs,
+                                             bt, ln).reshape(out.shape)
+                perm = torch.from_numpy(np.concatenate(
+                    [[0], 1 + rng.permutation(mb)])).to(DEVICE)
+                inv = torch.argsort(perm)
+                moved = ops.paged_decode_attention(
+                    q, ks[inv].contiguous(), vs[inv].contiguous(),
+                    perm[bt.long()].to(torch.int32), ln)
+                kc, vc = (ref.gather_kv(t, bt).contiguous()
+                          for t in (ks, vs))
+                slot = ops.decode_attention(q, kc, vc, ln)
+                slot_again = ops.decode_attention(q, kc, vc, ln)
+                torch.cuda.synchronize()
+                err, ok = within(out, plain, tol)
+                serr, sok = within(slot, plain, tol)
+                check(ok and sok, f"split edges D {D} {dtype} len {n}: "
+                                  f"errors {err} (paged), {serr} (slot)")
+                check(torch.equal(out, again)
+                      and torch.equal(slot, slot_again),
+                      f"split edges D {D} {dtype} len {n}: two calls differ")
+                check(torch.equal(out, moved),
+                      f"split edges D {D} {dtype} len {n}: relocation "
+                      f"changed the output")
+                err_d = max(err_d, err, serr)
+            worst = max(worst, err_d)
+            records.append({"dtype": str(dtype).split(".")[-1], "D": D,
+                            "rows_per_tile": rows, "splits": splits,
+                            "warps": warps,
+                            "lens": lens, "max_err": err_d,
+                            "deterministic": True, "relocation_exact": True})
+    return records, worst
+
+
+def paged_timing(torch, ops, ref, kernel, rng):
+    """The paged kernel at the llama3.2-3b main-path decode shape: 28 layer
+    stores as the engine holds them (1.9 GB, so each call finds its layer
+    cold in the 50 MB L2), batch 8, lengths around 512, max_len 1024; held
+    against the plain version on the first and last layer, then timed
+    (``decode_times``) beside the bound."""
+    L, B, Hkv, G, D, bs, mb, N = 28, 8, 8, 3, 128, 16, 64, 513
     lens = [int(x) for x in rng.randint(480, 545, size=B)]
     ks, vs, q, bt, ln = paged_inputs(
         torch, rng, L=L, B=B, Hkv=Hkv, G=G, D=D, bs=bs, mb=mb, num_blocks=N,
@@ -336,18 +448,12 @@ def phase_kernel(torch, ops, ref, kernel):
         err, ok = within(got.reshape(plain.shape), plain, BF16_TOL)
         check(ok, f"llama3.2-3b main shape: kernel vs plain error {err}")
         main_err = max(main_err, err)
-    worst["llama3.2-3b"] = max(worst["llama3.2-3b"], main_err)
 
-    def run_kernel():
-        for layer in range(L):
-            err = kernel.paged_decode_attention_grouped(
-                qg, ks[layer], vs[layer], bt, ln, out, scale)
-            if err:
-                raise RuntimeError(f"CUDA error {err}")
-
-    def run_plain():
-        for layer in range(L):
-            ref.paged_decode_ref(qg, ks[layer], vs[layer], bt, ln)
+    def run_kernel(layer):
+        err = kernel.paged_decode_attention_grouped(
+            qg, ks[layer], vs[layer], bt, ln, out, scale)
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
 
     S = mb * bs
     mask = (torch.arange(S, device=DEVICE)[None, :] < ln[:, None].long()
@@ -358,34 +464,77 @@ def phase_kernel(torch, ops, ref, kernel):
           for layer in range(L)]
     qs = q.transpose(1, 2).contiguous()  # [B, Hq, 1, D]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def run_library():
-        for layer in range(L):
-            sdpa(qs, kc[layer], vc[layer], attn_mask=mask, enable_gqa=True)
-
-    kernel_ms = cuda_ms(run_kernel, 20) / L
-    plain_ms = cuda_ms(run_plain, 3) / L
-    library_ms = cuda_ms(run_library, 5) / L
-    kernel_ms_2 = cuda_ms(run_kernel, 20) / L
+    times = decode_times(
+        torch, L, run_kernel,
+        lambda layer: ops.paged_decode_attention(q, ks[layer], vs[layer],
+                                                 bt, ln),
+        lambda layer: ref.paged_decode_ref(qg, ks[layer], vs[layer], bt, ln),
+        lambda layer: sdpa(qs, kc[layer], vc[layer], attn_mask=mask,
+                           enable_gqa=True))
     itemsize = 2
     tot = sum(lens)
     bytes_moved = (tot * Hkv * D * 2 * itemsize  # K and V rows attended
                    + 2 * B * Hkv * G * D * itemsize  # q in, out
                    + bt.numel() * 4 + B * 4)  # tables, lengths
     flops = 4 * tot * Hkv * G * D  # q.k and p.v, multiply-add each
-    byte_ms = bytes_moved / H100_BYTES_PER_S * 1e3
-    op_ms = flops / H100_BF16_FLOPS * 1e3
+    bms, by = bound_ms(bytes_moved, flops, H100_BF16_FLOPS)
+    shape = getattr(kernel, "launch_shape", None)  # older trees lack it
     timing = {"config": "llama3.2-3b", "layers": L, "B": B, "lens": lens,
               "block_size": bs, "max_blocks": mb, "num_blocks": N,
-              "kernel_ms": kernel_ms, "kernel_ms_repeat": kernel_ms_2,
-              "plain_ms": plain_ms, "library_ms": library_ms,
-              "bound_ms": max(byte_ms, op_ms),
-              "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+              "splits_warps": shape(torch.bfloat16, B, Hkv, G, D, S)
+              if shape else None, **times, "bound_ms": bms, "bound_by": by,
               "bytes": bytes_moved, "flops": flops, "max_err": main_err,
-              "achieved_GBps": bytes_moved / (kernel_ms * 1e-3) / 1e9}
+              "achieved_GBps": bytes_moved / (times["kernel_ms"] * 1e-3)
+              / 1e9}
     del ks, vs, kc, vc
     torch.cuda.empty_cache()
-    return cases, timing, worst
+    return timing
+
+
+def phase_kernel(torch, ops, ref, kernel):
+    """Kernel vs plain on the card at every head dim; the split's edges;
+    times at the llama3.2-3b decode shape."""
+    rng = np.random.RandomState(0)
+    bs = 16
+    cases = []
+    worst = 0.0
+    for label, Hkv, G, D in DECODE_HEADS:
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            atol, rtol = tol
+            name = f"{label}-{str(dtype).split('.')[-1]}"
+            mb = 16
+            lens = [1, bs - 1, bs, bs + 1, mb * bs, 37, 100, 200]
+            ks, vs, q, bt, ln = paged_inputs(
+                torch, rng, L=1, B=len(lens), Hkv=Hkv, G=G, D=D, bs=bs,
+                mb=mb, num_blocks=160, lens=lens, dtype=dtype, pad_rows=2)
+            out = ops.paged_decode_attention(q, ks[0], vs[0], bt, ln)
+            n = q.shape[0]
+            plain = ref.paged_decode_ref(q.reshape(n, Hkv, G, D), ks[0],
+                                         vs[0], bt, ln).reshape(out.shape)
+            torch.cuda.synchronize()
+            err, ok = within(out, plain, tol)
+            check(ok, f"{name}: kernel vs plain max error {err} > "
+                      f"{atol} + {rtol} x |plain|")
+            # relocate physical blocks: output must not change at all
+            perm = torch.from_numpy(np.concatenate(
+                [[0], 1 + rng.permutation(ks.shape[1] - 1)])).to(DEVICE)
+            inv = torch.argsort(perm)
+            out2 = ops.paged_decode_attention(
+                q, ks[0][inv].contiguous(), vs[0][inv].contiguous(),
+                perm[bt.long()].to(torch.int32), ln)
+            check(torch.equal(out, out2),
+                  f"{name}: relocation changed output")
+            worst = max(worst, err)
+            cases.append({"config": name, "dtype": str(dtype).split(".")[-1],
+                          "Hkv": Hkv, "G": G, "D": D, "block_size": bs,
+                          "lens": lens, "pad_rows": 2, "max_err": err,
+                          "atol": atol, "rtol": rtol,
+                          "relocation_exact": True})
+    edges, edge_worst = phase_split_edges(torch, ops, ref, kernel)
+    timing = paged_timing(torch, ops, ref, kernel, rng)
+    worst = max(worst, edge_worst, timing["max_err"])
+    return cases, edges, timing, worst
 
 
 def phase_model(torch, configs, get_model, engine_mod):
@@ -428,23 +577,43 @@ def phase_model(torch, configs, get_model, engine_mod):
             "decode_steps": eng.stats.decode_steps}
 
 
-def phase_launcher(serve):
-    """The launcher with its defaults: rhapsody-demo, 2 replicas."""
-    zero_launches()
-    t0 = time.perf_counter()
-    out = serve.main([] if DEVICE == "cuda" else ["--device", DEVICE])
-    launches = check_launches(
-        "launcher", paged_decode_attention=4 * out["decode_steps"])[
-        "paged_decode_attention"]
-    res = out["results"]
-    check(len(res) == 16 and all(len(r["tokens"]) == 8 for r in res),
-          "launcher: a request came back short")
-    check(all(e is None for e in out["errors"]),
-          f"launcher: replica errors {out['errors']}")
-    check(launches > 0, "launcher: no decode step ran")
-    return {"requests": len(res), "launches": launches,
-            "decode_steps": out["decode_steps"],
-            "seconds": time.perf_counter() - t0}
+# the serve launcher's runs in phase 7: (arch, extra flags, the decode
+# kernel it must launch n_layers times a decode step); every arch but
+# rhapsody-demo serves its smoke config (head_dim 8 for llama3.2-3b, 16
+# for qwen3-8b)
+SERVE_RUNS = (("rhapsody-demo", [], "paged_decode_attention"),
+              ("llama3.2-3b", [], "paged_decode_attention"),
+              ("qwen3-8b", [], "paged_decode_attention"),
+              ("qwen3-8b", ["--no-paged"], "decode_attention"))
+
+
+def phase_launcher(serve, configs):
+    """The serve launcher: its defaults (rhapsody-demo, 2 replicas, 16
+    requests), then llama3.2-3b and qwen3-8b (paged and slot pool)."""
+    runs = []
+    for arch, flags, kern in SERVE_RUNS:
+        argv = ([] if arch == "rhapsody-demo" else ["--arch", arch]) + flags
+        cfg = (configs.get_config(arch) if arch == "rhapsody-demo"
+               else configs.get_smoke_config(arch))
+        zero_launches()
+        t0 = time.perf_counter()
+        out = serve.main(argv + ([] if DEVICE == "cuda"
+                                 else ["--device", DEVICE]))
+        where = f"launcher {' '.join(argv) or '(defaults)'}"
+        launches = check_launches(
+            where, **{kern: cfg.n_layers * out["decode_steps"]})[kern]
+        res = out["results"]
+        check(len(res) == 16 and all(len(r["tokens"]) == 8 for r in res),
+              f"{where}: a request came back short")
+        check(all(e is None for e in out["errors"]),
+              f"{where}: replica errors {out['errors']}")
+        check(launches > 0, f"{where}: no decode step ran")
+        runs.append({"argv": argv, "head_dim": cfg.head_dim,
+                     "kernel": kern, "requests": len(res),
+                     "launches": launches,
+                     "decode_steps": out["decode_steps"],
+                     "seconds": time.perf_counter() - t0})
+    return runs
 
 
 def phase_main_path(torch, configs, core, client):
@@ -587,16 +756,11 @@ def decode_timing(torch, ops, ref, kernel, name, L, B, Hkv, G, D, S, lens):
     out = torch.empty_like(qg)
     scale = 1.0 / math.sqrt(D)
 
-    def run_kernel():
-        for layer in range(L):
-            code = kernel.decode_attention_grouped(qg, kc[layer], vc[layer],
-                                                   ln, out, scale)
-            if code:
-                raise RuntimeError(f"CUDA error {code}")
-
-    def run_plain():
-        for layer in range(L):
-            ref.decode_ref(qg, kc[layer], vc[layer], ln)
+    def run_kernel(layer):
+        code = kernel.decode_attention_grouped(qg, kc[layer], vc[layer], ln,
+                                               out, scale)
+        if code:
+            raise RuntimeError(f"CUDA error {code}")
 
     mask = (torch.arange(S, device=DEVICE)[None, :] < ln[:, None].long()
             )[:, None, None, :]  # [B, 1, 1, S]
@@ -604,46 +768,42 @@ def decode_timing(torch, ops, ref, kernel, name, L, B, Hkv, G, D, S, lens):
     vt = [vc[layer].transpose(1, 2).contiguous() for layer in range(L)]
     qs = q.transpose(1, 2).contiguous()  # [B, Hq, 1, D]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def run_library():
-        for layer in range(L):
-            sdpa(qs, kt[layer], vt[layer], attn_mask=mask, enable_gqa=True)
-
-    kernel_ms = cuda_ms(run_kernel, 20) / L
-    plain_ms = cuda_ms(run_plain, 3) / L
-    library_ms = cuda_ms(run_library, 5) / L
-    kernel_ms_2 = cuda_ms(run_kernel, 20) / L
+    times = decode_times(
+        torch, L, run_kernel,
+        lambda layer: ops.decode_attention(q, kc[layer], vc[layer], ln),
+        lambda layer: ref.decode_ref(qg, kc[layer], vc[layer], ln),
+        lambda layer: sdpa(qs, kt[layer], vt[layer], attn_mask=mask,
+                           enable_gqa=True))
     attended = sum(min(n, S) for n in lens)
     bytes_moved = (attended * Hkv * D * 2 * 2  # K and V rows, bf16
                    + 2 * B * Hkv * G * D * 2 + B * 4)  # q, out; lengths
     flops = 4 * attended * Hkv * G * D
     bms, by = bound_ms(bytes_moved, flops, H100_BF16_FLOPS)
+    shape = getattr(kernel, "launch_shape", None)  # older trees lack it
     del kc, vc, kt, vt
     torch.cuda.empty_cache()
     return {"config": name, "layers": L, "B": B, "Hkv": Hkv, "G": G, "D": D,
-            "S": S, "lens": lens, "kernel_ms": kernel_ms,
-            "kernel_ms_repeat": kernel_ms_2, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+            "S": S, "lens": lens,
+            "splits_warps": shape(bf16, B, Hkv, G, D, S) if shape else None,
+            **times, "bound_ms": bms, "bound_by": by,
             "bytes": bytes_moved, "flops": flops, "max_err": err,
-            "achieved_GBps": bytes_moved / (kernel_ms * 1e-3) / 1e9}
+            "achieved_GBps": bytes_moved / (times["kernel_ms"] * 1e-3) / 1e9}
 
 
 def phase_decode(torch, ops, ref, kernel):
     """The contiguous decode kernel vs ``ref.decode_ref`` on the card:
-    rhapsody-demo's, llama3.2-3b's and zamba2-2.7b's heads in f32 and bf16;
-    S = 77 and the slot engine's max_len; ragged lengths and idle rows
+    every head dim of ``DECODE_HEADS`` in f32 and bf16; S = 77 and the slot
+    engine's max_len; ragged lengths and idle rows
     whose length is past S (the kernel clamps, the plain mask admits
     everything); then its times at zamba2's decode shape and at
     llama3.2-3b's heads."""
     f32, bf16 = torch.float32, torch.bfloat16
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     cases, worst = [], 0.0
-    for name, dtype, Hkv, G, D, tol in (
-            ("rhapsody-demo", f32, 4, 2, 32, F32_TOL),
-            ("llama3.2-3b-f32", f32, 8, 3, 128, F32_TOL),
-            ("llama3.2-3b", bf16, 8, 3, 128, BF16_TOL),
-            ("zamba2-2.7b-f32", f32, 32, 1, 80, F32_TOL),
-            ("zamba2-2.7b", bf16, 32, 1, 80, BF16_TOL)):
+    for (label, Hkv, G, D), (dtype, tol) in (
+            (heads, types) for heads in DECODE_HEADS
+            for types in ((f32, F32_TOL), (bf16, BF16_TOL))):
+        name = f"{label}-{str(dtype).split('.')[-1]}"
         for S in (77, STATE_ENGINE["max_len"]):
             lens = [1, 31, 32, 33, S - 1, S, S + 1, S + 500]
             B = len(lens)
@@ -1109,9 +1269,10 @@ def phase_flash(torch, fa, fa_ref):
 
 
 def flash_times(torch, fa_kernel, fa_ref, q, k, v, out, lse):
-    """The raw kernel's time on (q, k, v) beside the plain version's, the
-    library yardstick's (SDPA, causal, GQA; never called by the port) and
-    the bound."""
+    """The raw kernel's time on (q, k, v), eager and replayed from a CUDA
+    graph, beside the plain version's, the library yardstick's (SDPA,
+    causal, GQA; never called by the port; eager and from a graph) and the
+    bound."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     scale = 1.0 / math.sqrt(D)
@@ -1131,6 +1292,8 @@ def flash_times(torch, fa_kernel, fa_ref, q, k, v, out, lse):
     kernel_ms = cuda_ms(run_kernel, 20)
     plain_ms = cuda_ms(lambda: fa_ref.attention_fwd_ref(q, k, v), 3)
     library_ms = cuda_ms(run_library, 20)
+    graph = graph_ms(torch, run_kernel, 20)
+    library_graph = graph_ms(torch, run_library, 20)
     kernel_ms_2 = cuda_ms(run_kernel, 20)
     bytes_moved = ((2 * B * S * Hq * D + 2 * B * S * Hkv * D)
                    * q.element_size() + B * Hq * S * 4)  # q, k, v, out; lse
@@ -1138,8 +1301,10 @@ def flash_times(torch, fa_kernel, fa_ref, q, k, v, out, lse):
     bms, by = bound_ms(bytes_moved, flops, H100_BF16_FLOPS)
     return {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
             "dtype": str(q.dtype).split(".")[-1], "kernel_ms": kernel_ms,
-            "kernel_ms_repeat": kernel_ms_2, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+            "kernel_ms_repeat": kernel_ms_2, "graph_ms": graph,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_graph_ms": library_graph, "bound_ms": bms,
+            "bound_by": by,
             "bytes": bytes_moved, "flops": flops,
             "achieved_TFLOPs": flops / (kernel_ms * 1e-3) / 1e12,
             "percent_of_bound": 100 * bms / kernel_ms}
@@ -1255,19 +1420,29 @@ def phase_train_step(torch, configs, get_model, optim, train, data):
             "seconds": seconds}
 
 
-def phase_train_launcher(launch_train):
-    """The trainer launcher with its defaults except --steps 20."""
-    zero_launches()
-    out = launch_train.main(["--steps", "20"]
-                            + ([] if DEVICE == "cuda" else
-                               ["--device", DEVICE]))
-    launches = check_launches("trainer launcher",
-                              flash_attention=2 * 4 * 20)["flash_attention"]
-    losses = out["losses"]
-    check(len(losses) == 20 and all(math.isfinite(x) for x in losses),
-          f"trainer launcher: losses {losses}")
-    return {"losses": losses, "launches": launches,
-            "seconds": out["seconds"], "device": out["device"]}
+def phase_train_launcher(launch_train, configs):
+    """The trainer launcher with its defaults except --steps 20, then
+    ``--arch llama3.2-3b --steps 5`` (its smoke config, head_dim 8)."""
+    runs = []
+    for arch, steps in (("rhapsody-demo", 20), ("llama3.2-3b", 5)):
+        argv = (([] if arch == "rhapsody-demo" else ["--arch", arch])
+                + ["--steps", str(steps)])
+        cfg = (configs.get_config(arch) if arch == "rhapsody-demo"
+               else configs.get_smoke_config(arch))
+        zero_launches()
+        out = launch_train.main(argv + ([] if DEVICE == "cuda" else
+                                        ["--device", DEVICE]))
+        where = f"trainer launcher {' '.join(argv)}"
+        launches = check_launches(
+            where, flash_attention=2 * cfg.n_layers * steps)[
+            "flash_attention"]
+        losses = out["losses"]
+        check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+              f"{where}: losses {losses}")
+        runs.append({"argv": argv, "head_dim": cfg.head_dim,
+                     "losses": losses, "launches": launches,
+                     "seconds": out["seconds"], "device": out["device"]})
+    return runs
 
 
 def train_main_path():
@@ -1405,8 +1580,9 @@ def main():
           "flash_sass": flash_sass})
 
     # 2. paged decode kernel vs plain
-    cases, timing, worst = phase_kernel(torch, ops, ref, kernel)
-    emit({"phase": "kernel", "cases": cases, "timing": timing})
+    cases, edges, timing, worst = phase_kernel(torch, ops, ref, kernel)
+    emit({"phase": "kernel", "cases": cases, "split_edges": edges,
+          "timing": timing})
 
     # 3-5. contiguous decode, WKV6 and SSD kernels vs plain, with times
     dec_cases, dec_timing, dec_llama, dec_worst = phase_decode(
@@ -1427,7 +1603,7 @@ def main():
                                           engine)})
 
     # 7. the launcher end to end
-    emit({"phase": "launcher", **phase_launcher(serve)})
+    emit({"phase": "launcher", "runs": phase_launcher(serve, configs)})
 
     # 8. the serving main path at a real model's full width
     main_path = phase_main_path(torch, configs, core, client)
@@ -1467,7 +1643,8 @@ def main():
         torch, configs, get_model, optim, train, data)})
 
     # 15. the trainer launcher
-    emit({"phase": "train_launcher", **phase_train_launcher(launch_train)})
+    emit({"phase": "train_launcher",
+          "runs": phase_train_launcher(launch_train, configs)})
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1480,16 +1657,20 @@ def main():
     rwkv, zamba = (state_paths[arch] for arch in STATE_ARCHS)
 
     def line(name, source, replaces, launches, err, t):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": t["kernel_ms"],
-                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        rec = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": err, "ms": t["kernel_ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if "graph_ms" in t:  # device time replayed from a CUDA graph
+            rec.update(graph_ms=t["graph_ms"],
+                       library_graph_ms=t["library_graph_ms"])
+        return rec
 
     emit({"kernels": [
         line("paged_decode_attention", decode_src,
              "src/repro/kernels/decode_attention/kernel.py:147",
-             main_path["launches"], max(worst.values()), timing),
+             main_path["launches"], worst, timing),
         line("decode_attention", decode_src,
              "src/repro/kernels/decode_attention/kernel.py:74",
              zamba["launches"]["decode_attention"], dec_worst, dec_timing),

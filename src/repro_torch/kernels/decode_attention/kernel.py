@@ -1,8 +1,10 @@
 """ctypes binding of the hand-written Hopper flash-decode kernels.
 
 The CUDA source is ``csrc/decode_attention.cu`` (its header states the
-design, the TPU kernels it replaces and its bound): one tile loop with two
-entry points, over a block-paged store and over contiguous slot caches.
+design, the TPU kernels it replaces and its bound): one body with two
+entry points, over a block-paged store and over contiguous slot caches,
+and a third that says how the kernel splits each sequence across blocks
+and warps.
 It is compiled at first use by ``repro_torch.kernels.build``; nothing here
 runs at import.
 """
@@ -33,6 +35,9 @@ def load():
             [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_void_p])
         lib.decode_attention.restype = ctypes.c_int
+        lib.decode_attention_shape.argtypes = (
+            [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 2)
+        lib.decode_attention_shape.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -66,3 +71,15 @@ def decode_attention_grouped(q, k_cache, v_cache, kv_length, out,
         _DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), kv_length.data_ptr(), out.data_ptr(), B, Hkv, G,
         D, S, scale, stream)
+
+
+def launch_shape(dtype, B: int, Hkv: int, G: int, D: int, cap: int):
+    """(blocks a (sequence, kv head), warps a block) that either entry
+    point takes at these shapes; ``cap`` is S or block_size * max_blocks."""
+    splits, warps = ctypes.c_int(), ctypes.c_int()
+    if load().decode_attention_shape(_DTYPE_CODES[dtype], B, Hkv, G, D, cap,
+                                     ctypes.byref(splits),
+                                     ctypes.byref(warps)):
+        raise ValueError(f"no decode launch for {dtype}, B {B}, Hkv {Hkv}, "
+                         f"G {G}, D {D}, cap {cap}")
+    return splits.value, warps.value

@@ -58,12 +58,15 @@
 // * Blocks are launched heaviest first (the last query tiles walk the most
 //   keys), query heads of one kv head side by side so K/V stay in L2.
 //
-// head_dim: D in {32, 64, 80, 128}.  A 128-byte swizzle caps a TMA box at
-// 64 bf16 columns, so tiles are 64-column slabs: D 32 and 64 load one, D 80
-// and 128 two.  D 32 and 80 are padded to the slab by TMA's zero fill past
-// the tensor map's D extent, so one body serves all four: Q K^T takes only
-// ceil(D/16) k-steps, P V runs at the padded width (64 or 128) and the
-// padded columns are never stored.
+// head_dim: D in {8, 16, 32, 64, 80, 128}.  A 128-byte swizzle caps a TMA
+// box at 64 bf16 columns, so tiles are 64-column slabs: D 8 to 64 load one,
+// D 80 and 128 two.  D 8, 16, 32 and 80 are padded to the slab by TMA's
+// zero fill past the tensor map's D extent, so one body serves all six:
+// Q K^T takes only ceil(D/16) k-steps (one for D 8, whose second half of
+// the k-step is that zero fill), P V runs at the padded width (64 or 128)
+// and the padded columns are never stored.  D 8 is TMA's edge case: its
+// head stride, 8 bf16, is exactly the 16 bytes every stride but D's must
+// be a multiple of.
 //
 // What this design still leaves: no persistent blocks (each block does one
 // tile, so a block's prologue and epilogue are not hidden behind another
@@ -882,6 +885,8 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     switch (D) {
+      case 8: return launch_f32<8>(p, B, s);
+      case 16: return launch_f32<16>(p, B, s);
       case 32: return launch_f32<32>(p, B, s);
       case 64: return launch_f32<64>(p, B, s);
       case 80: return launch_f32<80>(p, B, s);
@@ -889,6 +894,8 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
     }
   } else if (dtype == 1) {
     switch (D) {
+      case 8: return launch_bf16<8>(p, B, strides, s);
+      case 16: return launch_bf16<16>(p, B, strides, s);
       case 32: return launch_bf16<32>(p, B, strides, s);
       case 64: return launch_bf16<64>(p, B, strides, s);
       case 80: return launch_bf16<80>(p, B, strides, s);

@@ -28,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba2 import ssm_dims
 
@@ -115,7 +116,8 @@ class CachePool:
     ``allocate()`` is O(1)."""
 
     def __init__(self, cfg: ModelConfig, max_seqs: int, max_len: int, *,
-                 device="cpu"):
+                 device=None):
+        device = resolve_device(device)  # None: the card, or raise
         self.cfg = cfg
         self.max_seqs = max_seqs
         self.max_len = max_len
@@ -314,7 +316,8 @@ class PagedCachePool:
     ``alloc``) and scheduling."""
 
     def __init__(self, cfg: ModelConfig, num_blocks: int, block_size: int,
-                 max_len: int, *, device="cpu"):
+                 max_len: int, *, device=None):
+        device = resolve_device(device)  # None: the card, or raise
         if cfg.family not in ("dense", "moe"):
             raise ValueError(
                 f"paged KV cache requires per-position KV (dense/moe), "

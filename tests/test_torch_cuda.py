@@ -55,10 +55,14 @@ def _paged(seed, B, num_blocks, bs, mb, Hkv, G, D, lens, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,Hkv,G,D,atol,rtol", [
     ("float32", 4, 2, 32, 2e-5, 2e-5), ("float32", 8, 3, 128, 2e-5, 2e-5),
-    ("bfloat16", 8, 3, 128, 4e-3, 2.0 ** -7)])
+    ("bfloat16", 8, 3, 128, 4e-3, 2.0 ** -7),
+    ("float32", 2, 3, 8, 2e-5, 2e-5), ("bfloat16", 2, 3, 8, 4e-3, 2.0 ** -7),
+    ("float32", 2, 2, 16, 2e-5, 2e-5),
+    ("bfloat16", 2, 2, 16, 4e-3, 2.0 ** -7)])
 def test_cuda_kernel_matches_plain(cuda, dtype, Hkv, G, D, atol, rtol):
     """The paged decode kernel vs its plain version at the shapes of
-    rhapsody-demo (f32) and llama3.2-3b (f32 and bf16); block-size edge
+    rhapsody-demo (f32), llama3.2-3b (f32 and bf16) and the smoke configs
+    of llama3.2-3b (head_dim 8) and qwen3-8b (16); block-size edge
     lengths; relocating physical blocks changes no bit.  Both sides round
     bf16 outputs to bf16, so bf16 allows 4e-3 plus one bf16 ulp (2^-7) of
     the value."""
@@ -84,10 +88,10 @@ def test_cuda_kernel_matches_plain(cuda, dtype, Hkv, G, D, atol, rtol):
 
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda):
-    q, ks, vs, bt, lens = _paged(1, 2, 9, 8, 4, 2, 2, 16, [3, 9], "float32")
+    q, ks, vs, bt, lens = _paged(1, 2, 9, 8, 4, 2, 2, 48, [3, 9], "float32")
     before = ops.launches
     with pytest.raises(ValueError, match="head_dim"):
-        ops.paged_decode_attention(q, ks, vs, bt, lens)  # D = 16
+        ops.paged_decode_attention(q, ks, vs, bt, lens)  # D = 48
     q, ks, vs, bt, lens = _paged(1, 2, 9, 8, 4, 2, 2, 32, [3, 9], "float16")
     with pytest.raises(TypeError):
         ops.paged_decode_attention(q, ks, vs, bt, lens)
@@ -109,7 +113,11 @@ def _qkv(seed, B, S, Hq, Hkv, D, dtype):
     ("bfloat16", 4, 2, 64, 4e-3, 2.0 ** -7, 2e-2),
     ("bfloat16", 8, 4, 32, 4e-3, 2.0 ** -7, 2e-2),
     ("float32", 32, 32, 80, 2e-5, 2e-5, 1e-4),
-    ("bfloat16", 32, 32, 80, 4e-3, 2.0 ** -7, 2e-2)])
+    ("bfloat16", 32, 32, 80, 4e-3, 2.0 ** -7, 2e-2),
+    ("float32", 6, 2, 8, 2e-5, 2e-5, 1e-4),
+    ("bfloat16", 6, 2, 8, 4e-3, 2.0 ** -7, 2e-2),
+    ("float32", 4, 2, 16, 2e-5, 2e-5, 1e-4),
+    ("bfloat16", 4, 2, 16, 4e-3, 2.0 ** -7, 2e-2)])
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 129, 200, 2048])
 def test_cuda_flash_kernel_matches_plain(cuda, dtype, Hq, Hkv, D, atol, rtol,
                                          gtol, S):
@@ -208,7 +216,8 @@ def _close(got, want, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,Hkv,G,D", [
     ("float32", 4, 2, 32), ("float32", 8, 3, 128), ("float32", 32, 1, 80),
-    ("bfloat16", 8, 3, 128), ("bfloat16", 32, 1, 80)])
+    ("bfloat16", 8, 3, 128), ("bfloat16", 32, 1, 80), ("float32", 2, 3, 8),
+    ("bfloat16", 2, 3, 8), ("float32", 2, 2, 16), ("bfloat16", 2, 2, 16)])
 def test_cuda_contiguous_decode_matches_plain(cuda, dtype, Hkv, G, D):
     """The contiguous flash-decode kernel vs ``ref.decode_ref`` on slot
     caches [B, S, Hkv, D] of an S that is no multiple of the tile, ragged
@@ -353,3 +362,130 @@ def test_cuda_slot_engine_matches_cpu_run(cuda):
     assert launches == cfg.n_layers * stats.decode_steps > 0
     for name in ("steps", "decode_steps", "prefill_tokens", "decode_tokens"):
         assert getattr(stats, name) == getattr(cpu_stats, name), name
+
+
+def _split_lens(rows, splits, cap):
+    """Lengths at the tile edges, at and around each split boundary, that
+    leave late split ranks empty, and at and past the cache's end."""
+    edges = {1, rows - 1, rows, rows + 1, rows * (splits - 1) + 1,
+             cap - 1, cap, cap + 1, cap + 500}
+    for k in (1, 2, 3):
+        edges |= {k * rows * splits - 1, k * rows * splits,
+                  k * rows * splits + 1}
+    return sorted(n for n in edges if n >= 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [8, 16, 32, 64, 80, 128])
+def test_cuda_decode_split_edges_determinism_and_relocation(cuda, dtype, D):
+    """Both decode entry points vs their plain versions where the split of
+    the sequence across a cluster's blocks has its edges: one kv head of
+    one sequence (plus two engine-style padding rows of length 1 with
+    all-null tables), so the cache is split across the most blocks, at
+    every length of ``_split_lens``; then zamba2's 8 x 32 (sequence, kv
+    head) pairs, which take no split.  Two calls agree bit for bit, and
+    relocating physical blocks changes no bit.  f32 within 2e-5, bf16
+    within 4e-3 + 2^-7 x |plain| (the kernel's limits everywhere)."""
+    from repro_torch.kernels.decode_attention import kernel
+
+    dt = getattr(torch, dtype)
+    tol = (2e-5, 2e-5) if dtype == "float32" else BF16_TOL
+    rows = 16 if D * dt.itemsize >= 128 else 32  # positions a tile
+    bs, mb = 16, 64
+    cap = bs * mb
+    rng = np.random.RandomState(D)
+    for B, Hkv, G, pad in ((1, 1, 3, 2), (8, 32, 1, 0)):
+        n = B + pad
+        splits, _ = kernel.launch_shape(dt, n, Hkv, G, D, cap)
+        if B == 1:
+            assert splits > 1, "the small case must exercise the split"
+        all_lens = _split_lens(rows, splits, cap)
+        batches = ([[x] for x in all_lens] if B == 1 else
+                   [all_lens[i:i + B] for i in range(0, len(all_lens) - B + 1,
+                                                     B)])
+        for lens in batches:
+            num_blocks = B * mb + 1
+            q = torch.from_numpy(rng.randn(n, 1, Hkv * G, D).astype(
+                np.float32)).cuda().to(dt)
+            ks, vs = (torch.from_numpy(rng.randn(
+                num_blocks, bs, Hkv, D).astype(np.float32)).cuda().to(dt)
+                for _ in range(2))
+            bt = np.zeros((n, mb), np.int32)
+            perm = rng.permutation(np.arange(1, num_blocks))
+            for b, length in enumerate(lens):
+                used = -(-min(length, cap) // bs)
+                bt[b, :used] = perm[b * mb:b * mb + used]
+            ln = torch.tensor(list(lens) + [1] * pad, dtype=torch.int32,
+                              device="cuda")
+            bt = torch.from_numpy(bt).cuda()
+            out = ops.paged_decode_attention(q, ks, vs, bt, ln)
+            again = ops.paged_decode_attention(q, ks, vs, bt, ln)
+            plain = ref.paged_decode_ref(q.reshape(n, Hkv, G, D), ks, vs, bt,
+                                         ln)
+            _close(out, plain.reshape(out.shape), tol)
+            assert torch.equal(out, again), f"paged {lens}: not deterministic"
+            moved = torch.from_numpy(np.concatenate(
+                [[0], 1 + rng.permutation(num_blocks - 1)])).cuda()
+            inv = torch.argsort(moved)
+            relocated = ops.paged_decode_attention(
+                q, ks[inv].contiguous(), vs[inv].contiguous(),
+                moved[bt.long()].to(torch.int32), ln)
+            assert torch.equal(out, relocated), f"paged {lens}: relocation"
+            # the same rows as contiguous caches of S = cap
+            kc, vc = (ref.gather_kv(t, bt).contiguous() for t in (ks, vs))
+            got = ops.decode_attention(q, kc, vc, ln)
+            again = ops.decode_attention(q, kc, vc, ln)
+            plain = ref.decode_ref(q.reshape(n, Hkv, G, D), kc, vc, ln)
+            _close(got, plain.reshape(got.shape), tol)
+            assert torch.equal(got, again), f"slot {lens}: not deterministic"
+
+
+def _served(arch, argv, counter):
+    """Run the serve launcher on the card; -> (its output, the counter's
+    launches during the run)."""
+    from repro_torch.launch import serve
+
+    before = getattr(ops, counter)
+    out = serve.main(["--arch", arch, "--requests", "8"] + argv)
+    torch.cuda.synchronize()
+    return out, getattr(ops, counter) - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,argv,counter", [
+    ("llama3.2-3b", [], "launches"),
+    ("qwen3-8b", [], "launches"),
+    ("qwen3-8b", ["--no-paged"], "contiguous_launches")])
+def test_cuda_serve_launcher_runs_smoke_archs(cuda, arch, argv, counter):
+    """``repro_torch.launch.serve --arch <arch>`` on the card serves the
+    arch's smoke config (head_dim 8 for llama3.2-3b, 16 for qwen3-8b)
+    through the paged pool (or the slot pool with ``--no-paged``): every
+    request comes back whole, no replica failed, and the decode kernel ran
+    n_layers times a decode step."""
+    from repro_torch.configs import get_smoke_config
+
+    out, launched = _served(arch, argv, counter)
+    assert all(e is None for e in out["errors"]), out["errors"]
+    assert len(out["results"]) == 8
+    assert all(len(r["tokens"]) == 8 for r in out["results"])
+    cfg = get_smoke_config(arch)
+    assert launched == cfg.n_layers * out["decode_steps"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_train_launcher_runs_a_smoke_arch(cuda):
+    """``repro_torch.launch.train --arch llama3.2-3b --steps 5`` on the
+    card trains the smoke config (head_dim 8): finite losses, the flash
+    kernel 2 x n_layers times a step (remat runs each forward again)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train
+
+    before = fa_ops.launches
+    out = train.main(["--arch", "llama3.2-3b", "--steps", "5"])
+    torch.cuda.synchronize()
+    cfg = get_smoke_config("llama3.2-3b")
+    assert out["device"].startswith("cuda")
+    assert len(out["losses"]) == 5
+    assert all(np.isfinite(x) for x in out["losses"])
+    assert fa_ops.launches - before == 2 * cfg.n_layers * 5

@@ -1,7 +1,7 @@
 """Guards of the PyTorch port: it and its scripts for the card import
-neither JAX nor the JAX package, and its copies of the JAX-free
-middleware stay equal to their originals up to the package name in
-import lines."""
+neither JAX nor the JAX package, its copies of the JAX-free middleware
+stay equal to their originals up to the package name in import lines, and
+every attention config it runs by default fits both attention kernels."""
 import ast
 import os
 import pathlib
@@ -35,7 +35,8 @@ def _imported_modules(path):
 
 @pytest.mark.parametrize("path", sorted(
     [*PORT.rglob("*.py"), ROOT / "chip_smoke.py", ROOT / "bench_flash.py",
-     ROOT / "profile_engine.py", ROOT / "profile_train.py"]),
+     ROOT / "bench_decode.py", ROOT / "profile_engine.py",
+     ROOT / "profile_train.py"]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_no_reference(path):
     bad = [m for m in _imported_modules(path) if _FORBIDDEN.match(m)]
@@ -65,3 +66,41 @@ def _rewrite(text):
 def test_middleware_copy_equals_original(rel):
     original = (ROOT / "src" / "repro" / rel).read_text()
     assert (PORT / rel).read_text() == _rewrite(original)
+
+
+def _launched_configs():
+    """(label, config) for what the two launchers pick by default (every
+    arch's smoke config but rhapsody-demo's full one) and the full configs
+    ``chip_smoke.py`` runs, limited to the attention families ``get_model``
+    serves today (rwkv6 runs no attention kernel)."""
+    from repro_torch.configs import get_config, get_smoke_config, list_archs
+    from repro_torch.models import get_model
+
+    picked = [(f"{a}-smoke", get_smoke_config(a)) for a in list_archs()]
+    picked += [(f"{a}-full", get_config(a)) for a in
+               ("rhapsody-demo", "llama3.2-3b", "rwkv6-1.6b", "zamba2-2.7b")]
+    served = []
+    for label, cfg in picked:
+        try:
+            get_model(cfg)
+        except NotImplementedError:
+            continue
+        if cfg.family != "ssm":
+            served.append((label, cfg))
+    return served
+
+
+LAUNCHED = _launched_configs()
+
+
+@pytest.mark.parametrize("label,cfg", LAUNCHED, ids=[c[0] for c in LAUNCHED])
+def test_launched_configs_fit_both_attention_kernels(label, cfg):
+    """A CUDA tensor never takes the plain path, so a config whose head
+    dim or group the kernels refuse fails on the card at its first decode
+    step or forward (ROADMAP Queue 3, fault 1)."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    assert cfg.head_dim in decode_ops.KERNEL_HEAD_DIMS, label
+    assert cfg.head_dim in flash_ops.KERNEL_HEAD_DIMS, label
+    assert cfg.n_heads // cfg.n_kv_heads <= decode_ops.KERNEL_MAX_GROUP, label

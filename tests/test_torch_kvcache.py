@@ -121,7 +121,8 @@ def test_pool_layout_and_copy_on_write():
     cfg = dense_cfg()
     tcfg = ModelConfig(**dataclasses.asdict(cfg))
     ref = jkv.PagedCachePool(cfg, num_blocks=9, block_size=8, max_len=32)
-    pool = tkv.PagedCachePool(tcfg, num_blocks=9, block_size=8, max_len=32)
+    pool = tkv.PagedCachePool(tcfg, num_blocks=9, block_size=8, max_len=32,
+                              device="cpu")
     assert tuple(pool.cache["k"].shape) == tuple(
         ref.cache["scan"]["k"].shape)
     assert pool.max_blocks == ref.max_blocks == 4
@@ -135,7 +136,24 @@ def test_pool_layout_and_copy_on_write():
     np.testing.assert_array_equal(pool.cache["k"].numpy(),
                                   np.asarray(ref.cache["scan"]["k"]))
     with pytest.raises(ValueError, match="num_blocks"):
-        tkv.PagedCachePool(tcfg, num_blocks=4, block_size=8, max_len=64)
+        tkv.PagedCachePool(tcfg, num_blocks=4, block_size=8, max_len=64,
+                           device="cpu")
     with pytest.raises(ValueError, match="paged"):
         tkv.PagedCachePool(tcfg.scaled(family="ssm"), num_blocks=8,
-                           block_size=4, max_len=16)
+                           block_size=4, max_len=16, device="cpu")
+
+
+def test_pools_default_to_the_card():
+    """Like every other entry point of the port, both pools take the card
+    unless the caller asks for the CPU: with no card, the default raises."""
+    tcfg = ModelConfig(**dataclasses.asdict(dense_cfg()))
+    if torch.cuda.is_available():
+        paged = tkv.PagedCachePool(tcfg, num_blocks=9, block_size=8,
+                                   max_len=32)
+        slot = tkv.CachePool(tcfg, 2, 16)
+        assert paged.cache["k"].is_cuda and slot.cache["k"].is_cuda
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tkv.PagedCachePool(tcfg, num_blocks=9, block_size=8, max_len=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tkv.CachePool(tcfg, 2, 16)

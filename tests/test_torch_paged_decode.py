@@ -2,9 +2,11 @@
 against the JAX package's Pallas kernel (interpret mode) and its
 ``paged_decode_ref`` oracle, on the cases of ``test_kernels.py``: ragged
 lengths, permuted tables and block-size edges at 2e-5 (float32 sums taken
-in another order); physical relocation exactly (atol 0).  On the CPU the
-wrapper runs the plain version; the CUDA kernel is held against it in
-``test_torch_cuda.py`` and in ``chip_smoke.py``."""
+in another order), head_dim 8 and 16 included; physical relocation exactly
+(atol 0).  ``ref.decode_split_ref``, the plain mirror of the CUDA
+kernel's split of the sequence and its combine, against both oracles at
+1e-6.  On the CPU the wrapper runs the plain version; the CUDA kernel is
+held against it in ``test_torch_cuda.py`` and in ``chip_smoke.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +15,8 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels.decode_attention.ops import (  # noqa: E402
     paged_decode_attention as jax_paged)
+from repro.kernels.decode_attention.ref import (  # noqa: E402
+    decode_ref as jax_decode_ref)
 from repro.kernels.decode_attention.ref import (  # noqa: E402
     paged_decode_ref as jax_paged_ref)
 from repro_torch.kernels.decode_attention import ops, ref  # noqa: E402
@@ -63,6 +67,8 @@ CASES = {
     "small_blocks": (5, 3, 32, 8, 6, 8, 4, 16),
     "single_mha": (5, 1, 9, 32, 8, 2, 1, 64),
     "llama_group3": (6, 3, 40, 16, 8, 6, 2, 32),
+    "head_dim_8_group3": (12, 3, 40, 16, 8, 6, 2, 8),
+    "head_dim_16_group2": (13, 3, 40, 16, 8, 4, 2, 16),
 }
 
 
@@ -157,3 +163,29 @@ def test_cpu_path_does_not_count_launches():
     before = ops.launches
     ops.paged_decode_attention(*_good())
     assert ops.launches == before
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("tile", [16, 32])
+def test_split_and_combine_matches_the_oracles(splits, tile):
+    """The kernel's algebra: each rank's (m, l, acc) over an even,
+    tile-aligned share of the valid positions, combined in rank order,
+    equals the one-pass softmax of ``ref.decode_ref`` and of the JAX
+    package's oracle (float32, 1e-6), with length 1, lengths at the tile
+    and split edges, ranks left empty and a length past the cache."""
+    rng = np.random.RandomState(40 + splits)
+    S, Hkv, G, D = 200, 2, 3, 16
+    lens = np.asarray([1, tile - 1, tile, tile + 1, 2 * tile + 1,
+                       tile * splits, tile * splits + 1, S, S + 250],
+                      np.int32)
+    B = len(lens)
+    q = rng.randn(B, Hkv, G, D).astype(np.float32)
+    kc = rng.randn(B, S, Hkv, D).astype(np.float32)
+    vc = rng.randn(B, S, Hkv, D).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (q, kc, vc, lens)]
+    got = ref.decode_split_ref(*t, splits, tile=tile).numpy()
+    np.testing.assert_allclose(got, ref.decode_ref(*t).numpy(), rtol=1e-6,
+                               atol=1e-6)
+    want = np.asarray(jax_decode_ref(*(jnp.asarray(a)
+                                       for a in (q, kc, vc, lens))))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)

@@ -108,7 +108,8 @@ def test_ssd_raises_on_a_ragged_length_as_the_reference():
 
 
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,bk", [
-    (2, 256, 4, 2, 32, 64), (3, 128, 8, 4, 16, 128), (1, 512, 2, 1, 64, 256)])
+    (2, 256, 4, 2, 32, 64), (3, 128, 8, 4, 16, 128), (1, 512, 2, 1, 64, 256),
+    (2, 128, 6, 2, 8, 64), (2, 64, 2, 2, 16, 64)])
 def test_decode_plain_matches_pallas_kernel(B, S, Hq, Hkv, D, bk):
     ks = jax.random.split(jax.random.PRNGKey(1), 4)
     q = jax.random.normal(ks[0], (B, 1, Hq, D))
