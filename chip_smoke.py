@@ -12,9 +12,9 @@ Phases, each printing one JSON line:
    (``kernels/flash_attention/csrc``), the chunked WKV6
    (``kernels/rwkv6/csrc``) and the chunked Mamba2 SSD
    (``kernels/mamba2/csrc``); ptxas registers and spill bytes of every
-   kernel template, and the counts of wgmma (HGMMA), TMA (UTMALDG,
-   UTMASTG) and mbarrier (SYNCS) instructions in the flash library's SASS
-   (``cuobjdump -sass``).
+   kernel template, and the counts of wgmma (HGMMA), mma.sync (HMMA), TMA
+   (UTMALDG, UTMASTG) and mbarrier (SYNCS) instructions in the flash and
+   SSD libraries' SASS (``cuobjdump -sass``).
 2. paged decode kernel vs plain: against ``ref.paged_decode_ref`` on the
    card at every head dim (8, 16, 32, 64, 80, 128; the heads of the
    configs that run each, ``DECODE_HEADS``) in f32 and bf16 (ragged
@@ -40,10 +40,20 @@ Phases, each printing one JSON line:
    ``ref.wkv_chunked_ref`` (f32 and bf16 r/k/v; T 37, 200 and 256; a
    non-zero initial state; f32 within 1e-4 relative, the reference's own
    limit; bf16 y as above), then its time at the rwkv6-1.6b prefill shape
-   (T 256, H 32, hd 64, chunk 32); no PyTorch call computes WKV6.
-5. SSD kernel vs plain: the same for ``ref.ssd_chunked_ref`` (T 96, 37 as
-   one chunk of 37, and 384), timed at the zamba2-2.7b prefill shape
-   (T 384, H 80, P = N = 64, chunk 128); no PyTorch call computes it.
+   (T 256, H 32, hd 64, chunk 32) over its 24 layers' input sets, cold in
+   L2 as a prefill meets them: eager, replayed from a CUDA graph of the
+   layer loop (``graph_ms``) and the wrapper's host time (``host_ms``); no
+   PyTorch call computes WKV6.
+5. SSD kernel vs plain: the same for ``ref.ssd_chunked_ref`` (``SSD_CASES``
+   in f32 and bf16: T 96, 37 as one chunk of 37, and 384; in bf16 also
+   ``SSD_BF16_CASES``: T 1, 17 and 37 as one chunk, T = L, 2L, 3L at L
+   128, a ragged chunk of 40, h0 absent and non-zero, every template of
+   the bf16 body: P 16, 32 and 64 with N up to 64 and up to 128); two
+   calls bit-equal at the prefill shape, bf16 shapes the body refuses
+   raising with the launch count unchanged; fails if the SSD SASS holds no
+   HMMA.  Then timed as phase 4, over zamba2-2.7b's 54 layers' input sets,
+   at its prefill shapes (``SSD_TIMED_SHAPES``: T 384, 128 and 20; H 80,
+   P = N = 64); no PyTorch call computes it.
 6. model: rhapsody-demo (full config, f32): the paged engine's greedy
    transcripts equal the contiguous prefill + decode_step oracle's.
 7. launcher: ``repro_torch.launch.serve`` with its defaults (rhapsody-demo,
@@ -60,7 +70,7 @@ Phases, each printing one JSON line:
    Then zamba2-2.7b's ``forward`` (SSD and flash kernels, head_dim 80) on
    one prompt: f32 cut to 12 layers against the same oracle's logits
    (2 flash launches), and bf16 at 54 layers, finite (9 flash launches),
-   timed cold and warm.
+   timed cold and three times warm.
 10-11. slot-pool serving at full width: rwkv6-1.6b (24 layers, d 2048,
    vocab 65536) and zamba2-2.7b (54 layers, d 2560, vocab 32000), bf16,
    random weights from seed 0, behind ``Rhapsody`` with 2 replicas
@@ -103,8 +113,8 @@ training phase launches the flash kernel 2 x n_layers x steps times (remat
 runs each block's forward again), zamba2's forward SSD n_layers and flash
 n_layers / attn_every times; every other kernel never.  Any failure
 exits non-zero.  The last lines are the five kernels' JSON record (the
-decode pair's and the flash kernel's rows also carry ``graph_ms`` and
-``library_graph_ms``), the
+decode pair's, the flash kernel's and the scans' rows also carry
+``graph_ms``, and the attention kernels' ``library_graph_ms``), the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without a
 CUDA card it exits 2 and prints no result.
 """
@@ -259,15 +269,15 @@ def ptxas_entries(text):
 
 def sass_counts(path):
     """Hopper instructions in a built library's SASS (``cuobjdump -sass``):
-    HGMMA (wgmma), UTMALDG and UTMASTG (TMA loads and stores), SYNCS
-    (mbarrier operations)."""
+    HGMMA (wgmma), HMMA (mma.sync), UTMALDG and UTMASTG (TMA loads and
+    stores), SYNCS (mbarrier operations)."""
     from repro_torch.kernels import build
 
     sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", path],
                           capture_output=True, text=True,
                           check=True).stdout.splitlines()
     return {op: sum(op in ln for ln in sass)
-            for op in ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")}
+            for op in ("HGMMA", "HMMA", "UTMALDG", "UTMASTG", "SYNCS")}
 
 
 def paged_inputs(torch, rng, *, L, B, Hkv, G, D, bs, mb, num_blocks, lens,
@@ -871,93 +881,218 @@ def phase_wkv(torch, ops, ref, kernel):
             cases.append({"dtype": str(dtype).split(".")[-1], "B": B, "T": T,
                           "H": H, "hd": hd, "chunk": chunk, "max_err": err,
                           "state_err": serr, "atol": tol[0], "rtol": tol[1]})
-    # the prefill's shape: bf16 r/k/v, float32 decay, zero initial state
-    B, T, H, hd, L = WKV_SHAPE
-    r, k, v, lw, u, s0 = inputs(bf16, B, T, H, hd, 0.0)
-    y, s = torch.empty_like(r), torch.empty_like(s0)
+    return cases, wkv_timing(torch, ops, ref, kernel, gen), worst
 
-    def run_kernel():
-        code = kernel.wkv6_forward(r, k, v, lw, u, s0, y, s, L)
+
+def scan_times(torch, layers, kernel, wrapper, plain):
+    """Per-call times of a scan kernel over ``layers`` input sets, one a
+    layer as a prefill holds them (so at a real prefill shape each call's
+    inputs are cold in the 50 MB L2), each argument a function of the
+    layer: the raw kernel eagerly (``kernel_ms``, and again at the end) and
+    replayed from a CUDA graph of the layer loop (``graph_ms``: device time
+    without host dispatch); the host's time to issue the wrapper the model
+    calls (``host_ms``); the plain version on one layer."""
+    def loop(fn):
+        return lambda: [fn(layer) for layer in range(layers)]
+
+    t = {"kernel_ms": cuda_ms(loop(kernel), 20) / layers}
+    t["plain_ms"] = cuda_ms(lambda: plain(0), 5)
+    t["graph_ms"] = graph_ms(torch, loop(kernel), 10) / layers
+    t["host_ms"] = host_ms(torch, loop(wrapper), 5) / layers
+    t["kernel_ms_repeat"] = cuda_ms(loop(kernel), 20) / layers
+    return t
+
+
+WKV_LAYERS = 24  # rwkv6-1.6b
+
+
+def wkv_timing(torch, ops, ref, kernel, gen, shape=WKV_SHAPE):
+    """The WKV6 kernel at an rwkv6-1.6b prefill shape (``WKV_SHAPE`` by
+    default: bf16 r/k/v, float32 decay, zero initial state) over its 24
+    layers' input sets, beside the plain version and the bound; no
+    PyTorch call computes WKV6."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, T, H, hd, L = shape
+    n_l = WKV_LAYERS
+    r, k, v = (card_randn(torch, gen, (n_l, B, T, H, hd), bf16, 0.5)
+               for _ in range(3))
+    lw = -torch.exp(card_randn(torch, gen, (n_l, B, T, H, hd), f32) - 1.0)
+    u = card_randn(torch, gen, (H, hd), f32, 0.1)
+    s0 = torch.zeros((B, H, hd, hd), dtype=f32, device=DEVICE)
+    y = torch.empty_like(r)
+    s = torch.empty((n_l, B, H, hd, hd), dtype=f32, device=DEVICE)
+    # each layer's views, made once so a timed call issues only the launch
+    ins = list(zip(r, k, v, lw))
+    outs = list(zip(y, s))
+
+    def run_kernel(i):
+        code = kernel.wkv6_forward(*ins[i], u, s0, *outs[i], L)
         if code:
             raise RuntimeError(f"CUDA error {code}")
 
-    kernel_ms = cuda_ms(run_kernel, 50)
-    plain_ms = cuda_ms(lambda: ref.wkv_chunked_ref(r, k, v, lw, u, L, s0), 5)
-    kernel_ms_2 = cuda_ms(run_kernel, 50)
+    times = scan_times(
+        torch, n_l, run_kernel,
+        lambda i: ops.wkv(*ins[i], u, chunk=L, s0=s0),
+        lambda i: ref.wkv_chunked_ref(*ins[i], u, L, s0))
     n = B * T * H * hd
     bytes_moved = (3 * n * 2 + n * 4 + H * hd * 4  # r/k/v bf16, lw, u
                    + 2 * B * H * hd * hd * 4 + n * 2)  # s0, s; y bf16
     ops_count = B * T * H * (7 * L * hd + 4 * hd * hd)
     bms, by = bound_ms(bytes_moved, ops_count, H100_BF16_FLOPS)
-    return cases, {"config": "rwkv6-1.6b", "B": B, "T": T, "H": H, "hd": hd,
-                   "chunk": L, "dtype": "bfloat16", "kernel_ms": kernel_ms,
-                   "kernel_ms_repeat": kernel_ms_2, "plain_ms": plain_ms,
-                   "library_ms": None, "bound_ms": bms, "bound_by": by,
-                   "bytes": bytes_moved, "operations": ops_count}, worst
+    return {"config": "rwkv6-1.6b", "B": B, "T": T, "H": H, "hd": hd,
+            "chunk": L, "dtype": "bfloat16", "layers": n_l, **times,
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "bytes": bytes_moved, "operations": ops_count}
 
 
-def phase_ssd(torch, ops, ref, kernel):
-    """The SSD kernel vs ``ref.ssd_chunked_ref`` on the card (f32 and bf16
-    x/B/C; smoke and full-width shapes; a 37-token prompt as one chunk of
-    37; a non-zero initial state): y and the final state; then its time at
-    the zamba2-2.7b prefill shape."""
-    f32, bf16 = torch.float32, torch.bfloat16
-    gen = torch.Generator(device=DEVICE).manual_seed(6)
+def ssd_inputs(torch, gen, dtype, B, T, H, P, N, h0_scale):
+    """x, dt, A, B, C and h0 (None at scale 0) as the model makes them:
+    dt = softplus(. - 2), A in -[1, 16]."""
+    f32 = torch.float32
+    x = card_randn(torch, gen, (B, T, H, P), dtype)
+    dt = torch.nn.functional.softplus(
+        card_randn(torch, gen, (B, T, H), f32) - 2.0)
+    A = -(1.0 + 15.0 * torch.rand((H,), generator=gen, device=DEVICE))
+    Bm = card_randn(torch, gen, (B, T, N), dtype)
+    Cm = card_randn(torch, gen, (B, T, N), dtype)
+    h0 = (card_randn(torch, gen, (B, H, N, P), f32, h0_scale)
+          if h0_scale else None)
+    return x, dt, A, Bm, Cm, h0
 
-    def inputs(dtype, B, T, H, P, N, h0_scale):
-        x = card_randn(torch, gen, (B, T, H, P), dtype)
-        dt = torch.nn.functional.softplus(
-            card_randn(torch, gen, (B, T, H), f32) - 2.0)
-        A = -(1.0 + 15.0 * torch.rand((H,), generator=gen, device=DEVICE))
-        Bm = card_randn(torch, gen, (B, T, N), dtype)
-        Cm = card_randn(torch, gen, (B, T, N), dtype)
-        h0 = card_randn(torch, gen, (B, H, N, P), f32, h0_scale)
-        return x, dt, A, Bm, Cm, h0
 
-    cases, worst = [], 0.0
-    for dtype, tol in ((f32, SCAN_F32_TOL), (bf16, BF16_TOL)):
-        for shape in ((2, 96, 4, 16, 16, 16), (1, 37, 4, 16, 16, 128),
-                      SSD_SHAPE):
-            B, T, H, P, N, chunk = shape
-            x, dt, A, Bm, Cm, h0 = inputs(dtype, B, T, H, P, N, 0.1)
-            y, h = ops.ssd(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
-            py, ph = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, min(chunk, T), h0)
-            torch.cuda.synchronize()
-            err, ok = within(y, py, tol)
-            serr, sok = within(h, ph, SCAN_F32_TOL)
-            check(ok and sok, f"ssd {dtype} {shape}: y error {err}, state "
-                              f"error {serr}")
-            worst = max(worst, err, serr)
-            cases.append({"dtype": str(dtype).split(".")[-1], "B": B, "T": T,
-                          "H": H, "P": P, "N": N, "chunk": min(chunk, T),
-                          "max_err": err, "state_err": serr, "atol": tol[0],
-                          "rtol": tol[1]})
-    # the prefill's shape: bf16 x/B/C, float32 dt and A, no initial state
-    B, T, H, P, N, L = SSD_SHAPE
-    x, dt, A, Bm, Cm, _ = inputs(bf16, B, T, H, P, N, 0.0)
+# zamba2-2.7b's SSD prefill shapes, bf16 (B, T, H, P, N, L): a 384-token
+# prompt (three chunks), one full chunk, and a short prompt of 20 tokens
+# (one chunk of 20, the log-normal prompts' median)
+SSD_TIMED_SHAPES = (SSD_SHAPE, (1, 128, 80, 64, 64, 128),
+                    (1, 20, 80, 64, 64, 20))
+SSD_LAYERS = 54  # zamba2-2.7b's mamba layers
+
+
+def ssd_timing(torch, ops, ref, kernel, gen, shape):
+    """The SSD kernel at ``shape`` in bf16 (no initial state) over
+    zamba2-2.7b's 54 layers' input sets (at ``SSD_SHAPE`` 54 x 9.4 MB, cold
+    in L2 each call), held against the plain version on the first and last
+    layer, then timed beside it and the bound; no PyTorch call computes
+    it."""
+    B, T, H, P, N, L = shape
+    n_l = SSD_LAYERS
+    x, dt, A, Bm, Cm, _ = ssd_inputs(torch, gen, torch.bfloat16, n_l * B, T,
+                                     H, P, N, 0.0)
+    x, dt, Bm, Cm = (t.view(n_l, B, *t.shape[1:]) for t in (x, dt, Bm, Cm))
     y = torch.empty_like(x)
-    h = torch.empty((B, H, N, P), dtype=f32, device=DEVICE)
+    h = torch.empty((n_l, B, H, N, P), dtype=torch.float32, device=DEVICE)
+    # each layer's views, made once so a timed call issues only the launch
+    ins = [(xi, di, A, bi, ci) for xi, di, bi, ci in zip(x, dt, Bm, Cm)]
+    outs = list(zip(y, h))
 
-    def run_kernel():
-        code = kernel.ssd_forward(x, dt, A, Bm, Cm, None, y, h, L)
+    def run_kernel(i):
+        code = kernel.ssd_forward(*ins[i], None, *outs[i], L)
         if code:
             raise RuntimeError(f"CUDA error {code}")
 
-    kernel_ms = cuda_ms(run_kernel, 50)
-    plain_ms = cuda_ms(lambda: ref.ssd_chunked_ref(x, dt, A, Bm, Cm, L), 5)
-    kernel_ms_2 = cuda_ms(run_kernel, 50)
+    err = serr = 0.0
+    for i in (0, n_l - 1):
+        run_kernel(i)
+        py, ph = ref.ssd_chunked_ref(*ins[i], L)
+        torch.cuda.synchronize()
+        e, ok = within(y[i], py, BF16_TOL)
+        se, sok = within(h[i], ph, SCAN_F32_TOL)
+        check(ok and sok, f"ssd timing shape {shape} layer {i}: y error "
+                          f"{e}, state error {se}")
+        err, serr = max(err, e), max(serr, se)
+    times = scan_times(torch, n_l, run_kernel,
+                       lambda i: ops.ssd(*ins[i], chunk=L),
+                       lambda i: ref.ssd_chunked_ref(*ins[i], L))
     bytes_moved = (2 * B * T * H * P * 2  # x in, y out (bf16)
                    + B * T * H * 4 + H * 4  # dt, A
                    + 2 * B * T * N * 2  # B, C (bf16)
                    + B * H * N * P * 4)  # final state
     ops_count = 2 * B * T * H * (L * N + L * P + 2 * N * P)
     bms, by = bound_ms(bytes_moved, ops_count, H100_BF16_FLOPS)
-    return cases, {"config": "zamba2-2.7b", "B": B, "T": T, "H": H, "P": P,
-                   "N": N, "chunk": L, "dtype": "bfloat16",
-                   "kernel_ms": kernel_ms, "kernel_ms_repeat": kernel_ms_2,
-                   "plain_ms": plain_ms, "library_ms": None,
-                   "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
-                   "operations": ops_count}, worst
+    del x, dt, Bm, Cm, y, h, ins, outs
+    torch.cuda.empty_cache()
+    return {"config": "zamba2-2.7b", "B": B, "T": T, "H": H, "P": P, "N": N,
+            "chunk": L, "dtype": "bfloat16", "layers": n_l, **times,
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "bytes": bytes_moved, "operations": ops_count, "max_err": err,
+            "state_err": serr}
+
+
+# phase 5's cases, (B, T, H, P, N, chunk, h0 scale): the smoke and full
+# widths, a 37-token prompt as one chunk of 37; in bf16 besides T 1, 17 and
+# 37 as one chunk, T = L, 2L and 3L at L 128, with and without h0, and
+# every template of the bf16 body (P 16, 32 and 64, each with N up to 64
+# and up to 128)
+SSD_CASES = ((2, 96, 4, 16, 16, 16, 0.1), (1, 37, 4, 16, 16, 128, 0.1),
+             SSD_SHAPE + (0.1,))
+SSD_BF16_CASES = (
+    (1, 1, 80, 64, 64, 128, 0.0), (1, 1, 80, 64, 64, 128, 0.1),
+    (1, 17, 80, 64, 64, 128, 0.0), (1, 37, 80, 64, 64, 128, 0.1),
+    (1, 128, 80, 64, 64, 128, 0.0), (1, 256, 80, 64, 64, 128, 0.1),
+    SSD_SHAPE + (0.0,), (2, 128, 80, 64, 64, 128, 0.1),
+    (1, 200, 4, 64, 64, 40, 0.1), (2, 64, 8, 16, 16, 16, 0.0),
+    (1, 256, 8, 32, 32, 128, 0.1), (1, 128, 33, 16, 96, 128, 0.0),
+    (2, 128, 40, 32, 128, 128, 0.1), (1, 256, 8, 64, 128, 128, 0.0))
+
+
+def phase_ssd(torch, ops, ref, kernel, sass):
+    """The SSD kernel vs ``ref.ssd_chunked_ref`` on the card: y and the
+    final state for ``SSD_CASES`` in f32 and bf16 and ``SSD_BF16_CASES``;
+    at ``SSD_SHAPE`` two calls bit-equal; bf16 shapes the body refuses
+    raise with the launch count unchanged; then the times at
+    ``SSD_TIMED_SHAPES``.  Fails if the SSD library's SASS holds no HMMA
+    (tensor-core) instruction."""
+    check(sass["HMMA"] > 0, f"ssd library has no HMMA instruction: {sass}")
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    cases, worst = [], 0.0
+    runs = [(f32, c) for c in SSD_CASES] + [(bf16, c) for c in SSD_CASES]
+    runs += [(bf16, c) for c in SSD_BF16_CASES]
+    for dtype, (B, T, H, P, N, chunk, h0_scale) in runs:
+        tol = SCAN_F32_TOL if dtype == f32 else BF16_TOL
+        x, dt, A, Bm, Cm, h0 = ssd_inputs(torch, gen, dtype, B, T, H, P, N,
+                                          h0_scale)
+        before = ops.launches
+        y, h = ops.ssd(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+        L = min(chunk, T)
+        py, ph = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, L, h0)
+        torch.cuda.synchronize()
+        err, ok = within(y, py, tol)
+        serr, sok = within(h, ph, SCAN_F32_TOL)
+        name = f"ssd {dtype} {(B, T, H, P, N, chunk, h0_scale)}"
+        check(ops.launches == before + 1, f"{name}: not one launch")
+        check(ok and sok and bool(torch.isfinite(y).all()),
+              f"{name}: y error {err}, state error {serr}")
+        worst = max(worst, err, serr)
+        cases.append({"dtype": str(dtype).split(".")[-1], "B": B, "T": T,
+                      "H": H, "P": P, "N": N, "chunk": L, "h0": h0_scale,
+                      "max_err": err, "state_err": serr, "atol": tol[0],
+                      "rtol": tol[1]})
+    # two wrapper calls bit-equal at the prefill shape
+    B, T, H, P, N, L = SSD_SHAPE
+    x, dt, A, Bm, Cm, h0 = ssd_inputs(torch, gen, bf16, B, T, H, P, N, 0.1)
+    y1, h1 = ops.ssd(x, dt, A, Bm, Cm, chunk=L, h0=h0)
+    y2, h2 = ops.ssd(x, dt, A, Bm, Cm, chunk=L, h0=h0)
+    torch.cuda.synchronize()
+    check(torch.equal(y1, y2) and torch.equal(h1, h2),
+          "ssd: two calls on the same inputs differ")
+    # bf16 shapes the body refuses: N not a multiple of 16 or over 128, P
+    # not 16, 32 or 64
+    refused = []
+    for P_, N_ in ((64, 24), (24, 64), (64, 144), (128, 64), (48, 64)):
+        xr, dtr, Ar, Br, Cr, _ = ssd_inputs(torch, gen, bf16, 1, 16, 2, P_,
+                                            N_, 0.0)
+        before = ops.launches
+        try:
+            ops.ssd(xr, dtr, Ar, Br, Cr, chunk=16)
+        except ValueError as e:
+            refused.append({"P": P_, "N": N_, "error": str(e)})
+        else:
+            check(False, f"ssd bf16 P {P_} N {N_}: launched, not refused")
+        check(ops.launches == before, f"ssd bf16 P {P_} N {N_}: counted")
+    timings = [ssd_timing(torch, ops, ref, kernel, gen, shape)
+               for shape in SSD_TIMED_SHAPES]
+    return cases, refused, timings, worst
 
 
 def oracle_logits(torch, get_model, cfg, params, tokens):
@@ -1064,7 +1199,7 @@ def phase_hybrid_forward(torch, configs, get_model):
     block) on one prompt on the card, random weights from seed 0.  In f32
     cut to 12 layers, its last-position logits against ``oracle_logits``
     (no kernel) within ``HYBRID_F32_TOL``; in bf16 at the full 54 layers,
-    finite logits, timed cold and warm."""
+    finite logits; timed cold and three times warm (the median kept)."""
     records = []
     for dtype, cut, T in (("float32", {"n_layers": 12}, 256),
                           ("bfloat16", {}, 384)):
@@ -1079,7 +1214,7 @@ def phase_hybrid_forward(torch, configs, get_model):
         want = {"ssd": cfg.n_layers,
                 "flash_attention": cfg.n_layers // cfg.attn_every}
         seconds = []
-        for _ in range(2):  # cold, then warm
+        for _ in range(4):  # cold, then three warm
             zero_launches()
             t0 = time.perf_counter()
             with torch.no_grad():
@@ -1092,7 +1227,8 @@ def phase_hybrid_forward(torch, configs, get_model):
               f"zamba2 forward {dtype}: logits not finite or misshapen")
         rec = {"config": cfg.name, "dtype": dtype, "layers": cfg.n_layers,
                "T": T, "launches": launches, "seconds_cold": seconds[0],
-               "seconds_warm": seconds[1]}
+               "seconds_warm": sorted(seconds[1:])[1],
+               "seconds_warm_runs": seconds[1:]}
         if dtype == "float32":
             zero_launches()
             with torch.no_grad():
@@ -1571,13 +1707,14 @@ def main():
         for fut in [pool.submit(load) for load in loaders]:
             fut.result()
     flash_sass = sass_counts(build.build_log["flash_attention"]["path"])
+    ssd_sass = sass_counts(build.build_log["ssd"]["path"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {name: {
               "library": os.path.relpath(log["path"], ROOT),
               "seconds": log["seconds"],
               "entries": ptxas_entries(log["ptxas"])}
               for name, log in build.build_log.items()},
-          "flash_sass": flash_sass})
+          "flash_sass": flash_sass, "ssd_sass": ssd_sass})
 
     # 2. paged decode kernel vs plain
     cases, edges, timing, worst = phase_kernel(torch, ops, ref, kernel)
@@ -1592,9 +1729,10 @@ def main():
     wkv_cases, wkv_timing, wkv_worst = phase_wkv(torch, wkv_ops, wkv_ref,
                                                  wkv_kernel)
     emit({"phase": "wkv_kernel", "cases": wkv_cases, "timing": wkv_timing})
-    ssd_cases, ssd_timing, ssd_worst = phase_ssd(torch, ssd_ops, ssd_ref,
-                                                 ssd_kernel)
-    emit({"phase": "ssd_kernel", "cases": ssd_cases, "timing": ssd_timing})
+    ssd_cases, ssd_refused, ssd_timings, ssd_worst = phase_ssd(
+        torch, ssd_ops, ssd_ref, ssd_kernel, ssd_sass)
+    emit({"phase": "ssd_kernel", "sass": ssd_sass, "cases": ssd_cases,
+          "refused": ssd_refused, "timings": ssd_timings})
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1664,7 +1802,7 @@ def main():
                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
         if "graph_ms" in t:  # device time replayed from a CUDA graph
             rec.update(graph_ms=t["graph_ms"],
-                       library_graph_ms=t["library_graph_ms"])
+                       library_graph_ms=t.get("library_graph_ms"))
         return rec
 
     emit({"kernels": [
@@ -1684,7 +1822,7 @@ def main():
              flash_timing),
         line("ssd", "src/repro_torch/kernels/mamba2/csrc/ssd.cu",
              "src/repro/kernels/mamba2/kernel.py:61",
-             zamba["launches"]["ssd"], ssd_worst, ssd_timing),
+             zamba["launches"]["ssd"], ssd_worst, ssd_timings[0]),
         line("wkv6", "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
              "src/repro/kernels/rwkv6/kernel.py:60",
              rwkv["launches"]["wkv6"], wkv_worst, wkv_timing),

@@ -15,14 +15,14 @@ import threading
 import torch
 
 from . import ref
-from .kernel import ssd_forward
+from .kernel import MAX_CHUNK, check_bf16_shape, ssd_forward
 
 launches = 0  # kernel launches (CPU calls do not count)
 _count_lock = threading.Lock()
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-KERNEL_MAX_CHUNK = 128
-SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+KERNEL_MAX_CHUNK = MAX_CHUNK
+_REFUSED = 1  # cudaErrorInvalidValue: the entry point refused the shapes
 
 
 def _check(x, dt, A, Bm, Cm, h0):
@@ -62,15 +62,16 @@ def _launch(x, dt, A, Bm, Cm, h0, chunk):
                          f"{KERNEL_MAX_CHUNK} tokens, not {chunk}")
     B, T, H, P = x.shape
     N = Bm.shape[-1]
-    smem = 4 * (N * P + chunk * P + 2 * chunk * (N + 1) + chunk * chunk
-                + 2 * chunk)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"CUDA kernel keeps a chunk in shared memory: "
-                         f"N {N}, P {P} and chunk {chunk} need {smem} bytes, "
-                         f"over {SMEM_LIMIT}")
+    if x.dtype == torch.bfloat16:
+        check_bf16_shape(P, N, chunk)
     y = torch.empty_like(x)
     h = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
     err = ssd_forward(x, dt, A, Bm, Cm, h0, y, h, chunk)
+    if err == _REFUSED:
+        raise ValueError(
+            f"the SSD kernel refused N {N}, P {P}, chunk {chunk} in "
+            f"{x.dtype}: the float32 body keeps a chunk in 227 KB of shared "
+            f"memory; the bf16 body copies x, B and C in 16-byte pieces")
     if err:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
     return y, h

@@ -277,23 +277,50 @@ def test_cuda_wkv_matches_plain(cuda, dtype, B, T, H, hd, chunk):
     _close(s, ps, F32_SCAN_TOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,B,T,H,P,N,chunk", [
-    ("float32", 2, 64, 3, 8, 4, 16), ("float32", 1, 37, 4, 16, 16, 37),
-    ("float32", 1, 384, 80, 64, 64, 128), ("bfloat16", 1, 384, 80, 64, 64, 128),
-    ("bfloat16", 2, 96, 4, 16, 16, 16)])
-def test_cuda_ssd_matches_plain(cuda, dtype, B, T, H, P, N, chunk):
-    """The SSD kernel vs ``ref.ssd_chunked_ref``: y and the final state,
-    from a non-zero initial state, chunks of any length up to 128 (a
-    37-token prompt runs as one chunk of 37)."""
+# (dtype, B, T, H, P, N, chunk, h0 scale): float32 at smoke and full
+# widths; bf16 at T 1, 17 and 37 as one chunk, T = L, 2L and 3L at L 128,
+# a ragged chunk of 40 over five chunks, h0 absent and non-zero, and every
+# template of the bf16 body: P 16, 32 and 64, each with N up to 64 and up
+# to 128 ((N, P) = (16, 16), (32, 32), (64, 64), (96, 16), (128, 32),
+# (128, 64))
+SSD_CASES = [
+    ("float32", 2, 64, 3, 8, 4, 16, 0.1),
+    ("float32", 1, 37, 4, 16, 16, 37, 0.1),
+    ("float32", 1, 384, 80, 64, 64, 128, 0.1),
+    ("bfloat16", 1, 384, 80, 64, 64, 128, 0.1),
+    ("bfloat16", 2, 96, 4, 16, 16, 16, 0.1),
+    ("bfloat16", 1, 1, 80, 64, 64, 128, 0.0),
+    ("bfloat16", 1, 17, 80, 64, 64, 128, 0.1),
+    ("bfloat16", 1, 37, 80, 64, 64, 128, 0.0),
+    ("bfloat16", 1, 128, 80, 64, 64, 128, 0.0),
+    ("bfloat16", 1, 256, 80, 64, 64, 128, 0.1),
+    ("bfloat16", 1, 384, 80, 64, 64, 128, 0.0),
+    ("bfloat16", 1, 200, 4, 64, 64, 40, 0.1),
+    ("bfloat16", 2, 128, 80, 64, 64, 128, 0.0),
+    ("bfloat16", 1, 256, 8, 32, 32, 128, 0.1),
+    ("bfloat16", 1, 128, 33, 16, 96, 128, 0.0),
+    ("bfloat16", 2, 128, 40, 32, 128, 128, 0.1),
+    ("bfloat16", 1, 256, 8, 64, 128, 128, 0.0)]
+
+
+def _ssd_inputs(seed, dtype, B, T, H, P, N, h0_scale):
     dt = getattr(torch, dtype)
     f32 = torch.float32
     x, dts, A, Bm, Cm, h0 = _scan_inputs(
-        12, [(B, T, H, P), (B, T, H), (H,), (B, T, N), (B, T, N),
-             (B, H, N, P)], [dt, f32, f32, dt, dt, f32])
+        seed, [(B, T, H, P), (B, T, H), (H,), (B, T, N), (B, T, N),
+               (B, H, N, P)], [dt, f32, f32, dt, dt, f32])
     dts = torch.nn.functional.softplus(dts - 2.0)
     A = -torch.exp(A)
-    h0 = h0 * 0.1
+    return x, dts, A, Bm, Cm, h0 * h0_scale if h0_scale else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,T,H,P,N,chunk,h0_scale", SSD_CASES)
+def test_cuda_ssd_matches_plain(cuda, dtype, B, T, H, P, N, chunk, h0_scale):
+    """The SSD kernel vs ``ref.ssd_chunked_ref``: y and the final state,
+    with and without an initial state, chunks of any length up to 128 (a
+    37-token prompt runs as one chunk of 37)."""
+    x, dts, A, Bm, Cm, h0 = _ssd_inputs(12, dtype, B, T, H, P, N, h0_scale)
     before = ssd_ops.launches
     y, h = ssd_ops.ssd(x, dts, A, Bm, Cm, chunk=chunk, h0=h0)
     torch.cuda.synchronize()
@@ -301,6 +328,23 @@ def test_cuda_ssd_matches_plain(cuda, dtype, B, T, H, P, N, chunk):
     py, ph = ssd_ref.ssd_chunked_ref(x, dts, A, Bm, Cm, min(chunk, T), h0)
     _close(y, py, F32_SCAN_TOL if dtype == "float32" else BF16_TOL)
     _close(h, ph, F32_SCAN_TOL)
+    assert bool(torch.isfinite(y).all())
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_bf16_two_calls_bit_equal(cuda):
+    """The bf16 body at zamba2-2.7b's prefill shape with an initial state:
+    within the limits, and two calls on the same inputs bit-equal."""
+    x, dts, A, Bm, Cm, h0 = _ssd_inputs(13, "bfloat16", 1, 384, 80, 64, 64,
+                                        0.1)
+    y1, h1 = ssd_ops.ssd(x, dts, A, Bm, Cm, chunk=128, h0=h0)
+    y2, h2 = ssd_ops.ssd(x, dts, A, Bm, Cm, chunk=128, h0=h0)
+    torch.cuda.synchronize()
+    py, ph = ssd_ref.ssd_chunked_ref(x, dts, A, Bm, Cm, 128, h0)
+    _close(y1, py, BF16_TOL)
+    _close(h1, ph, F32_SCAN_TOL)
+    assert torch.equal(y1, y2)
+    assert torch.equal(h1, h2)
 
 
 @pytest.mark.cuda
@@ -316,6 +360,11 @@ def test_cuda_scan_wrappers_reject_what_the_kernels_cannot_take(cuda):
         ssd_ops.ssd(x[:, :200].contiguous(), dts[:, :200].contiguous(), A,
                     Bm[:, :200].contiguous(), Cm[:, :200].contiguous(),
                     chunk=128)
+    for P, N in ((64, 24), (24, 64), (64, 144), (128, 64), (48, 64)):
+        xb, db, Ab, Bb, Cb, _ = _ssd_inputs(3, "bfloat16", 1, 16, 2, P, N,
+                                            0.0)
+        with pytest.raises(ValueError, match="bf16 SSD kernel takes"):
+            ssd_ops.ssd(xb, db, Ab, Bb, Cb, chunk=16)
     assert ssd_ops.launches == before
     r, lw, u = _scan_inputs(2, [(1, 8, 2, 16), (1, 8, 2, 16), (2, 16)],
                             [torch.float16, f32, f32])

@@ -1,7 +1,8 @@
 """Guards of the PyTorch port: it and its scripts for the card import
 neither JAX nor the JAX package, its copies of the JAX-free middleware
 stay equal to their originals up to the package name in import lines, and
-every attention config it runs by default fits both attention kernels."""
+every attention config it runs by default fits both attention kernels,
+and every hybrid one the SSD kernel."""
 import ast
 import os
 import pathlib
@@ -11,7 +12,7 @@ import sys
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -35,7 +36,8 @@ def _imported_modules(path):
 
 @pytest.mark.parametrize("path", sorted(
     [*PORT.rglob("*.py"), ROOT / "chip_smoke.py", ROOT / "bench_flash.py",
-     ROOT / "bench_decode.py", ROOT / "profile_engine.py",
+     ROOT / "bench_decode.py", ROOT / "bench_ssd.py",
+     ROOT / "profile_engine.py",
      ROOT / "profile_train.py"]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_no_reference(path):
@@ -104,3 +106,20 @@ def test_launched_configs_fit_both_attention_kernels(label, cfg):
     assert cfg.head_dim in decode_ops.KERNEL_HEAD_DIMS, label
     assert cfg.head_dim in flash_ops.KERNEL_HEAD_DIMS, label
     assert cfg.n_heads // cfg.n_kv_heads <= decode_ops.KERNEL_MAX_GROUP, label
+
+
+HYBRID = [(label, cfg) for label, cfg in LAUNCHED if cfg.family == "hybrid"]
+
+
+@pytest.mark.parametrize("label,cfg", HYBRID, ids=[c[0] for c in HYBRID])
+def test_launched_hybrid_configs_fit_the_ssd_kernel(label, cfg):
+    """Every hybrid config the launchers or ``chip_smoke.py`` run (the
+    smoke config and zamba2-2.7b's full one) fits the bf16 SSD body's
+    (N, P, chunk) limits (``check_bf16_shape`` raises where it refuses)."""
+    from repro_torch.kernels.mamba2 import kernel, ops
+    from repro_torch.models.mamba2 import ssm_dims
+
+    _, H, N, _ = ssm_dims(cfg)
+    P, L = cfg.ssm_head_dim, cfg.ssm_chunk
+    assert L <= ops.KERNEL_MAX_CHUNK, label
+    kernel.check_bf16_shape(P, N, L)
