@@ -8,9 +8,11 @@ Prints one JSON line for each shape, as ``chip_smoke.py`` phases 4 and 5
 take them (each kernel first held against its plain version): the SSD at
 zamba2-2.7b's prefill shapes (``SSD_TIMED_SHAPES``: B 1, H 80, P = N = 64,
 T 384 in three chunks of 128, T 128, and a 20-token prompt as one chunk of
-20; bf16, no initial state), then WKV6 at rwkv6-1.6b's (``WKV_SHAPE``),
-each over its model's layers' input sets (54 and 24), so a call's inputs
-are cold in L2 as a prefill meets them.  Each line holds the kernel's time
+20; bf16, no initial state), then WKV6 at rwkv6-1.6b's
+(``WKV_TIMED_SHAPES``: B 1, H 32, hd 64, T 256 in eight chunks of 32 and a
+20-token prompt as one chunk of 20), each over its model's layers' input
+sets (54 and 24), so a call's inputs are cold in L2 as a prefill meets
+them.  Each line holds the kernel's time
 a call eagerly and replayed from a CUDA graph of the layer loop
 (``graph_ms``, device time without host dispatch), the host's time to
 issue the wrapper (``host_ms``), the plain version's time and the bound;
@@ -120,9 +122,10 @@ def main(argv=None):
         for shape in cs.SSD_TIMED_SHAPES:
             cs.emit({"kernel": "ssd", "tree": tree,
                      **cs.ssd_timing(torch, ops, ref, kernel, gen, shape)})
-        cs.emit({"kernel": "wkv6", "tree": tree, **cs.wkv_timing(
-            torch, wkv_ops, wkv_ref, wkv_kernel,
-            torch.Generator(device=cs.DEVICE).manual_seed(5))})
+        wgen = torch.Generator(device=cs.DEVICE).manual_seed(5)
+        for shape in cs.WKV_TIMED_SHAPES:
+            cs.emit({"kernel": "wkv6", "tree": tree, **cs.wkv_timing(
+                torch, wkv_ops, wkv_ref, wkv_kernel, wgen, shape)})
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())

@@ -13,8 +13,8 @@ Phases, each printing one JSON line:
    (``kernels/rwkv6/csrc``) and the chunked Mamba2 SSD
    (``kernels/mamba2/csrc``); ptxas registers and spill bytes of every
    kernel template, and the counts of wgmma (HGMMA), mma.sync (HMMA), TMA
-   (UTMALDG, UTMASTG) and mbarrier (SYNCS) instructions in the flash and
-   SSD libraries' SASS (``cuobjdump -sass``).
+   (UTMALDG, UTMASTG) and mbarrier (SYNCS) instructions in the flash, WKV6
+   and SSD libraries' SASS (``cuobjdump -sass``).
 2. paged decode kernel vs plain: against ``ref.paged_decode_ref`` on the
    card at every head dim (8, 16, 32, 64, 80, 128; the heads of the
    configs that run each, ``DECODE_HEADS``) in f32 and bf16 (ragged
@@ -37,13 +37,19 @@ Phases, each printing one JSON line:
    and at llama3.2-3b's heads, beside the plain version, SDPA (GQA,
    length mask) and the bound.
 4. WKV6 kernel vs plain: y and the final state against
-   ``ref.wkv_chunked_ref`` (f32 and bf16 r/k/v; T 37, 200 and 256; a
-   non-zero initial state; f32 within 1e-4 relative, the reference's own
-   limit; bf16 y as above), then its time at the rwkv6-1.6b prefill shape
-   (T 256, H 32, hd 64, chunk 32) over its 24 layers' input sets, cold in
-   L2 as a prefill meets them: eager, replayed from a CUDA graph of the
-   layer loop (``graph_ms``) and the wrapper's host time (``host_ms``); no
-   PyTorch call computes WKV6.
+   ``ref.wkv_chunked_ref`` (``WKV_CASES`` in f32 and bf16: T 37 in chunks
+   of 8, 200 and 256; a non-zero initial state; f32 within 1e-4
+   relative, the reference's own limit; bf16 y as above); in bf16 also
+   ``WKV_BF16_CASES``: T 1, 17, 20 and 24 as one chunk, T = L, 2L and 3L, s0
+   absent and set, a decay down to -e^3 a token, head_dim 16, 32 and 64,
+   chunks of 8 and 32; two calls bit-equal at the prefill shape; bf16
+   shapes the body refuses raising with the launch count unchanged; fails
+   if the WKV6 SASS holds no HMMA.  Then its times at rwkv6-1.6b's
+   prefill shapes (``WKV_TIMED_SHAPES``: T 256 in chunks of 32, and a
+   20-token prompt as one chunk of 20; H 32, hd 64) over its 24 layers'
+   input sets, cold in L2 as a prefill meets them: eager, replayed from a
+   CUDA graph of the layer loop (``graph_ms``) and the wrapper's host time
+   (``host_ms``); no PyTorch call computes WKV6.
 5. SSD kernel vs plain: the same for ``ref.ssd_chunked_ref`` (``SSD_CASES``
    in f32 and bf16: T 96, 37 as one chunk of 37, and 384; in bf16 also
    ``SSD_BF16_CASES``: T 1, 17 and 37 as one chunk, T = L, 2L, 3L at L
@@ -846,42 +852,110 @@ def phase_decode(torch, ops, ref, kernel):
     return cases, zamba, llama, worst
 
 
-def phase_wkv(torch, ops, ref, kernel):
-    """The WKV6 kernel vs ``ref.wkv_chunked_ref`` on the card (f32 and bf16
-    r/k/v; smoke and full-width shapes; a T that is no multiple of the
-    chunk; a non-zero initial state): y and the final state; then its time
-    at the rwkv6-1.6b prefill shape."""
+def wkv_inputs(torch, gen, dtype, B, T, H, hd, s0_scale, strong=False):
+    """r, k, v (0.5 x N(0, 1)), lw, u and s0 (None at scale 0): lw =
+    -exp(N(0, 1) - 1) as a model's decay; ``strong``: -e^x for x uniform
+    in [-3, 3], so a token can decay by e^-20 and the cumulative decay
+    reaches the hundreds within a chunk."""
+    f32 = torch.float32
+    r, k, v = (card_randn(torch, gen, (B, T, H, hd), dtype, 0.5)
+               for _ in range(3))
+    if strong:
+        lw = -torch.exp(6.0 * torch.rand((B, T, H, hd), generator=gen,
+                                         device=DEVICE) - 3.0)
+    else:
+        lw = -torch.exp(card_randn(torch, gen, (B, T, H, hd), f32) - 1.0)
+    u = card_randn(torch, gen, (H, hd), f32, 0.1)
+    s0 = (card_randn(torch, gen, (B, H, hd, hd), f32, s0_scale)
+          if s0_scale else None)
+    return r, k, v, lw, u, s0
+
+
+# phase 4's cases, (B, T, H, hd, chunk, s0 scale): the smoke width with a T
+# that is no multiple of the chunk, and the full width; in bf16 besides
+# (with a last flag, the strong decay) T 1, 17, 20 and 24 as one chunk,
+# T = L, 2L and 3L, s0 absent and set, head_dim 32
+WKV_CASES = ((2, 37, 4, 16, 8, 0.1), (1, 200, 32, 64, 32, 0.1),
+             WKV_SHAPE + (0.1,))
+WKV_BF16_CASES = (
+    (1, 1, 32, 64, 32, 0.0, False), (1, 1, 32, 64, 32, 0.1, False),
+    (1, 17, 32, 64, 32, 0.1, False), (1, 20, 32, 64, 32, 0.0, False),
+    (1, 32, 32, 64, 32, 0.1, False), (1, 64, 32, 64, 32, 0.0, False),
+    (1, 96, 32, 64, 32, 0.1, False), WKV_SHAPE + (0.0, False),
+    WKV_SHAPE + (0.1, True), (2, 128, 32, 64, 32, 0.1, False),
+    (2, 70, 4, 16, 8, 0.0, False), (1, 96, 8, 32, 32, 0.1, True),
+    (1, 24, 8, 64, 32, 0.0, False))
+
+
+def phase_wkv(torch, ops, ref, kernel, sass):
+    """The WKV6 kernel vs ``ref.wkv_chunked_ref`` on the card: y and the
+    final state for ``WKV_CASES`` in f32 and bf16 and ``WKV_BF16_CASES``;
+    at ``WKV_SHAPE`` two calls bit-equal; bf16 shapes the body refuses
+    raise with the launch count unchanged; then the times at
+    ``WKV_TIMED_SHAPES``.  Fails if the WKV6 library's SASS holds no HMMA
+    (tensor-core) instruction."""
+    check(sass["HMMA"] > 0, f"wkv6 library has no HMMA instruction: {sass}")
     f32, bf16 = torch.float32, torch.bfloat16
     gen = torch.Generator(device=DEVICE).manual_seed(5)
-
-    def inputs(dtype, B, T, H, hd, s0_scale):
-        r, k, v = (card_randn(torch, gen, (B, T, H, hd), dtype, 0.5)
-                   for _ in range(3))
-        lw = -torch.exp(card_randn(torch, gen, (B, T, H, hd), f32) - 1.0)
-        u = card_randn(torch, gen, (H, hd), f32, 0.1)
-        s0 = card_randn(torch, gen, (B, H, hd, hd), f32, s0_scale)
-        return r, k, v, lw, u, s0
-
+    runs = [(f32, c + (False,)) for c in WKV_CASES]
+    runs += [(bf16, c + (False,)) for c in WKV_CASES]
+    runs += [(bf16, c) for c in WKV_BF16_CASES]
     cases, worst = [], 0.0
-    for dtype, tol in ((f32, SCAN_F32_TOL), (bf16, BF16_TOL)):
-        for B, T, H, hd, chunk in ((2, 37, 4, 16, 8), (1, 200, 32, 64, 32),
-                                   WKV_SHAPE):
-            r, k, v, lw, u, s0 = inputs(dtype, B, T, H, hd, 0.1)
-            y, s = ops.wkv(r, k, v, lw, u, chunk=chunk, s0=s0)
-            pad = -T % chunk
-            padded = [torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
-                      for t in (r, k, v, lw)]
-            py, ps = ref.wkv_chunked_ref(*padded, u, chunk, s0)
-            torch.cuda.synchronize()
-            err, ok = within(y, py[:, :T], tol)
-            serr, sok = within(s, ps, SCAN_F32_TOL)
-            check(ok and sok, f"wkv {dtype} {(B, T, H, hd, chunk)}: y error "
-                              f"{err}, state error {serr}")
-            worst = max(worst, err, serr)
-            cases.append({"dtype": str(dtype).split(".")[-1], "B": B, "T": T,
-                          "H": H, "hd": hd, "chunk": chunk, "max_err": err,
-                          "state_err": serr, "atol": tol[0], "rtol": tol[1]})
-    return cases, wkv_timing(torch, ops, ref, kernel, gen), worst
+    for dtype, (B, T, H, hd, chunk, s0_scale, strong) in runs:
+        tol = SCAN_F32_TOL if dtype == f32 else BF16_TOL
+        r, k, v, lw, u, s0 = wkv_inputs(torch, gen, dtype, B, T, H, hd,
+                                        s0_scale, strong)
+        before = ops.launches
+        y, s = ops.wkv(r, k, v, lw, u, chunk=chunk, s0=s0)
+        L = min(chunk, T)
+        pad = -T % L
+        padded = [torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                  for t in (r, k, v, lw)]
+        py, ps = ref.wkv_chunked_ref(*padded, u, L, s0)
+        torch.cuda.synchronize()
+        err, ok = within(y, py[:, :T], tol)
+        serr, sok = within(s, ps, SCAN_F32_TOL)
+        name = f"wkv {dtype} {(B, T, H, hd, chunk, s0_scale, strong)}"
+        check(ops.launches == before + 1, f"{name}: not one launch")
+        check(ok and sok and bool(torch.isfinite(y).all())
+              and bool(torch.isfinite(s).all()),
+              f"{name}: y error {err}, state error {serr}")
+        worst = max(worst, err, serr)
+        cases.append({"dtype": str(dtype).split(".")[-1], "B": B, "T": T,
+                      "H": H, "hd": hd, "chunk": L, "s0": s0_scale,
+                      "strong_decay": strong, "max_err": err,
+                      "state_err": serr, "atol": tol[0], "rtol": tol[1]})
+    # two wrapper calls bit-equal at the prefill shape
+    B, T, H, hd, L = WKV_SHAPE
+    r, k, v, lw, u, s0 = wkv_inputs(torch, gen, bf16, B, T, H, hd, 0.1)
+    y1, s1 = ops.wkv(r, k, v, lw, u, chunk=L, s0=s0)
+    y2, s2 = ops.wkv(r, k, v, lw, u, chunk=L, s0=s0)
+    torch.cuda.synchronize()
+    check(torch.equal(y1, y2) and torch.equal(s1, s2),
+          "wkv: two calls on the same inputs differ")
+    # bf16 shapes the body refuses: head_dim not 16, 32 or 64, a chunk over
+    # 32, r not on a 16-byte boundary
+    refused = []
+    for hd_, chunk_, shift in ((24, 8, 0), (48, 8, 0), (128, 8, 0),
+                               (64, 64, 0), (64, 32, 1)):
+        r, k, v, lw, u, _ = wkv_inputs(torch, gen, bf16, 1, 128, 2, hd_, 0.0)
+        if shift:  # a contiguous view one element past an aligned start
+            flat = torch.empty(r.numel() + shift, dtype=bf16, device=DEVICE)
+            r = flat[shift:].view(r.shape).copy_(r)
+        before = ops.launches
+        try:
+            ops.wkv(r, k, v, lw, u, chunk=chunk_)
+        except ValueError as e:
+            refused.append({"hd": hd_, "chunk": chunk_, "shift": shift,
+                            "error": str(e)})
+        else:
+            check(False, f"wkv bf16 hd {hd_} chunk {chunk_} shift {shift}: "
+                         "launched, not refused")
+        check(ops.launches == before,
+              f"wkv bf16 hd {hd_} chunk {chunk_}: counted")
+    timings = [wkv_timing(torch, ops, ref, kernel, gen, shape)
+               for shape in WKV_TIMED_SHAPES]
+    return cases, refused, timings, worst
 
 
 def scan_times(torch, layers, kernel, wrapper, plain):
@@ -904,13 +978,18 @@ def scan_times(torch, layers, kernel, wrapper, plain):
 
 
 WKV_LAYERS = 24  # rwkv6-1.6b
+# rwkv6-1.6b's WKV6 prefill shapes, bf16 (B, T, H, hd, chunk): a 256-token
+# prompt (eight chunks) and a short prompt of 20 tokens (one chunk of 20,
+# the log-normal prompts' median)
+WKV_TIMED_SHAPES = (WKV_SHAPE, (1, 20, 32, 64, 20))
 
 
 def wkv_timing(torch, ops, ref, kernel, gen, shape=WKV_SHAPE):
     """The WKV6 kernel at an rwkv6-1.6b prefill shape (``WKV_SHAPE`` by
     default: bf16 r/k/v, float32 decay, zero initial state) over its 24
-    layers' input sets, beside the plain version and the bound; no
-    PyTorch call computes WKV6."""
+    layers' input sets (at ``WKV_SHAPE`` 24 x 6.3 MB, cold in L2 each
+    call), held against the plain version on the first and last layer,
+    then timed beside it and the bound; no PyTorch call computes WKV6."""
     f32, bf16 = torch.float32, torch.bfloat16
     B, T, H, hd, L = shape
     n_l = WKV_LAYERS
@@ -930,6 +1009,16 @@ def wkv_timing(torch, ops, ref, kernel, gen, shape=WKV_SHAPE):
         if code:
             raise RuntimeError(f"CUDA error {code}")
 
+    err = serr = 0.0
+    for i in (0, n_l - 1):
+        run_kernel(i)
+        py, ps = ref.wkv_chunked_ref(*ins[i], u, L, s0)
+        torch.cuda.synchronize()
+        e, ok = within(y[i], py, BF16_TOL)
+        se, sok = within(s[i], ps, SCAN_F32_TOL)
+        check(ok and sok, f"wkv timing shape {shape} layer {i}: y error "
+                          f"{e}, state error {se}")
+        err, serr = max(err, e), max(serr, se)
     times = scan_times(
         torch, n_l, run_kernel,
         lambda i: ops.wkv(*ins[i], u, chunk=L, s0=s0),
@@ -939,10 +1028,13 @@ def wkv_timing(torch, ops, ref, kernel, gen, shape=WKV_SHAPE):
                    + 2 * B * H * hd * hd * 4 + n * 2)  # s0, s; y bf16
     ops_count = B * T * H * (7 * L * hd + 4 * hd * hd)
     bms, by = bound_ms(bytes_moved, ops_count, H100_BF16_FLOPS)
+    del r, k, v, lw, y, s, ins, outs
+    torch.cuda.empty_cache()
     return {"config": "rwkv6-1.6b", "B": B, "T": T, "H": H, "hd": hd,
             "chunk": L, "dtype": "bfloat16", "layers": n_l, **times,
             "library_ms": None, "bound_ms": bms, "bound_by": by,
-            "bytes": bytes_moved, "operations": ops_count}
+            "bytes": bytes_moved, "operations": ops_count, "max_err": err,
+            "state_err": serr}
 
 
 def ssd_inputs(torch, gen, dtype, B, T, H, P, N, h0_scale):
@@ -1707,6 +1799,7 @@ def main():
         for fut in [pool.submit(load) for load in loaders]:
             fut.result()
     flash_sass = sass_counts(build.build_log["flash_attention"]["path"])
+    wkv_sass = sass_counts(build.build_log["wkv6"]["path"])
     ssd_sass = sass_counts(build.build_log["ssd"]["path"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {name: {
@@ -1714,7 +1807,8 @@ def main():
               "seconds": log["seconds"],
               "entries": ptxas_entries(log["ptxas"])}
               for name, log in build.build_log.items()},
-          "flash_sass": flash_sass, "ssd_sass": ssd_sass})
+          "flash_sass": flash_sass, "wkv_sass": wkv_sass,
+          "ssd_sass": ssd_sass})
 
     # 2. paged decode kernel vs plain
     cases, edges, timing, worst = phase_kernel(torch, ops, ref, kernel)
@@ -1726,9 +1820,10 @@ def main():
         torch, ops, ref, kernel)
     emit({"phase": "decode_kernel", "cases": dec_cases,
           "timing": dec_timing, "timing_llama_heads": dec_llama})
-    wkv_cases, wkv_timing, wkv_worst = phase_wkv(torch, wkv_ops, wkv_ref,
-                                                 wkv_kernel)
-    emit({"phase": "wkv_kernel", "cases": wkv_cases, "timing": wkv_timing})
+    wkv_cases, wkv_refused, wkv_timings, wkv_worst = phase_wkv(
+        torch, wkv_ops, wkv_ref, wkv_kernel, wkv_sass)
+    emit({"phase": "wkv_kernel", "sass": wkv_sass, "cases": wkv_cases,
+          "refused": wkv_refused, "timings": wkv_timings})
     ssd_cases, ssd_refused, ssd_timings, ssd_worst = phase_ssd(
         torch, ssd_ops, ssd_ref, ssd_kernel, ssd_sass)
     emit({"phase": "ssd_kernel", "sass": ssd_sass, "cases": ssd_cases,
@@ -1825,7 +1920,9 @@ def main():
              zamba["launches"]["ssd"], ssd_worst, ssd_timings[0]),
         line("wkv6", "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
              "src/repro/kernels/rwkv6/kernel.py:60",
-             rwkv["launches"]["wkv6"], wkv_worst, wkv_timing),
+             rwkv["launches"]["wkv6"],
+             max([wkv_worst] + [t["max_err"] for t in wkv_timings]),
+             wkv_timings[0]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,13 +16,13 @@ import torch
 import torch.nn.functional as F
 
 from . import ref
-from .kernel import wkv6_forward
+from .kernel import check_bf16_shape, check_f32_shape, wkv6_forward
 
 launches = 0  # kernel launches (CPU calls do not count)
 _count_lock = threading.Lock()
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+_REFUSED = 1  # cudaErrorInvalidValue: the entry point refused the shapes
 
 
 def _check(r, k, v, lw, u, s0):
@@ -54,14 +54,19 @@ def _launch(r, k, v, lw, u, s0, chunk):
     if r.dtype not in KERNEL_DTYPES:
         raise TypeError(f"CUDA kernel takes {KERNEL_DTYPES}, not {r.dtype}")
     B, T, H, hd = r.shape
-    smem = 4 * (hd * hd + 4 * chunk * (hd + 1) + chunk * chunk)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"CUDA kernel keeps a chunk in shared memory: "
-                         f"head_dim {hd} and chunk {chunk} need {smem} "
-                         f"bytes, over {SMEM_LIMIT}")
+    if r.dtype == torch.bfloat16:
+        check_bf16_shape(hd, chunk)
+    else:
+        check_f32_shape(hd, chunk)
     y = torch.empty_like(r)
     s = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     err = wkv6_forward(r, k, v, lw, u, s0, y, s, chunk)
+    if err == _REFUSED:
+        raise ValueError(
+            f"the WKV6 kernel refused B {B}, head_dim {hd}, chunk {chunk} "
+            f"in {r.dtype}: B is at most 65535, and the bf16 body copies "
+            f"r, k, v and lw in 16-byte pieces, so each must start on a "
+            f"16-byte boundary")
     if err:
         raise RuntimeError(f"wkv kernel launch failed: CUDA error {err}")
     return y, s

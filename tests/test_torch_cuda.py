@@ -277,6 +277,87 @@ def test_cuda_wkv_matches_plain(cuda, dtype, B, T, H, hd, chunk):
     _close(s, ps, F32_SCAN_TOL)
 
 
+def _wkv_inputs(seed, dtype, B, T, H, hd, s0_scale, strong):
+    """chip_smoke.py's recipe: r/k/v 0.5 N(0, 1), lw = -exp(N(0, 1) - 1)
+    or, ``strong``, -e^x for x uniform in [-3, 3] (a token can decay by
+    e^-20), u 0.1 N(0, 1), s0 ``s0_scale`` N(0, 1) or None."""
+    rng = np.random.RandomState(seed)
+    dt = getattr(torch, dtype)
+    shape = (B, T, H, hd)
+    r, k, v = (torch.from_numpy(0.5 * rng.randn(*shape).astype(np.float32))
+               .cuda().to(dt) for _ in range(3))
+    x = (rng.uniform(-3.0, 3.0, shape) if strong
+         else rng.randn(*shape) - 1.0)
+    lw = torch.from_numpy(-np.exp(x).astype(np.float32)).cuda()
+    u = torch.from_numpy(0.1 * rng.randn(H, hd).astype(np.float32)).cuda()
+    s0 = (torch.from_numpy(s0_scale * rng.randn(B, H, hd, hd)
+                           .astype(np.float32)).cuda() if s0_scale else None)
+    return r, k, v, lw, u, s0
+
+
+# the bf16 body's cases (B, T, H, hd, chunk, s0 scale, strong decay): T 1,
+# 17, 20 and 24 as one chunk, T = L, 2L and 3L, s0 absent and set, the
+# strong decay, head_dim 16, 32 and 64
+WKV_BF16_CASES = [
+    (1, 1, 32, 64, 32, 0.0, False), (1, 17, 32, 64, 32, 0.1, False),
+    (1, 20, 32, 64, 32, 0.0, False), (1, 24, 8, 64, 32, 0.1, False),
+    (1, 32, 32, 64, 32, 0.1, False), (1, 64, 32, 64, 32, 0.0, False),
+    (1, 96, 32, 64, 32, 0.1, False), (1, 256, 32, 64, 32, 0.0, False),
+    (1, 256, 32, 64, 32, 0.1, True), (2, 128, 32, 64, 32, 0.1, False),
+    (2, 70, 4, 16, 8, 0.0, False), (1, 96, 8, 32, 32, 0.1, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hd,chunk,s0_scale,strong", WKV_BF16_CASES)
+def test_cuda_wkv_bf16_body_matches_plain(cuda, B, T, H, hd, chunk, s0_scale,
+                                          strong):
+    """The bf16 WKV6 body vs ``ref.wkv_chunked_ref`` on the same padded
+    inputs: y within bf16's rounding, the final state within 1e-4, no
+    non-finite value, one launch."""
+    r, k, v, lw, u, s0 = _wkv_inputs(14, "bfloat16", B, T, H, hd, s0_scale,
+                                     strong)
+    before = wkv_ops.launches
+    y, s = wkv_ops.wkv(r, k, v, lw, u, chunk=chunk, s0=s0)
+    torch.cuda.synchronize()
+    assert wkv_ops.launches == before + 1
+    L = min(chunk, T)
+    padded = [torch.nn.functional.pad(t, (0, 0, 0, 0, 0, -T % L))
+              for t in (r, k, v, lw)]
+    py, ps = wkv_ref.wkv_chunked_ref(*padded, u, L, s0)
+    _close(y, py[:, :T], BF16_TOL)
+    _close(s, ps, F32_SCAN_TOL)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+
+
+@pytest.mark.cuda
+def test_cuda_wkv_bf16_two_calls_bit_equal(cuda):
+    r, k, v, lw, u, s0 = _wkv_inputs(15, "bfloat16", 1, 256, 32, 64, 0.1,
+                                     False)
+    y1, s1 = wkv_ops.wkv(r, k, v, lw, u, chunk=32, s0=s0)
+    y2, s2 = wkv_ops.wkv(r, k, v, lw, u, chunk=32, s0=s0)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,chunk,shift", [(24, 8, 0), (48, 8, 0),
+                                            (128, 8, 0), (64, 64, 0),
+                                            (64, 32, 1)])
+def test_cuda_wkv_bf16_refuses_what_the_body_cannot_take(cuda, hd, chunk,
+                                                         shift):
+    """head_dim not 16, 32 or 64, a chunk over 32, or r not on a 16-byte
+    boundary: ValueError before any launch is counted."""
+    r, k, v, lw, u, _ = _wkv_inputs(16, "bfloat16", 1, 128, 2, hd, 0.0,
+                                    False)
+    if shift:  # a contiguous view one element past an aligned start
+        flat = torch.empty(r.numel() + shift, dtype=r.dtype, device="cuda")
+        r = flat[shift:].view(r.shape).copy_(r)
+    before = wkv_ops.launches
+    with pytest.raises(ValueError, match="WKV6 kernel"):
+        wkv_ops.wkv(r, k, v, lw, u, chunk=chunk)
+    assert wkv_ops.launches == before
+
+
 # (dtype, B, T, H, P, N, chunk, h0 scale): float32 at smoke and full
 # widths; bf16 at T 1, 17 and 37 as one chunk, T = L, 2L and 3L at L 128,
 # a ragged chunk of 40 over five chunks, h0 absent and non-zero, and every

@@ -2,7 +2,7 @@
 neither JAX nor the JAX package, its copies of the JAX-free middleware
 stay equal to their originals up to the package name in import lines, and
 every attention config it runs by default fits both attention kernels,
-and every hybrid one the SSD kernel."""
+every hybrid one the SSD kernel and every rwkv6 one the WKV6 kernel."""
 import ast
 import os
 import pathlib
@@ -73,8 +73,8 @@ def test_middleware_copy_equals_original(rel):
 def _launched_configs():
     """(label, config) for what the two launchers pick by default (every
     arch's smoke config but rhapsody-demo's full one) and the full configs
-    ``chip_smoke.py`` runs, limited to the attention families ``get_model``
-    serves today (rwkv6 runs no attention kernel)."""
+    ``chip_smoke.py`` runs, limited to the families ``get_model`` serves
+    today."""
     from repro_torch.configs import get_config, get_smoke_config, list_archs
     from repro_torch.models import get_model
 
@@ -87,12 +87,13 @@ def _launched_configs():
             get_model(cfg)
         except NotImplementedError:
             continue
-        if cfg.family != "ssm":
-            served.append((label, cfg))
+        served.append((label, cfg))
     return served
 
 
-LAUNCHED = _launched_configs()
+SERVED = _launched_configs()
+# rwkv6 runs no attention kernel
+LAUNCHED = [(label, cfg) for label, cfg in SERVED if cfg.family != "ssm"]
 
 
 @pytest.mark.parametrize("label,cfg", LAUNCHED, ids=[c[0] for c in LAUNCHED])
@@ -123,3 +124,19 @@ def test_launched_hybrid_configs_fit_the_ssd_kernel(label, cfg):
     P, L = cfg.ssm_head_dim, cfg.ssm_chunk
     assert L <= ops.KERNEL_MAX_CHUNK, label
     kernel.check_bf16_shape(P, N, L)
+
+
+SSM = [(label, cfg) for label, cfg in SERVED if cfg.family == "ssm"]
+
+
+@pytest.mark.parametrize("label,cfg", SSM, ids=[c[0] for c in SSM])
+def test_launched_ssm_configs_fit_the_wkv_kernel(label, cfg):
+    """Every rwkv6 config the launchers or ``chip_smoke.py`` run (the smoke
+    config and rwkv6-1.6b's full one) fits the bf16 WKV6 body's (hd,
+    chunk) limits (``check_bf16_shape`` raises where it refuses) and the
+    float32 body's shared memory (``check_f32_shape``); a shorter prompt
+    runs a shorter chunk, which fits wherever the full chunk does."""
+    from repro_torch.kernels.rwkv6 import kernel
+
+    kernel.check_bf16_shape(cfg.rwkv_head_dim, cfg.rwkv_chunk)
+    kernel.check_f32_shape(cfg.rwkv_head_dim, cfg.rwkv_chunk)
