@@ -64,8 +64,9 @@ Phases, each printing one JSON line:
    transcripts equal the contiguous prefill + decode_step oracle's.
 7. launcher: ``repro_torch.launch.serve`` with its defaults (rhapsody-demo,
    2 replicas, 16 requests), then ``--arch llama3.2-3b`` (its smoke
-   config, head_dim 8) and ``--arch qwen3-8b`` (16), paged and with
-   ``--no-paged`` (``SERVE_RUNS``).
+   config, head_dim 8), ``--arch qwen3-8b`` (16), paged and with
+   ``--no-paged``, and ``--arch deepseek-moe-16b`` (MoE, 16;
+   ``SERVE_RUNS``).
 8. serving main path at full width: llama3.2-3b (bf16, 28 layers, random
    weights from a seed) behind ``Rhapsody`` with 2 replicas, 16 requests
    of 32 new tokens, served twice (cold, then warm).
@@ -103,15 +104,40 @@ Phases, each printing one JSON line:
    synthetic corpus on the card, after which the loss on a batch the steps
    did not see has fallen.
 15. trainer launcher: ``repro_torch.launch.train --steps 20``, then
-   ``--arch llama3.2-3b --steps 5`` (its smoke config, head_dim 8).
+   ``--arch llama3.2-3b --steps 5`` (its smoke config, head_dim 8) and
+   ``--arch deepseek-moe-16b --steps 3`` (MoE forward and loss).
 16. training main path at full width: llama3.2-3b (bf16, 28 layers, remat
    full, random weights from seed 0) through ``DataPipeline``,
    ``init_state`` and ``make_train_step``: global batch 2, seq 2048,
    AdamW, 3 steps.
+17. MoE model on the card, f32: deepseek-moe-16b at full width (d 2048,
+   16 heads of 128, 64 experts top-6, 2 shared, vocab 102400) cut to 2
+   layers (layer 0 dense, layer 1 MoE), decode capacity n_experts / top_k
+   (``MOE_ARCH``): the paged engine's greedy transcripts in ``direct``
+   and ``gather`` decode modes against the kernel-free oracle on the card,
+   teacher-forced as in phase 9.  Then ``moe_apply`` on a 512-token chunk
+   at capacity factor 1.0 on the training path, so that tokens are
+   dropped: two card calls bit-equal, within 1e-4 of the CPU.
+18. speculative decoding, f32: phase 17's target and a draft of the same
+   config cut to its dense layer (seed 1), paged/paged and paged/slot:
+   the plain target engine's transcripts (teacher-forced where they
+   differ), 0 <= acceptance <= 1, proposals made.
+19. MoE serving at full width: deepseek-moe-16b (bf16, 28 layers, ~16.4 B
+   parameters, random weights from seed 0) behind ``Rhapsody`` with 2
+   replicas sharing one parameter set, as phase 8; then one engine alone:
+   the host time of a decode step of 8 sequences, and one MoE layer's FFN
+   on the card beside its bound.
+20. speculative decoding at full width, bf16: the 28-layer target with a
+   draft sharing its parameters, beside the plain target on the same 8
+   requests: acceptance and generated tokens/s of both, at the config's
+   decode capacity and at n_experts / top_k (no drops).
 
 Every phase that drives a path sets all five kernels' launch counts to 0
 just before it runs and checks every count just after: the paged serving
-phases launch the paged decode kernel n_layers x decode steps times; the
+phases launch the paged decode kernel n_layers x decode steps times (the
+contiguous one in ``gather`` mode); a speculative session launches its
+draft's decode kernel n_layers x draft steps times and, verifying through
+``extend``, none for the target; the
 slot-pool phases launch WKV6 n_layers x prefills (rwkv6), SSD n_layers x
 prefills and the contiguous decode n_layers / attn_every x decode steps
 (zamba2), or the contiguous decode n_layers x decode steps (dense); a
@@ -183,6 +209,18 @@ SCAN_F32_TOL = (1e-4, 1e-4)
 # an f32 engine token may differ from the kernel-free oracle's only where
 # the oracle's top-two logits are closer than this (ROADMAP's rule)
 MODEL_GAP_TOL = 1e-3
+# the MoE phases (17-20): deepseek-moe-16b at full width.  Phase 17's f32
+# model takes a decode capacity factor of n_experts / top_k, room for every
+# token of a batch in every expert: the reference's capacity is per batch
+# (at the config's 4.0 an expert takes at most 37.5 % of a batch's
+# tokens), so only without drops can the batched engine be held to a
+# one-sequence oracle.  The drops are held by the capacity-overflow check:
+# a prefill chunk of MOE_OVERFLOW_T tokens at capacity factor 1.0, card vs
+# the CPU within MOE_CPU_TOL (f32 sums in another order over d 2048)
+MOE_ARCH = "deepseek-moe-16b"
+MOE_OVERFLOW_T = 512
+MOE_CPU_TOL = 1e-4
+SPEC_K = 3  # proposals a speculative round (phases 18 and 20)
 
 
 def main_path_prompt_lens(rng, n):
@@ -596,16 +634,18 @@ def phase_model(torch, configs, get_model, engine_mod):
 # the serve launcher's runs in phase 7: (arch, extra flags, the decode
 # kernel it must launch n_layers times a decode step); every arch but
 # rhapsody-demo serves its smoke config (head_dim 8 for llama3.2-3b, 16
-# for qwen3-8b)
+# for qwen3-8b and deepseek-moe-16b)
 SERVE_RUNS = (("rhapsody-demo", [], "paged_decode_attention"),
               ("llama3.2-3b", [], "paged_decode_attention"),
               ("qwen3-8b", [], "paged_decode_attention"),
-              ("qwen3-8b", ["--no-paged"], "decode_attention"))
+              ("qwen3-8b", ["--no-paged"], "decode_attention"),
+              ("deepseek-moe-16b", [], "paged_decode_attention"))
 
 
 def phase_launcher(serve, configs):
     """The serve launcher: its defaults (rhapsody-demo, 2 replicas, 16
-    requests), then llama3.2-3b and qwen3-8b (paged and slot pool)."""
+    requests), then llama3.2-3b, qwen3-8b (paged and slot pool) and
+    deepseek-moe-16b."""
     runs = []
     for arch, flags, kern in SERVE_RUNS:
         argv = ([] if arch == "rhapsody-demo" else ["--arch", arch]) + flags
@@ -632,12 +672,14 @@ def phase_launcher(serve, configs):
     return runs
 
 
-def phase_main_path(torch, configs, core, client):
+def phase_main_path(torch, configs, core, client, cfg=None, params=None):
     """llama3.2-3b at full width behind Rhapsody: 2 replicas, 16 requests,
     served twice with fresh prompts of the same lengths.  The first pass
     pays every first call (matmul shapes, allocator growth); the second
-    is warm."""
-    cfg = configs.get_config(MAIN_PATH_ARCH)
+    is warm.  Phase 18 passes another ``cfg`` and the ``params`` both
+    replicas serve (one parameter set, not a copy each)."""
+    cfg = cfg or configs.get_config(MAIN_PATH_ARCH)
+    where = "main path" if params is None else cfg.name
     replicas, n_req, mnt = 2, 16, MAIN_PATH_NEW_TOKENS
     rh = core.Rhapsody(core.ResourceDescription(nodes=replicas,
                                                 cores_per_node=16),
@@ -647,7 +689,7 @@ def phase_main_path(torch, configs, core, client):
         rs = rh.add_service(core.ServiceDescription(
             name="llm", replicas=replicas, ready_timeout=600,
             factory=client.llm_service_factory(
-                cfg, device=DEVICE, **MAIN_PATH_ENGINE)))
+                cfg, params, device=DEVICE, **MAIN_PATH_ENGINE)))
         setup_s = time.perf_counter() - t_up
         rng = np.random.RandomState(0)
         lens = main_path_prompt_lens(rng, n_req)
@@ -662,15 +704,15 @@ def phase_main_path(torch, configs, core, client):
                 task_type="inference") for p in prompts]
             t0 = time.perf_counter()
             uids = rh.submit(descs)
-            check(rh.wait(uids, timeout=600), "main path timed out")
+            check(rh.wait(uids, timeout=600), f"{where} timed out")
             results = [rh.result(u) for u in uids]
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             check(all(len(r["tokens"]) == mnt for r in results),
-                  "main path: a request came back short")
+                  f"{where}: a request came back short")
             check(all(0 <= t < cfg.vocab
                       for r in results for t in r["tokens"]),
-                  "main path: a token outside the vocabulary")
+                  f"{where}: a token outside the vocabulary")
             lat = sorted(r["latency_s"] for r in results)
             gen_tokens = sum(len(r["tokens"]) for r in results)
             all_tokens = gen_tokens + sum(r["n_prompt"] for r in results)
@@ -689,11 +731,11 @@ def phase_main_path(torch, configs, core, client):
         decode_steps = sum(inst.servicer.stats.decode_steps
                            for inst in rs.instances)
         launches = check_launches(
-            "main path", paged_decode_attention=cfg.n_layers * decode_steps)[
+            where, paged_decode_attention=cfg.n_layers * decode_steps)[
             "paged_decode_attention"]
         stats = rs.stats()
         check(all(e is None for e in errors), f"replica errors {errors}")
-        check(launches > 0, "main path: no decode step ran")
+        check(launches > 0, f"{where}: no decode step ran")
         # the served weights give finite logits of the expected shape
         eng = rs.instances[0].servicer.engine
         _, logits = eng.api.prefill(
@@ -701,10 +743,11 @@ def phase_main_path(torch, configs, core, client):
             cfg, max_len=64)
         check(tuple(logits.shape) == (1, cfg.vocab)
               and bool(torch.isfinite(logits).all()),
-              "main path: prefill logits not finite")
+              f"{where}: prefill logits not finite")
         return {"config": cfg.name, "layers": cfg.n_layers,
                 "d_model": cfg.d_model, "vocab": cfg.vocab,
                 "dtype": cfg.compute_dtype, "replicas": replicas,
+                "shared_params": params is not None,
                 "requests_per_pass": n_req, "max_new_tokens": mnt,
                 "prompt_lens": [int(x) for x in lens],
                 "setup_seconds": setup_s, "cold": cold, "warm": warm,
@@ -1220,6 +1263,34 @@ def oracle_logits(torch, get_model, cfg, params, tokens):
     return nn.linear_apply(params["unembed"], x, torch.float32)[0, 0]
 
 
+def teacher_forced(torch, get_model, cfg, params, prompts, outs, where,
+                   memo=None):
+    """Every token of each transcript against the kernel-free oracle's
+    argmax on the transcript so far (``oracle_logits``): a token may
+    differ only where the oracle's top-two gap is under MODEL_GAP_TOL.
+    Checks that the oracle launched no kernel; -> the flips.  ``memo``
+    keeps the oracle's logits between calls on one model."""
+    memo = {} if memo is None else memo
+    zero_launches()
+    flips = []
+    for p, out in zip(prompts, outs):
+        for i, tok in enumerate(out):
+            key = tuple(p + out[:i])
+            if key not in memo:
+                memo[key] = oracle_logits(torch, get_model, cfg, params,
+                                          list(key))
+            logits = memo[key]
+            best = int(logits.argmax())
+            if tok != best:
+                gap = float(logits[best] - logits[tok])
+                check(gap < MODEL_GAP_TOL,
+                      f"{where}: engine token {tok} != oracle {best} at "
+                      f"step {i} of a {len(p)}-token prompt, gap {gap}")
+                flips.append({"prompt_len": len(p), "step": i, "gap": gap})
+    check_launches(f"{where} oracle")  # the oracle ran no kernel
+    return flips
+
+
 def phase_state_model(torch, configs, get_model, engine_mod):
     """f32 on the card: rwkv6-1.6b (2 layers) and zamba2-2.7b (2 groups),
     full width, and rhapsody-demo, through the slot engine (paged=False):
@@ -1259,22 +1330,8 @@ def phase_state_model(torch, configs, get_model, engine_mod):
         launches = check_launches(f"model {arch}", **want)
         check(eng.stats.decode_steps > 0, f"model {arch}: no decode step")
         outs = [done[u].output for u in uids]
-        zero_launches()
-        flips = []
-        for p, out in zip(prompts, outs):
-            for i, tok in enumerate(out):
-                logits = oracle_logits(torch, get_model, cfg, params,
-                                       p + out[:i])
-                best = int(logits.argmax())
-                if tok != best:
-                    gap = float(logits[best] - logits[tok])
-                    check(gap < MODEL_GAP_TOL,
-                          f"model {arch}: engine token {tok} != oracle {best} "
-                          f"at step {i} of a {len(p)}-token prompt, gap "
-                          f"{gap}")
-                    flips.append({"prompt_len": len(p), "step": i,
-                                  "gap": gap})
-        check_launches(f"model {arch} oracle")  # the oracle ran no kernel
+        flips = teacher_forced(torch, get_model, cfg, params, prompts, outs,
+                               f"model {arch}")
         records.append({"config": arch, "cut": cut, "prompt_lens": lens,
                         "new_tokens": steps, "transcripts_equal": not flips,
                         "teacher_forced_flips": flips, "launches": launches,
@@ -1650,9 +1707,11 @@ def phase_train_step(torch, configs, get_model, optim, train, data):
 
 def phase_train_launcher(launch_train, configs):
     """The trainer launcher with its defaults except --steps 20, then
-    ``--arch llama3.2-3b --steps 5`` (its smoke config, head_dim 8)."""
+    ``--arch llama3.2-3b --steps 5`` (its smoke config, head_dim 8) and
+    ``--arch deepseek-moe-16b --steps 3`` (MoE forward and loss)."""
     runs = []
-    for arch, steps in (("rhapsody-demo", 20), ("llama3.2-3b", 5)):
+    for arch, steps in (("rhapsody-demo", 20), ("llama3.2-3b", 5),
+                        ("deepseek-moe-16b", 3)):
         argv = (([] if arch == "rhapsody-demo" else ["--arch", arch])
                 + ["--steps", str(steps)])
         cfg = (configs.get_config(arch) if arch == "rhapsody-demo"
@@ -1745,6 +1804,286 @@ def phase_train_main_path(torch, optim):
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+# ---------------------------------------------------------------------------
+# The MoE family (deepseek-moe-16b) and speculative decoding (phases 17-20)
+# ---------------------------------------------------------------------------
+
+
+def moe_overflow(torch, moe, cfg, params):
+    """``moe_apply`` on the MoE layer at a 512-token prefill chunk with
+    capacity factor 1.0 on the training path (``decode=False``), so that
+    tokens are dropped: two card calls bit-equal, and within MOE_CPU_TOL
+    of the same function on the CPU (the same drop set)."""
+    from repro_torch.training.optim import tree_map
+
+    ocfg = cfg.scaled(capacity_factor=1.0)
+    p = params["blocks"][cfg.first_dense_layers]["moe"]
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    x = torch.randn((1, MOE_OVERFLOW_T, cfg.d_model), generator=gen,
+                    device=DEVICE)
+    zero_launches()
+    y, aux = moe.moe_apply(p, x, ocfg, decode=False)
+    y2, aux2 = moe.moe_apply(p, x, ocfg, decode=False)
+    torch.cuda.synchronize()
+    check_launches("moe overflow")
+    check(torch.equal(y, y2) and torch.equal(aux, aux2),
+          "moe overflow: two card calls differ")
+    C = moe._capacity(MOE_OVERFLOW_T, ocfg, False)
+    _, ids, _ = moe.route(p["router"]["w"], x[0], ocfg)
+    counts = moe._counts(ids, cfg.n_experts)
+    dropped = int((counts - C).clamp(min=0).sum())
+    check(dropped > 0, f"moe overflow: no assignment past capacity {C}")
+    cpu_p = tree_map(lambda t: t.cpu(), p)
+    _, cpu_ids, _ = moe.route(cpu_p["router"]["w"], x[0].cpu(), ocfg)
+    check(torch.equal(ids.cpu(), cpu_ids),
+          "moe overflow: the card and the CPU route differently")
+    cy, caux = moe.moe_apply(cpu_p, x.cpu(), ocfg, decode=False)
+    err = float((y.cpu() - cy).abs().max())
+    check(err <= MOE_CPU_TOL and abs(float(aux) - float(caux)) <= MOE_CPU_TOL,
+          f"moe overflow: card vs CPU {err}")
+    return {"tokens": MOE_OVERFLOW_T, "capacity": C,
+            "dropped_assignments": dropped,
+            "assignments": MOE_OVERFLOW_T * cfg.top_k,
+            "max_abs_err_vs_cpu": err, "bit_equal": True}
+
+
+def phase_moe_model(torch, configs, get_model, engine_mod, moe):
+    """deepseek-moe-16b at full width (f32, 2 layers): the paged engine's
+    greedy transcripts in ``direct`` and ``gather`` decode modes against
+    the kernel-free oracle on the card, teacher-forced; the paged kernel
+    launches n_layers x decode steps in ``direct``, the contiguous one in
+    ``gather``.  Then the capacity-overflow check.  The decode capacity
+    factor is n_experts / top_k (see the note at ``MOE_ARCH``).  ->
+    (record, cfg, params)."""
+    cfg = configs.get_config(MOE_ARCH)
+    cfg = cfg.scaled(n_layers=2, param_dtype="float32",
+                     compute_dtype="float32",
+                     decode_capacity_factor=cfg.n_experts / cfg.top_k)
+    api = get_model(cfg)
+    params = api.init(torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                      device=DEVICE)
+    rng = np.random.RandomState(1)
+    prompts = [list(map(int, rng.randint(1, cfg.vocab, size=n)))
+               for n in (3, 8, 9, 17, 30)]
+    steps, memo, modes = 6, {}, {}
+    for mode, kern in (("direct", "paged_decode_attention"),
+                       ("gather", "decode_attention")):
+        eng = engine_mod.InferenceEngine(
+            cfg, params, device=DEVICE, max_num_seqs=4,
+            max_num_batched_tokens=256, max_len=128,
+            prefill_buckets=(16, 32), paged=True, block_size=16,
+            paged_decode_mode=mode)
+        zero_launches()
+        uids = [eng.submit(p, max_new_tokens=steps) for p in prompts]
+        done = eng.run()
+        torch.cuda.synchronize()
+        where = f"moe model {mode}"
+        launches = check_launches(
+            where, **{kern: cfg.n_layers * eng.stats.decode_steps})[kern]
+        check(launches > 0, f"{where}: no decode step ran")
+        outs = [done[u].output for u in uids]
+        flips = teacher_forced(torch, get_model, cfg, params, prompts, outs,
+                               where, memo)
+        modes[mode] = {"kernel": kern, "launches": launches,
+                       "decode_steps": eng.stats.decode_steps,
+                       "transcripts_equal": not flips,
+                       "teacher_forced_flips": flips, "outs": outs}
+    record = {"config": cfg.name, "layers": cfg.n_layers,
+              "d_model": cfg.d_model, "experts": cfg.n_experts,
+              "top_k": cfg.top_k, "vocab": cfg.vocab, "dtype": "float32",
+              "decode_capacity_factor": cfg.decode_capacity_factor,
+              "prompt_lens": [len(p) for p in prompts],
+              "new_tokens": steps,
+              "modes": {m: {k: v for k, v in r.items() if k != "outs"}
+                        for m, r in modes.items()},
+              "modes_agree": modes["direct"]["outs"] == modes["gather"]["outs"],
+              "overflow": moe_overflow(torch, moe, cfg, params)}
+    return record, cfg, params
+
+
+def spec_run(torch, target, draft, prompts, mnt):
+    """A ``SpecDecodeSession`` over the two engines, run to its end on
+    fresh launch counts: -> (session, transcripts, seconds)."""
+    from repro_torch.serving.engine import SpecDecodeSession
+
+    sess = SpecDecodeSession(target, draft, k=SPEC_K)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    uids = [sess.submit(p, max_new_tokens=mnt) for p in prompts]
+    done = sess.run()
+    torch.cuda.synchronize()
+    return sess, [done[u].output for u in uids], time.perf_counter() - t0
+
+
+def spec_launches(where, target, draft, dcfg):
+    """The draft's decodes launch its engine's decode kernel (paged or
+    contiguous) n_layers times a draft step; the target verifies through
+    ``extend`` and launches no decode kernel while speculating."""
+    kern = "paged_decode_attention" if draft.paged else "decode_attention"
+    launches = check_launches(where,
+                              **{kern: dcfg.n_layers * draft.stats.steps})
+    check(target.stats.decode_steps == 0 and draft.stats.steps > 0,
+          f"{where}: target decode steps {target.stats.decode_steps}, "
+          f"draft steps {draft.stats.steps}")
+    return launches[kern]
+
+
+def spec_stats_check(where, sess):
+    ss = sess.spec_stats()
+    check(ss["proposed"] > 0 and ss["enabled"]
+          and 0.0 <= ss["acceptance_rate"] <= 1.0,
+          f"{where}: spec stats {ss}")
+    return ss
+
+
+def phase_spec_f32(torch, get_model, engine_mod, cfg, params):
+    """Speculative decoding on the card, f32 and exact: phase 17's target
+    with a draft of the same config cut to its one dense layer, drawn from
+    seed 1, paged/paged and paged/slot: the transcripts of the plain
+    target engine (where a token differs, the kernel-free oracle's
+    top-two gap there is under MODEL_GAP_TOL)."""
+    kw = dict(max_num_seqs=4, max_num_batched_tokens=256, max_len=128,
+              prefill_buckets=(16, 32), block_size=16)
+    rng = np.random.RandomState(4)
+    prompts = [list(map(int, rng.randint(1, cfg.vocab, size=n)))
+               for n in (5, 9, 3, 17)]
+    mnt = 10
+    plain = engine_mod.InferenceEngine(cfg, params, device=DEVICE,
+                                       paged=True, **kw)
+    uids = [plain.submit(p, max_new_tokens=mnt) for p in prompts]
+    done = plain.run()
+    want = [done[u].output for u in uids]
+    dcfg = cfg.scaled(n_layers=1)
+    runs, memo = [], {}
+    for paged_d in (True, False):
+        where = f"spec f32 paged/{'paged' if paged_d else 'slot'}"
+        target = engine_mod.InferenceEngine(cfg, params, device=DEVICE,
+                                            paged=True, **kw)
+        draft = engine_mod.make_engine_from_scratch(
+            dcfg, seed=1, device=DEVICE, paged=paged_d, **kw)
+        sess, got, secs = spec_run(torch, target, draft, prompts, mnt)
+        launches = spec_launches(where, target, draft, dcfg)
+        flips = [] if got == want else teacher_forced(
+            torch, get_model, cfg, params, prompts, got, where, memo)
+        runs.append({"draft_pool": "paged" if paged_d else "slot",
+                     "spec": spec_stats_check(where, sess),
+                     "equal_to_plain": got == want,
+                     "teacher_forced_flips": flips,
+                     "draft_launches": launches,
+                     "draft_steps": draft.stats.steps, "seconds": secs})
+        del target, draft, sess
+    return {"target": f"{cfg.name} f32 x {cfg.n_layers} layers",
+            "draft": f"{cfg.name} f32 x {dcfg.n_layers} dense layer, seed 1",
+            "k": SPEC_K, "prompt_lens": [len(p) for p in prompts],
+            "new_tokens": mnt, "runs": runs}
+
+
+def moe_decode_timing(torch, engine_mod, moe, cfg, params):
+    """One engine alone (phase 19's settings and weights): the host time
+    of a decode step of 8 sequences (synchronised, median of 10), and
+    the device time of one MoE layer's FFN at that batch (CUDA events)
+    beside its bound, the layer's expert, shared and router weights read
+    once at 3.35 TB/s."""
+    from repro_torch.training.optim import tree_leaves
+
+    eng = engine_mod.InferenceEngine(cfg, params, device=DEVICE,
+                                     **MAIN_PATH_ENGINE)
+    rng = np.random.RandomState(3)
+    for n in main_path_prompt_lens(rng, MAIN_PATH_ENGINE["max_num_seqs"]):
+        eng.submit(list(map(int, rng.randint(0, cfg.vocab, size=int(n)))),
+                   max_new_tokens=MAIN_PATH_NEW_TOKENS)
+    zero_launches()
+    while eng.queue or any(r.pending_tokens or not r.output
+                           for r in eng.running.values()):
+        eng.step()
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    check_launches("moe decode timing", paged_decode_attention=cfg.n_layers
+                   * eng.stats.decode_steps)
+    batch = len(eng.running)
+    del eng
+    p = params["blocks"][cfg.first_dense_layers]["moe"]
+    x = card_randn(torch, torch.Generator(device=DEVICE).manual_seed(5),
+                   (batch, 1, cfg.d_model), cfg.cdtype)
+    ffn_ms = cuda_ms(lambda: moe.moe_apply(p, x, cfg, decode=True), 20)
+    layer_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(p))
+    step_bytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(params)) \
+        - params["embed"]["table"].numel() \
+        * params["embed"]["table"].element_size()
+    return {"batch": batch, "decode_step_ms": sorted(times)[len(times) // 2],
+            "decode_step_ms_all": times,
+            "moe_layer_ffn_ms": ffn_ms,
+            "moe_layer_weight_gb": layer_bytes / 1e9,
+            "moe_layer_bound_ms": bound_ms(layer_bytes, 0,
+                                           H100_BF16_FLOPS)[0],
+            "moe_layers": cfg.n_layers - cfg.first_dense_layers,
+            "step_weight_gb": step_bytes / 1e9,
+            "step_bound_ms": bound_ms(step_bytes, 0, H100_BF16_FLOPS)[0]}
+
+
+def phase_spec_bf16(torch, engine_mod, cfg, params):
+    """Speculative decoding at full width, bf16: deepseek-moe-16b (28
+    layers) verifying a draft that shares its parameters, beside the plain
+    target engine on the same 8 prompts of 32 new tokens (the phase-19
+    engine settings): acceptance, generated tokens/s of both, and the
+    launches (the draft's paged decodes; none from the target).  Run at
+    the config's decode capacity and again at n_experts / top_k (no
+    drops), which separates what the per-batch capacity costs the
+    acceptance (the verify batch holds k + 1 tokens a sequence, the
+    draft's decode batch one) from bf16 rounding."""
+    rng = np.random.RandomState(6)
+    prompts = [list(map(int, rng.randint(0, cfg.vocab, size=int(n))))
+               for n in main_path_prompt_lens(rng, 8)]
+    mnt = MAIN_PATH_NEW_TOKENS
+    gen = len(prompts) * mnt
+    runs = []
+    for run_cfg in (cfg, cfg.scaled(
+            decode_capacity_factor=cfg.n_experts / cfg.top_k)):
+        where = f"spec bf16 capacity {run_cfg.decode_capacity_factor:g}"
+        plain = engine_mod.InferenceEngine(run_cfg, params, device=DEVICE,
+                                           **MAIN_PATH_ENGINE)
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        uids = [plain.submit(p, max_new_tokens=mnt) for p in prompts]
+        done = plain.run()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        check_launches(f"{where} plain", paged_decode_attention=cfg.n_layers
+                       * plain.stats.decode_steps)
+        want = [done[u].output for u in uids]
+        del plain
+        target = engine_mod.InferenceEngine(run_cfg, params, device=DEVICE,
+                                            **MAIN_PATH_ENGINE)
+        draft = engine_mod.InferenceEngine(run_cfg, params, device=DEVICE,
+                                           **MAIN_PATH_ENGINE)
+        sess, got, secs = spec_run(torch, target, draft, prompts, mnt)
+        launches = spec_launches(where, target, draft, run_cfg)
+        check(all(len(o) == mnt and all(0 <= t < cfg.vocab for t in o)
+                  for o in got), f"{where}: a request came back short")
+        same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+        runs.append({
+            "decode_capacity_factor": run_cfg.decode_capacity_factor,
+            "spec": spec_stats_check(where, sess),
+            "plain_seconds": plain_s, "plain_gen_tok_per_s": gen / plain_s,
+            "spec_seconds": secs, "spec_gen_tok_per_s": gen / secs,
+            "tokens_equal_to_plain": same / gen,
+            "draft_launches": launches, "draft_steps": draft.stats.steps,
+            "target_decode_steps": target.stats.decode_steps})
+        del target, draft, sess
+    return {"config": cfg.name, "layers": cfg.n_layers, "dtype": "bfloat16",
+            "draft": "the target's own parameters", "k": SPEC_K,
+            "requests": len(prompts), "new_tokens": mnt, "runs": runs}
+
+
 def main():
     import torch
 
@@ -1766,7 +2105,7 @@ def main():
     from repro_torch.kernels.rwkv6 import ref as wkv_ref
     from repro_torch.launch import serve
     from repro_torch.launch import train as launch_train
-    from repro_torch.models import get_model
+    from repro_torch.models import get_model, moe
     from repro_torch.serving import client, engine
     from repro_torch.substrate import data
     from repro_torch.training import optim, train
@@ -1884,6 +2223,42 @@ def main():
     # 16. the training main path at a real model's full width
     train_path = phase_train_main_path(torch, optim)
     emit({"phase": "train_main_path", **train_path})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17. the MoE model on the card, f32, against the kernel-free oracle in
+    # both paged decode modes; the capacity-overflow check
+    moe_model, moe_cfg, moe_params = phase_moe_model(
+        torch, configs, get_model, engine, moe)
+    emit({"phase": "moe_model", **moe_model})
+
+    # 18. speculative decoding, f32 and exact, on phase 17's target
+    emit({"phase": "spec_f32", **phase_spec_f32(
+        torch, get_model, engine, moe_cfg, moe_params)})
+    del moe_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 19. MoE serving at full width, bf16: 2 replicas sharing one
+    # parameter set; then one engine's decode step and MoE layer timed
+    moe_full = configs.get_config(MOE_ARCH)
+    moe_params = get_model(moe_full).init(
+        torch.Generator(device=DEVICE).manual_seed(0), moe_full,
+        device=DEVICE)
+    moe_path = phase_main_path(torch, configs, core, client, moe_full,
+                               moe_params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_path["timing"] = moe_decode_timing(torch, engine, moe, moe_full,
+                                           moe_params)
+    emit({"phase": "moe_serving", **moe_path})
+
+    # 20. speculative decoding at full width, bf16
+    emit({"phase": "spec_bf16", **phase_spec_bf16(
+        torch, engine, moe_full, moe_params)})
+    del moe_params
+    gc.collect()
+    torch.cuda.empty_cache()
 
     decode_src = ("src/repro_torch/kernels/decode_attention/csrc/"
                   "decode_attention.cu")

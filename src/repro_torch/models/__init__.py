@@ -1,9 +1,10 @@
 """Model registry: the uniform API that training and serving drive.
 
-The dense family, rwkv6 (``ssm``) and zamba2 (``hybrid``) are ported; the
-other families raise, naming the ROADMAP item that ports them.  The
-state-carrying families serve (forward, prefill, decode) but do not train
-yet: their ``loss`` raises.
+The dense and MoE families (one transformer, ``transformer.py`` with
+``moe.py`` as its FFN), rwkv6 (``ssm``) and zamba2 (``hybrid``) are
+ported; encoder-decoder and VLM raise, naming the ROADMAP item that ports
+them.  The state-carrying families serve (forward, prefill, decode) but do
+not train yet: their ``loss`` raises.
 """
 from __future__ import annotations
 
@@ -33,16 +34,14 @@ class ModelApi:
 
 
 _NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 7 (MoE)",
     "encdec": "ROADMAP Queue 1 item 9 (encoder-decoder and VLM)",
     "vlm": "ROADMAP Queue 1 item 9 (encoder-decoder and VLM)",
 }
 
 
 def _require_ported(cfg: ModelConfig):
-    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.is_moe:
-        item = _NOT_PORTED.get("moe" if cfg.is_moe else cfg.family,
-                               "the ROADMAP")
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        item = _NOT_PORTED.get(cfg.family, "the ROADMAP")
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to PyTorch "
             f"yet: {item}")

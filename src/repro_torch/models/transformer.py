@@ -1,9 +1,13 @@
-"""Dense decoder-only transformer LM: training forward/loss and serving.
+"""Decoder-only transformer LM (dense and MoE): training forward/loss and
+serving.
 
 The counterpart of the JAX package's ``models/transformer.py`` for dense
-models.  The reference stacks layer params ``[L, ...]`` and scans them with
-``jax.lax.scan``; here ``p["blocks"]`` is a list of per-layer dicts walked by
-a Python loop, on one device (no mesh).  ``cfg.remat == "full"`` wraps each
+and MoE models.  The reference stacks layer params ``[L, ...]`` and scans
+them with ``jax.lax.scan`` (an MoE model's first dense layers kept apart
+under ``p["pre"]``); here ``p["blocks"]`` is one list of per-layer dicts,
+the first dense layers first, walked by a Python loop, on one device (no
+mesh).  A layer from ``first_dense_layers`` on carries ``moe`` in place of
+``mlp``; its FFN returns the router's aux loss, which the forward sums.  ``cfg.remat == "full"`` wraps each
 block in ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so
 the backward runs each block's forward again.  Caches are dicts of stacked
 tensors:
@@ -26,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 
 from . import attention as attn
+from . import moe as moe_lib
 from . import nn
 from .config import ModelConfig
 
@@ -35,22 +40,35 @@ from .config import ModelConfig
 # ---------------------------------------------------------------------------
 
 
-def block_init(gen, cfg: ModelConfig, *, device="cpu"):
+def block_init(gen, cfg: ModelConfig, *, layer_idx: int = 0, device="cpu"):
+    """Layer ``layer_idx``: an MoE FFN from ``first_dense_layers`` on in an
+    MoE config, else a dense MLP of width ``dense_ff or d_ff``."""
     dt = cfg.pdtype
-    return {
+    p = {
         "ln_attn": nn.rmsnorm_init(cfg.d_model, dtype=dt, device=device),
         "attn": attn.attention_init(gen, cfg, device=device),
         "ln_mlp": nn.rmsnorm_init(cfg.d_model, dtype=dt, device=device),
-        "mlp": nn.mlp_init(gen, cfg.d_model, cfg.dense_ff or cfg.d_ff,
-                           gated=cfg.gated_mlp, dtype=dt, device=device),
     }
+    if cfg.is_moe and layer_idx >= cfg.first_dense_layers:
+        p["moe"] = moe_lib.moe_init(gen, cfg, device=device)
+    else:
+        p["mlp"] = nn.mlp_init(gen, cfg.d_model, cfg.dense_ff or cfg.d_ff,
+                               gated=cfg.gated_mlp, dtype=dt, device=device)
+    return p
 
 
-def _ffn(p, x, cfg: ModelConfig):
+def _ffn(p, x, cfg: ModelConfig, decode: bool):
+    """Residual FFN; returns (y, aux).  ``decode`` picks the MoE's decode
+    capacity factor (every path but the training forward, as the
+    reference)."""
     h = nn.rmsnorm_apply(p["ln_mlp"], x, cfg.norm_eps)
-    h = nn.mlp_apply(p["mlp"], h, activation=cfg.activation,
-                     compute_dtype=cfg.cdtype)
-    return x + h
+    if "moe" in p:
+        h, aux = moe_lib.moe_apply(p["moe"], h, cfg, decode=decode)
+    else:
+        h = nn.mlp_apply(p["mlp"], h, activation=cfg.activation,
+                         compute_dtype=cfg.cdtype)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h, aux
 
 
 def block_apply(p, x, cfg: ModelConfig, *, causal=True, positions=None):
@@ -60,8 +78,7 @@ def block_apply(p, x, cfg: ModelConfig, *, causal=True, positions=None):
     h = attn.attention_apply(p["attn"], h, cfg, causal=causal,
                              positions=positions,
                              rope=cfg.positions == "rope")
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _ffn(p, x + h, cfg), aux
+    return _ffn(p, x + h, cfg, decode=False)
 
 
 def block_prefill(p, x, cfg: ModelConfig, *, max_len: int, positions=None):
@@ -70,8 +87,9 @@ def block_prefill(p, x, cfg: ModelConfig, *, max_len: int, positions=None):
     h = nn.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
     h, (k, v) = attn.attention_prefill(p["attn"], h, cfg, positions=positions)
     pad = (0, 0, 0, 0, 0, max_len - S)
-    return _ffn(p, x + h, cfg), (torch.nn.functional.pad(k, pad),
-                                 torch.nn.functional.pad(v, pad))
+    y, _ = _ffn(p, x + h, cfg, decode=True)
+    return y, (torch.nn.functional.pad(k, pad),
+               torch.nn.functional.pad(v, pad))
 
 
 def block_decode(p, x, cache_k, cache_v, lens, cfg: ModelConfig):
@@ -79,7 +97,7 @@ def block_decode(p, x, cache_k, cache_v, lens, cfg: ModelConfig):
     h = nn.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
     h, _, _, _ = attn.attention_decode(p["attn"], h, cache_k, cache_v, lens,
                                        cfg)
-    return _ffn(p, x + h, cfg)
+    return _ffn(p, x + h, cfg, decode=True)[0]
 
 
 def block_decode_paged(p, x, k_store, v_store, block_tables, lens,
@@ -89,7 +107,7 @@ def block_decode_paged(p, x, k_store, v_store, block_tables, lens,
     h, _, _ = attn.attention_decode_paged(
         p["attn"], h, k_store, v_store, block_tables, lens, write_phys,
         write_off, cfg)
-    return _ffn(p, x + h, cfg)
+    return _ffn(p, x + h, cfg, decode=True)[0]
 
 
 def block_extend(p, x, cache_k, cache_v, lens, cfg: ModelConfig):
@@ -98,7 +116,7 @@ def block_extend(p, x, cache_k, cache_v, lens, cfg: ModelConfig):
     h = nn.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
     h, _, _, _ = attn.attention_extend(p["attn"], h, cache_k, cache_v, lens,
                                        cfg)
-    return _ffn(p, x + h, cfg)
+    return _ffn(p, x + h, cfg, decode=True)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -107,8 +125,8 @@ def block_extend(p, x, cache_k, cache_v, lens, cfg: ModelConfig):
 
 
 def lm_init(gen, cfg: ModelConfig, *, device=None):
-    """Dense LM params drawn from ``gen`` on ``device`` (lecun-normal
-    linears, ``o`` with std 1/sqrt(nh*hd), embedding std 1, rmsnorm ones);
+    """LM params drawn from ``gen`` on ``device`` (lecun-normal linears and
+    experts, ``o`` with std 1/sqrt(nh*hd), embedding std 1, rmsnorm ones);
     ``None`` is the CUDA card (``resolve_device``)."""
     device = resolve_device(device)
     dt = cfg.pdtype
@@ -116,8 +134,8 @@ def lm_init(gen, cfg: ModelConfig, *, device=None):
         "embed": nn.embedding_init(gen, cfg.vocab, cfg.d_model, dtype=dt,
                                    device=device),
         "ln_f": nn.rmsnorm_init(cfg.d_model, dtype=dt, device=device),
-        "blocks": [block_init(gen, cfg, device=device)
-                   for _ in range(cfg.n_layers)],
+        "blocks": [block_init(gen, cfg, layer_idx=i, device=device)
+                   for i in range(cfg.n_layers)],
     }
     if not cfg.tie_embeddings:
         p["unembed"] = nn.linear_init(gen, cfg.d_model, cfg.vocab, dtype=dt,

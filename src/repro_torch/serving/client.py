@@ -2,11 +2,11 @@
 abstraction and the continuous-batching engine (Figs. 1-2: AI workers).
 
 The counterpart of the JAX package's ``serving/client.py`` for the unified
-``phase="serve"`` replica: dense configs get the block-paged engine by
-default, state-carrying ones (rwkv6, zamba2) the slot pool.  Speculative
-decoding
-(``draft_group``), disaggregated phases and QoS scheduling are not ported
-yet and raise (ROADMAP Queue 1 item 8).
+``phase="serve"`` replica: dense and MoE configs get the block-paged
+engine by default, state-carrying ones (rwkv6, zamba2) the slot pool, and
+``draft_group`` arms speculative decoding (``SpecDecodeSession``).
+Disaggregated phases, QoS scheduling and ``generate_stream`` are not
+ported yet; the first two raise (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ from typing import Optional
 
 from repro_torch.core.service import ModelGroup
 from repro_torch.models.config import ModelConfig
-from .engine import InferenceEngine, make_engine_from_scratch
+from .engine import (InferenceEngine, SpecDecodeSession,
+                     make_engine_from_scratch)
 
 _NOT_PORTED = "not ported to PyTorch yet: ROADMAP Queue 1 item 8"
 
@@ -36,6 +37,35 @@ def _resolve_paged(cfg: ModelConfig, engine_kw: dict) -> dict:
     return kw
 
 
+def _resolve_draft_engine(spec, *, seed: int = 0,
+                          device=None) -> InferenceEngine:
+    """``draft_group`` resolution: the co-located draft as an
+    ``InferenceEngine``, a built ``LLMServicer``, a ``ModelGroup`` (whose
+    factory builds one) or a bare ``ModelConfig`` (a fresh engine from
+    ``seed`` on ``device``, the target's, with the pool resolved as for
+    a replica)."""
+    if isinstance(spec, InferenceEngine):
+        return spec
+    if isinstance(spec, LLMServicer):
+        return spec.engine
+    if isinstance(spec, ModelGroup):
+        if spec.factory is None:
+            raise ValueError(
+                f"draft_group {spec.name!r} has no factory to build a "
+                f"draft servicer from")
+        servicer = spec.factory()
+        engine = getattr(servicer, "engine", None)
+        if engine is None:
+            raise TypeError(
+                f"draft_group {spec.name!r} factory built "
+                f"{type(servicer).__name__}, which exposes no .engine")
+        return engine
+    if isinstance(spec, ModelConfig):
+        return make_engine_from_scratch(spec, seed=seed, device=device,
+                                        **_resolve_paged(spec, {}))
+    raise TypeError(f"cannot resolve a draft engine from {type(spec)}")
+
+
 class LLMServicer:
     """Servicer protocol (submit/step) around an InferenceEngine.
 
@@ -45,9 +75,15 @@ class LLMServicer:
              "itl_s": float, "latency_s": float}.
 
     ``device`` (default: the CUDA card) is where the engine and, for
-    ``params=None``, the freshly drawn weights live.  The ``spec_*`` and
-    ``qos_preempt`` knobs keep the reference's signature; they only act
-    with a draft or QoS, which raise here."""
+    ``params=None``, the freshly drawn weights live.
+
+    ``draft_group`` arms cross-group speculative decoding: a co-located
+    draft engine (``_resolve_draft_engine``) proposes ``spec_k`` tokens a
+    round and this replica's engine verifies them in one extend forward
+    (``SpecDecodeSession``); greedy output stays token-for-token the
+    target's, sampled requests are refused, and ``spec_stats()`` exposes
+    the counters the replica set sums per group.  ``qos_preempt`` keeps
+    the reference's signature; QoS raises here."""
 
     accepts_envelope = True  # submit() takes the envelope keyword
 
@@ -61,12 +97,13 @@ class LLMServicer:
             raise ValueError(
                 f"phase must be 'serve', 'prefill' or 'decode', "
                 f"not {phase!r}")
+        if phase != "serve" and draft_group is not None:
+            raise ValueError(
+                "speculative decoding and disaggregated phases do not "
+                "compose: a prefill/decode replica cannot host a draft")
         if phase != "serve":
             raise NotImplementedError(
                 f"disaggregated phase={phase!r} is {_NOT_PORTED}")
-        if draft_group is not None:
-            raise NotImplementedError(
-                f"speculative decoding (draft_group) is {_NOT_PORTED}")
         if qos or qos_class_weights is not None:
             raise NotImplementedError(f"QoS scheduling is {_NOT_PORTED}")
         self.phase = phase
@@ -77,13 +114,24 @@ class LLMServicer:
         else:
             self.engine = InferenceEngine(cfg, params, device=device,
                                           **engine_kw)
+        self.session = None
+        if draft_group is not None:
+            draft = _resolve_draft_engine(draft_group, seed=seed,
+                                          device=self.engine.device)
+            self.session = SpecDecodeSession(
+                self.engine, draft, k=spec_k,
+                min_acceptance=spec_min_acceptance,
+                probe_proposals=spec_probe_proposals)
+        # the session when speculating, the bare engine otherwise (the
+        # same protocol)
+        self._stepper = self.session or self.engine
 
     def submit(self, payload, *, envelope=None, **meta) -> int:
         tenant = envelope.tenant if envelope is not None else None
         qos_class = envelope.priority if envelope is not None else "normal"
         if envelope is not None and envelope.handoff is not None:
             raise NotImplementedError(f"KV handoff import is {_NOT_PORTED}")
-        return self.engine.submit(
+        return self._stepper.submit(
             payload["prompt"],
             max_new_tokens=payload.get("max_new_tokens", 16),
             temperature=payload.get("temperature", 0.0),
@@ -108,11 +156,11 @@ class LLMServicer:
 
     def step(self):
         out = []
-        if not self.engine.has_work():
+        if not self._stepper.has_work():
             time.sleep(1e-4)
             return out
-        self.engine.step()
-        for req in self.engine.collect_finished():
+        self._stepper.step()
+        for req in self._stepper.collect_finished():
             out.append((req.uid, self._result(req)))
         return out
 
@@ -135,7 +183,10 @@ class LLMServicer:
         return self.engine.stats
 
     def spec_stats(self):
-        return None  # no draft: speculative decoding is not ported yet
+        """Speculative-decoding counters (k, proposed, accepted,
+        acceptance_rate, rounds, enabled) when a draft is armed; None on
+        plain replicas."""
+        return self.session.spec_stats() if self.session else None
 
     def block_telemetry(self):
         """Live paged-pool gauges the replica set aggregates per group

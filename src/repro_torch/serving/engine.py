@@ -15,8 +15,8 @@ their KV resident after retirement, and a later prompt extending a
 resident sequence resumes it: the slot's length is rewound to the shared
 prefix and the rest of the prompt is fed through decode.
 
-``paged=True`` runs the block-paged pool with
-``paged_decode_mode="direct"`` (dense only).  Each ``step()``:
+``paged=True`` runs the block-paged pool (dense and MoE).  Each
+``step()``:
 
   1. admits queued requests while the pool's free + reclaimable blocks can
      cover their whole generation (admission by block reservation, so a
@@ -26,18 +26,24 @@ prefix and the rest of the prompt is fed through decode.
   2. feeds one prompt chunk per prefilling sequence through
      ``api.extend`` under the ``max_num_batched_tokens`` budget, charged
      at the padded bucket that actually runs;
-  3. runs one batched decode over every sequence past prefill, directly on
-     the physical store: the token's K/V is written into its tail block and
-     attention reads K/V through the block table (the hand-written CUDA
-     kernel on the card).
+  3. runs one batched decode over every sequence past prefill.  With
+     ``paged_decode_mode="direct"`` (the default) it runs directly on the
+     physical store: the token's K/V is written into its tail block and
+     attention reads K/V through the block table (the hand-written paged
+     CUDA kernel on the card).  ``"gather"`` (the reference's A/B path)
+     reassembles a contiguous view, runs the slot-pool ``decode`` (the
+     contiguous CUDA kernel on the card) and scatters the one new row back.
+
+``SpecDecodeSession`` couples a target engine and a draft engine (any mix
+of slot pool and paged pool) behind the same surface: the draft proposes
+k tokens, the target verifies them in one ``extend``.
 
 Greedy output is token-for-token the reference engine's.  Caches and
 stores are updated in place where the reference donates them to jitted
 functions, and there is one host sync per prefill and per decode step.
 
-Not ported yet (ROADMAP Queue 1 item 8): ``paged_decode_mode="gather"``,
-the slot pool's ``set_lens``/``reset_slot``, speculative decoding,
-sequence export/import and preemption.
+Not ported yet (ROADMAP Queue 1 item 8): sequence export/import and
+preemption.
 """
 from __future__ import annotations
 
@@ -102,6 +108,14 @@ def _bucket(n: int, buckets) -> int:
         if n <= b:
             return b
     return buckets[-1]
+
+
+def _pow2(n: int) -> int:
+    """The padded decode batch: the least power of two >= n."""
+    B = 1
+    while B < n:
+        B *= 2
+    return B
 
 
 @dataclasses.dataclass
@@ -205,9 +219,6 @@ class InferenceEngine:
             raise ValueError(
                 f"paged=True requires a pure text-decoder family with "
                 f"chunked extend (dense/moe), not {cfg.family!r}")
-        if paged_decode_mode != "direct":
-            raise NotImplementedError(
-                f"paged_decode_mode='gather' is {_NOT_PORTED}")
         self.paged_decode_mode = paged_decode_mode
         self.block_size = block_size
         # memory parity by default: same KV cells as a slot pool of
@@ -244,8 +255,16 @@ class InferenceEngine:
         return store, logits
 
     def _paged_decode(self, params, store, bt, lens, tokens, wphys, woff):
-        return self.api.decode_paged(params, store, bt, lens, tokens, wphys,
-                                     woff, self.cfg)
+        if self.paged_decode_mode == "direct":
+            return self.api.decode_paged(params, store, bt, lens, tokens,
+                                         wphys, woff, self.cfg)
+        # gather: a contiguous view through the slot-pool decode, then the
+        # one new row scattered back
+        view = gather_block_view(store, bt, lens)
+        view, logits = self.api.decode(params, view, tokens, self.cfg)
+        store = scatter_block_writes(store, view, wphys[:, None],
+                                     woff[:, None], lens[:, None])
+        return store, logits
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -754,9 +773,7 @@ class InferenceEngine:
             return []
         for r in active:
             self._ensure_writable(r, r.pos, 1)
-        B = 1
-        while B < len(active):
-            B *= 2
+        B = _pow2(len(active))
         mb = self.pool.max_blocks
         bs = self.block_size
         bt = np.zeros((B, mb), np.int32)
@@ -797,6 +814,496 @@ class InferenceEngine:
             self.stats.decode_tokens += 1
             self._check_done(r)
         return events
+
+
+@dataclasses.dataclass
+class _SpecSeq:
+    """One sequence's coupled state across the draft and target engines."""
+
+    treq: Request  # target-engine request (owns the emitted transcript)
+    dreq: Optional[Request]  # draft-engine request (proposal KV)
+    max_new: int  # real token budget (treq's is inflated until pairing)
+    ready: bool = False  # both engines prefilled; in the propose rotation
+    t_cov: int = 0  # target cache positions holding valid KV
+    d_cov: int = 0  # draft cache positions holding valid KV
+    last_tok: int = 0  # last emitted token (target's next verify feed)
+    # sequence tokens the draft has not fed yet (ends with last_tok);
+    # normally one token, two after a fully-accepted round
+    draft_pending: list = dataclasses.field(default_factory=list)
+
+
+class SpecDecodeSession:
+    """Cross-engine speculative decoding: DRAFT proposes, TARGET verifies.
+
+    The counterpart of the JAX package's ``SpecDecodeSession``.  Wraps two
+    ``InferenceEngine``s (any mix of slot pool and paged pool) behind the
+    engine's own submit/step/collect_finished surface.  Per round the
+    draft runs ``k`` batched greedy decode steps to propose ``k`` tokens
+    per active sequence, then the target verifies all ``k+1`` positions in
+    ONE ``extend`` forward; the leftover-token rule emits the longest
+    matching proposal prefix plus the target's pick at the first
+    divergence (so greedy output is token-for-token identical to
+    target-only decode), and both caches rewind past the rejected suffix
+    (paged: block-table truncation, tail blocks return to the admission
+    reserve; slot: one ``set_lens``).
+
+    Greedy only: sampled requests need the rejection-sampling acceptance
+    rule and are refused at ``submit``.  ``min_acceptance`` > 0 arms the
+    graceful-off path: once ``probe_proposals`` proposals have been
+    measured, a session whose acceptance rate sits below the floor stops
+    speculating for good and every later ``step()`` is a plain
+    target-engine step.  ``proposed``/``accepted`` feed the per-group
+    stats the ``weighted_capacity`` autoscaler reads.
+
+    The reference jits one slot ``extend`` per engine; here ``api.extend``
+    is called in place."""
+
+    def __init__(self, target: InferenceEngine, draft: InferenceEngine, *,
+                 k: int = 4, min_acceptance: float = 0.0,
+                 probe_proposals: int = 64):
+        if target.api.extend is None or \
+                target.cfg.family not in ("dense", "moe"):
+            raise ValueError(
+                "speculative decoding needs a target family with chunked "
+                f"extend (dense/moe), not {target.cfg.family!r}")
+        if draft.cfg.family not in ("dense", "moe"):
+            raise ValueError(
+                "speculative decoding needs a positional-KV draft family "
+                f"(dense/moe), not {draft.cfg.family!r}")
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        self.target = target
+        self.draft = draft
+        self.k = k
+        self.min_acceptance = float(min_acceptance)
+        self.probe_proposals = int(probe_proposals)
+        self.spec_enabled = True
+        self.proposed = 0
+        self.accepted = 0
+        self.rounds = 0
+        self._seqs: "OrderedDict[int, _SpecSeq]" = OrderedDict()
+
+    # ------------------------------------------------------------------
+    # Engine-compatible surface
+    # ------------------------------------------------------------------
+    @property
+    def stats(self) -> EngineStats:
+        return self.target.stats
+
+    def spec_stats(self) -> dict:
+        return {
+            "k": self.k,
+            "proposed": self.proposed,
+            "accepted": self.accepted,
+            "acceptance_rate": (self.accepted / self.proposed
+                                if self.proposed else None),
+            "rounds": self.rounds,
+            "enabled": self.spec_enabled,
+        }
+
+    def submit(self, prompt, *, max_new_tokens=16, temperature=0.0,
+               eos_id=None, tenant=None, qos_class="normal") -> int:
+        if temperature and temperature > 0:
+            raise ValueError(
+                "SpecDecodeSession serves greedy (temperature=0) requests "
+                "only; the leftover-token rule does not cover sampling")
+        prompt = list(prompt)
+        m = len(prompt)
+        # the verify forward writes up to k+1 positions past the accepted
+        # prefix, so the full budget must fit both caches with that slack
+        need = m + max_new_tokens + self.k + 1
+        for eng, who in ((self.target, "target"), (self.draft, "draft")):
+            if need >= eng.max_len:
+                raise ValueError(
+                    f"prompt ({m}) + max_new_tokens ({max_new_tokens}) + "
+                    f"k+1 must fit the {who} engine max_len ({eng.max_len})")
+            if not eng.paged and m > max(eng.buckets):
+                raise ValueError(
+                    f"prompt ({m}) exceeds the {who} engine's largest "
+                    f"prefill bucket ({max(eng.buckets)}): the truncated "
+                    f"prefill would break the verify position math")
+        if not self.spec_enabled:
+            # speculation is off for good: a plain target submit
+            return self.target.submit(prompt,
+                                      max_new_tokens=max_new_tokens,
+                                      eos_id=eos_id, tenant=tenant,
+                                      qos_class=qos_class)
+        # inflate the target budget so admission (paged: the block
+        # reservation; both: _check_done) covers the speculative
+        # overshoot; restored to the real budget when the pair activates
+        uid = self.target.submit(prompt,
+                                 max_new_tokens=max_new_tokens + self.k + 1,
+                                 eos_id=eos_id, tenant=tenant,
+                                 qos_class=qos_class)
+        treq = self.target.queue[-1]
+        self.draft.submit(prompt, max_new_tokens=max_new_tokens + self.k + 2,
+                          eos_id=None)  # the draft never self-finishes
+        self._seqs[uid] = _SpecSeq(treq=treq, dreq=self.draft.queue[-1],
+                                   max_new=max_new_tokens)
+        return uid
+
+    def has_work(self) -> bool:
+        return self.target.has_work()
+
+    def step(self) -> list:
+        t = self.target
+        if not self.spec_enabled:
+            # speculation off: exactly a plain engine step
+            return t.step()
+        if t.paged:
+            t._admit_paged()
+            t.stats.peak_running = max(t.stats.peak_running, len(t.running))
+            t._prefill_step_paged()
+        else:
+            t._admit()
+            self._complete_slot_resumes(t)
+        d = self.draft
+        if d.paged:
+            d._admit_paged()
+            d._prefill_step_paged()
+        else:
+            d._admit()
+            self._complete_slot_resumes(d)
+        self._pair_ready()
+        active = [s for s in self._seqs.values()
+                  if s.ready and not s.treq.done]
+        events = self._spec_round(active) if active else []
+        t.stats.steps += 1
+        t.stats.active_slot_steps += len(t.running)
+        t.stats.slot_steps += max(t.max_num_seqs, len(t.running))
+        if t.paged:
+            t.stats.shared_block_peak = max(t.stats.shared_block_peak,
+                                            t.pool.block_savings())
+            t.stats.free_blocks = t.pool.n_free
+            t.stats.reserved_blocks = t._reserved
+        if self.min_acceptance > 0 and self.proposed >= self.probe_proposals \
+                and self.accepted < self.min_acceptance * self.proposed:
+            self._disable_spec()
+        return events
+
+    def collect_finished(self) -> list:
+        done = self.target.collect_finished()
+        for req in done:
+            seq = self._seqs.pop(req.uid, None)
+            if seq is not None and seq.dreq is not None:
+                self._retire_draft(seq)
+        if self.spec_enabled:
+            self.draft.collect_finished()
+        return done
+
+    def run(self, *, max_steps: int = 100000) -> dict:
+        done: dict[int, Request] = {}
+        for _ in range(max_steps):
+            if not self.has_work():
+                break
+            self.step()
+            for req in self.collect_finished():
+                done[req.uid] = req
+        return done
+
+    # ------------------------------------------------------------------
+    # Pairing and teardown
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _prefilled(eng: InferenceEngine, req: Request) -> bool:
+        if not req.output:
+            return False
+        if eng.paged:
+            return not req.pending_tokens
+        return req.slot is not None and not req.pending_prefix
+
+    def _pair_ready(self):
+        for s in self._seqs.values():
+            if s.ready or s.treq.done:
+                continue
+            if not self._prefilled(self.target, s.treq):
+                continue
+            if s.dreq is None or not self._prefilled(self.draft, s.dreq):
+                continue
+            m = s.treq.n_prompt
+            s.t_cov = s.treq.pos if self.target.paged else m
+            s.d_cov = s.dreq.pos if self.draft.paged else m
+            s.last_tok = s.treq.output[-1]
+            s.draft_pending = [s.last_tok]
+            s.treq.max_new_tokens = s.max_new  # restore the real budget
+            self.target._check_done(s.treq)
+            s.ready = True
+
+    def _retire_draft(self, seq: _SpecSeq):
+        """Finish the draft-side request so its engine frees (or retains
+        as residency) the proposal KV.  The residency transcript is cut to
+        what the draft cache covers: claiming the whole emitted sequence
+        would let a later resume attend garbage."""
+        d = self.draft
+        dreq = seq.dreq
+        for i, r in enumerate(d.queue):  # identity, not dataclass ==
+            if r is dreq:
+                del d.queue[i]
+                return
+        if not self._prefilled(d, dreq):
+            dreq.truncated = True  # mid-prefill: no residency claim
+        else:
+            transcript = list(seq.treq.prompt) + list(seq.treq.output)
+            d_cov = seq.d_cov if seq.ready else dreq.n_prompt
+            dreq.output = transcript[dreq.n_prompt:d_cov + 1]
+            if not dreq.output:
+                dreq.truncated = True
+        dreq.finished_at = time.perf_counter()
+
+    def _disable_spec(self):
+        """Acceptance collapsed: stop speculating for good.  Draft-side
+        requests retire (their KV frees), inflated target budgets are
+        restored, and every later step() is a plain target-engine step."""
+        self.spec_enabled = False
+        slot_tokens = {}
+        for s in self._seqs.values():
+            if not s.ready:
+                s.treq.max_new_tokens = s.max_new
+                self.target._check_done(s.treq)
+            elif not self.target.paged and s.treq.slot is not None:
+                slot_tokens[s.treq.slot] = s.last_tok
+            if s.dreq is not None:
+                self._retire_draft(s)
+                s.dreq = None
+        if slot_tokens:  # hand the feeds to the plain decode loop
+            lt = self.target._last_tokens.clone()
+            for slot, tok in slot_tokens.items():
+                lt[slot] = tok
+            self.target._last_tokens = lt
+        self.draft.collect_finished()
+
+    # ------------------------------------------------------------------
+    # Slot-pool prefix-resume completion (chunked, via extend)
+    # ------------------------------------------------------------------
+    def _complete_slot_resumes(self, eng: InferenceEngine):
+        """A slot-pool prefix resume leaves the prompt suffix to drip in
+        one token per decode step; the session instead feeds the whole
+        suffix through ONE bucketed extend, so a resumed sequence joins
+        the propose rotation at once.  A running request with no output
+        yet is a resume (a fresh admission emits its first token inside
+        ``_admit``), the fully covered case included, where only the last
+        prompt token is left to feed.  All resumes admitted this step
+        share one extend, each slot's suffix in its own row."""
+        todo = [req for req in eng.running.values()
+                if not req.output and req.slot is not None]
+        if not todo:
+            return
+        chunks = {req.slot: list(req.prompt[req.cached_prefix:])
+                  for req in todo}
+        bucket = _bucket(max(len(c) for c in chunks.values()), eng.buckets)
+        tokens = np.zeros((eng.max_num_seqs, bucket), np.int64)
+        for slot, chunk in chunks.items():
+            tokens[slot, :len(chunk)] = chunk
+        eng.pool.cache, logits = eng.api.extend(
+            eng.params, eng.pool.cache, eng._tensor(tokens), eng.cfg)
+        gtok = torch.argmax(logits, dim=-1).cpu().numpy()
+        extra = {}
+        for req in todo:
+            T0 = len(chunks[req.slot])
+            tok = int(gtok[req.slot, T0 - 1])
+            req.pending_prefix = []
+            req.output.append(tok)
+            req.last_token = tok
+            req.first_token_at = time.perf_counter()
+            eng.stats.prefill_tokens += T0 - 1
+            extra[req.slot] = req.cached_prefix + T0
+            if eng is self.target:
+                eng._last_tokens[req.slot] = tok
+                eng._check_done(req)
+        self._rewind_slots(eng, extra=extra)
+
+    def _rewind_slots(self, eng: InferenceEngine, extra=None):
+        """Reset slot lengths after an extend or decode advanced EVERY
+        slot: each running sequence returns to its true coverage (stale KV
+        past it is never attended and is overwritten later).  Requests
+        admitted but not yet paired are covered too: their lengths moved
+        just the same."""
+        updates = dict(extra or {})
+        cov_by_req = {}
+        for s in self._seqs.values():
+            if not s.ready or s.treq.done:
+                continue
+            if eng is self.target:
+                cov_by_req[id(s.treq)] = s.t_cov
+            elif s.dreq is not None:
+                cov_by_req[id(s.dreq)] = s.d_cov
+        for slot, req in eng.running.items():
+            if slot in updates or req.done:
+                continue
+            cov = cov_by_req.get(id(req))
+            if cov is None:
+                if not req.output:  # a resume whose catch-up extend has
+                    cov = req.cached_prefix  # not run yet
+                else:  # freshly prefilled, waiting to pair
+                    n = min(req.n_prompt, eng.max_len - 1)
+                    cov = min(n, _bucket(n, eng.buckets))
+            updates[slot] = cov
+        eng.pool.set_lens(updates)
+
+    # ------------------------------------------------------------------
+    # The propose / verify / rewind round
+    # ------------------------------------------------------------------
+    def _spec_round(self, active) -> list:
+        k = self.k
+        props = {id(s): [] for s in active}
+        pend = {id(s): list(s.draft_pending) for s in active}
+        steps = max(len(s.draft_pending) for s in active) - 1 + k
+        # propose: k batched greedy draft decodes (catch-up feeds first);
+        # a sequence whose proposals are complete re-feeds its last token,
+        # which the rewind below discards
+        for j in range(steps):
+            feed = []
+            for s in active:
+                fl = pend[id(s)]
+                feed.append(fl[j] if j < len(fl) else fl[-1])
+            toks = self._draft_step(active, feed)
+            for i, s in enumerate(active):
+                fl = pend[id(s)]
+                if len(fl) - 1 <= j and len(props[id(s)]) < k:
+                    t = int(toks[i])
+                    props[id(s)].append(t)
+                    fl.append(t)
+        # verify: ONE extend forward over [last_tok, d_1..d_k]
+        chunks = np.zeros((len(active), k + 1), np.int64)
+        for i, s in enumerate(active):
+            chunks[i, 0] = s.last_tok
+            chunks[i, 1:] = props[id(s)]
+        g = self._verify(active, chunks)  # target greedy picks [B, k+1]
+        # accept, emit, rewind
+        events = []
+        t_slot_updates = {}
+        d_slot_updates = {}
+        for i, s in enumerate(active):
+            prop = props[id(s)]
+            row = g[i]
+            a = 0
+            while a < k and prop[a] == int(row[a]):
+                a += 1
+            self.proposed += k
+            self.accepted += a
+            treq = s.treq
+            n = s.t_cov + 1  # emitted sequence length before this round
+            for j in range(a + 1):
+                if treq.done:
+                    break
+                tok = int(row[j])
+                treq.output.append(tok)
+                events.append((treq.uid, tok))
+                self.target.stats.decode_tokens += 1
+                self.target._check_done(treq)
+            seq_len = treq.n_prompt + len(treq.output)
+            # valid coverage: the verified feeds matching the true sequence
+            # (capped by what was actually emitted)
+            t_new = min(n + a, seq_len - 1)
+            d_new = min(n + a if a < k else n + k - 1, seq_len - 1)
+            if treq.done:
+                continue  # retirement keeps the written KV; no rewind
+            s.t_cov = t_new
+            s.d_cov = d_new
+            s.last_tok = treq.output[-1]
+            transcript = list(treq.prompt) + list(treq.output)
+            s.draft_pending = transcript[d_new:]
+            if self.target.paged:
+                self._rewind_paged(self.target, treq, t_new)
+                treq.last_token = s.last_tok
+            else:
+                t_slot_updates[treq.slot] = t_new
+            if self.draft.paged:
+                self._rewind_paged(self.draft, s.dreq, d_new)
+            else:
+                d_slot_updates[s.dreq.slot] = d_new
+        if not self.target.paged:
+            self._rewind_slots(self.target, extra=t_slot_updates)
+        if not self.draft.paged:
+            self._rewind_slots(self.draft, extra=d_slot_updates)
+        self.rounds += 1
+        return events
+
+    def _draft_step(self, active, feed):
+        """One batched greedy decode on the draft engine; returns the
+        proposal token per active sequence."""
+        eng = self.draft
+        eng.stats.steps += 1
+        if not eng.paged:
+            feeds = np.zeros((eng.max_num_seqs,), np.int64)
+            for s, f in zip(active, feed):
+                feeds[s.dreq.slot] = f
+            eng.pool.cache, logits = eng.api.decode(
+                eng.params, eng.pool.cache, eng._tensor(feeds), eng.cfg)
+            gtok = torch.argmax(logits, dim=-1).cpu().numpy()
+            return [int(gtok[s.dreq.slot]) for s in active]
+        B = _pow2(len(active))
+        mb, bs = eng.pool.max_blocks, eng.block_size
+        bt = np.zeros((B, mb), np.int32)
+        lens = np.zeros((B,), np.int32)
+        tokens = np.zeros((B,), np.int64)
+        wphys = np.zeros((B,), np.int64)
+        woff = np.zeros((B,), np.int64)
+        for i, s in enumerate(active):
+            r = s.dreq
+            eng._ensure_writable(r, r.pos, 1)
+            bt[i, :len(r.table)] = r.table
+            lens[i] = r.pos
+            tokens[i] = feed[i]
+            p = min(r.pos, mb * bs - 1)
+            wphys[i] = r.table[p // bs]
+            woff[i] = p % bs
+        eng.pool.cache, logits = eng._paged_decode(
+            eng.params, eng.pool.cache, eng._tensor(bt), eng._tensor(lens),
+            eng._tensor(tokens), eng._tensor(wphys), eng._tensor(woff))
+        for s in active:
+            s.dreq.pos += 1
+        gtok = torch.argmax(logits, dim=-1).cpu().numpy()
+        return [int(gtok[i]) for i in range(len(active))]
+
+    def _verify(self, active, chunks):
+        """ONE extend forward verifying all k+1 positions per sequence;
+        returns the target's greedy pick at each position [B, k+1]."""
+        eng = self.target
+        T = chunks.shape[1]
+        if not eng.paged:
+            tokens = np.zeros((eng.max_num_seqs, T), np.int64)
+            for i, s in enumerate(active):
+                tokens[s.treq.slot] = chunks[i]
+            eng.pool.cache, logits = eng.api.extend(
+                eng.params, eng.pool.cache, eng._tensor(tokens), eng.cfg)
+            gtok = torch.argmax(logits, dim=-1).cpu().numpy()
+            return gtok[[s.treq.slot for s in active]]
+        B = _pow2(len(active))
+        mb, bs = eng.pool.max_blocks, eng.block_size
+        bt = np.zeros((B, mb), np.int32)
+        lens = np.zeros((B,), np.int32)
+        tokens = np.zeros((B, T), np.int64)
+        wphys = np.zeros((B, T), np.int64)
+        woff = np.zeros((B, T), np.int64)
+        for i, s in enumerate(active):
+            r = s.treq
+            eng._ensure_writable(r, s.t_cov, T)
+            bt[i, :len(r.table)] = r.table
+            lens[i] = s.t_cov
+            tokens[i] = chunks[i]
+            for t in range(T):
+                p = min(s.t_cov + t, mb * bs - 1)
+                wphys[i, t] = r.table[p // bs]
+                woff[i, t] = p % bs
+        eng.pool.cache, logits = eng._paged_extend(
+            eng.params, eng.pool.cache, eng._tensor(bt), eng._tensor(lens),
+            eng._tensor(tokens), eng._tensor(wphys), eng._tensor(woff))
+        gtok = torch.argmax(logits, dim=-1).cpu().numpy()
+        return gtok[:len(active)]
+
+    @staticmethod
+    def _rewind_paged(eng: InferenceEngine, req: Request, new_pos: int):
+        """Truncate the block table past the accepted prefix: tail blocks
+        holding only rejected K/V free back to the pool AND to the
+        request's admission reserve (symmetric with ``_alloc_block``), so
+        the reservation accounting stays exact across rounds."""
+        keep = max(1, -(-new_pos // eng.block_size))
+        while len(req.table) > keep:
+            eng.pool.alloc.free(req.table.pop())
+            req.reserve_left += 1
+            eng._reserved += 1
+        req.pos = new_pos
 
 
 def make_engine_from_scratch(cfg: ModelConfig, *, seed=0, device=None, **kw):

@@ -190,9 +190,23 @@ class CachePool:
     def set_len(self, slot: int, n: int):
         """Fix the true sequence length of a right-padded bucketed
         prefill."""
+        self.set_lens({slot: n})
+
+    def set_lens(self, updates: dict):
+        """Set many slots' lengths (``{slot: n}``) at once, in place.  The
+        speculative-decode rewind uses this: a verify forward advances
+        EVERY slot's length by the chunk width, so all tracked slots
+        rewind together."""
         for path, leaf in _leaves(self.cache):
             if path[-1] == "len":
-                leaf.select(batch_dim_for(path, leaf.dim()), slot).fill_(n)
+                bdim = batch_dim_for(path, leaf.dim())
+                for slot, n in updates.items():
+                    leaf.select(bdim, slot).fill_(n)
+
+    def reset_slot(self, slot: int):
+        """Zero every cache leaf of ``slot``, in place."""
+        for path, leaf in _leaves(self.cache):
+            leaf.select(batch_dim_for(path, leaf.dim()), slot).zero_()
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""Token sampling: greedy / temperature / top-k / top-p.
+"""Token sampling (greedy / temperature / top-k / top-p) and the greedy
+speculative-decoding acceptance rule.
 
-The counterpart of the JAX package's ``sample``.  A ``torch.Generator``
+The counterpart of the JAX package's ``sample`` and
+``speculative_accept``.  A ``torch.Generator``
 takes the place of the ``jax.random`` key, so sampled tokens differ from
 the reference's; the filtered logit masks and greedy picks are the same.
 """
@@ -46,3 +48,26 @@ def sample(logits, generator: torch.Generator, *, temperature: float = 0.0,
     u = torch.rand(logits.shape, generator=generator, device=logits.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
     return torch.argmax(logits + gumbel, dim=-1)
+
+
+def speculative_accept(proposed, target_tokens):
+    """Leftover-token acceptance for greedy speculative decoding.
+
+    ``proposed`` [B, k] are the draft's proposals; ``target_tokens``
+    [B, k+1] are the target's greedy picks at the k+1 verified positions
+    (position j's pick conditions on the previous token plus proposals
+    ``proposed[:, :j]``).  Returns ``n_accept`` [B]: the length of the
+    longest matching prefix (a proposal counts only if every earlier one
+    matched, hence the cumulative product).  The emitted tokens are
+    ``target_tokens[b, : n_accept[b] + 1]`` per row: the accepted
+    proposals (which EQUAL the target picks) plus the target's pick at the
+    first divergence (or the bonus token when all k were accepted)."""
+    proposed = torch.as_tensor(proposed)
+    target_tokens = torch.as_tensor(target_tokens)
+    if proposed.dim() != 2 or target_tokens.dim() != 2 or \
+            target_tokens.shape[1] != proposed.shape[1] + 1:
+        raise ValueError(
+            f"expected proposed [B, k] and target [B, k+1], got "
+            f"{tuple(proposed.shape)} / {tuple(target_tokens.shape)}")
+    matches = (proposed == target_tokens[:, :-1]).to(torch.int64)
+    return torch.cumprod(matches, dim=1).sum(dim=1)

@@ -11,7 +11,10 @@ The reference stacks every block leaf to ``[L, ...]`` and decays the
 leaves with ``ndim >= 2``, so every block leaf is decayed (rmsnorm scales
 and biases included).  The port keeps the blocks as a list of per-layer
 dicts, so it decides by the reference's rank: every leaf under ``blocks``
-is decayed, and a top-level leaf is decayed if it is at least 2-D.  The
+is decayed, and a top-level leaf is decayed if it is at least 2-D.  An
+MoE model's first dense layers are the exception: the reference keeps
+them unstacked under ``pre``, so their leaves are decayed by their own
+rank.  The
 quantized moments block the last dimension, so per-layer codes and scales
 equal the stacked ones row by row.  The schedule, the clip factor and the
 bias corrections are float32, as in the reference.
@@ -84,9 +87,20 @@ def tree_unflatten(template, leaves):
     return rebuild(template)
 
 
-def decays(path, p) -> bool:
-    """Whether AdamW decays the leaf at ``path`` (see the module doc)."""
-    return path[0] == "blocks" or p.dim() >= 2
+def unstacked_blocks(params) -> frozenset:
+    """Indices of the blocks the reference keeps unstacked: in an MoE
+    model (some block carries ``moe``) the dense ones, ``pre/layer_i``."""
+    blocks = params.get("blocks") or []
+    if not any("moe" in b for b in blocks):
+        return frozenset()
+    return frozenset(i for i, b in enumerate(blocks) if "moe" not in b)
+
+
+def decays(path, p, unstacked=frozenset()) -> bool:
+    """Whether AdamW decays the leaf at ``path`` (see the module doc);
+    ``unstacked`` is ``unstacked_blocks(params)``."""
+    return (path[0] == "blocks" and path[1] not in unstacked) \
+        or p.dim() >= 2
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +207,7 @@ def adamw_update(grads, opt_state, params, cfg: OptimizerConfig):
     bc1 = float(f(1) - f(cfg.b1) ** t)
     bc2 = float(f(1) - f(cfg.b2) ** t)
 
+    unstacked = unstacked_blocks(params)
     for (path, p), g in zip(named_leaves(params), tree_leaves(grads)):
         g = g.float() * clip
         mom = _moment_dict(opt_state["moments"], path)
@@ -206,7 +221,7 @@ def adamw_update(grads, opt_state, params, cfg: OptimizerConfig):
         del g
         upd = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
         p32 = p.float()  # p itself when p is float32
-        if cfg.weight_decay > 0 and decays(path, p):
+        if cfg.weight_decay > 0 and decays(path, p, unstacked):
             upd.add_(cfg.weight_decay * p32)
         p.copy_(p32.sub_(lr * upd))
         del upd, p32

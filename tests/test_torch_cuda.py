@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain versions, on the card;
-one training step and the slot engine on the card against the same work
-on the CPU.
+one training step, the slot engine, the MoE paged engine in both decode
+modes and a speculative-decoding session on the card against the same
+work on the CPU or the plain target engine.
 
 Needs a CUDA card and imports neither JAX nor the JAX package, so it runs
 where the port runs:
@@ -586,10 +587,12 @@ def _served(arch, argv, counter):
 @pytest.mark.parametrize("arch,argv,counter", [
     ("llama3.2-3b", [], "launches"),
     ("qwen3-8b", [], "launches"),
-    ("qwen3-8b", ["--no-paged"], "contiguous_launches")])
+    ("qwen3-8b", ["--no-paged"], "contiguous_launches"),
+    ("deepseek-moe-16b", [], "launches")])
 def test_cuda_serve_launcher_runs_smoke_archs(cuda, arch, argv, counter):
     """``repro_torch.launch.serve --arch <arch>`` on the card serves the
-    arch's smoke config (head_dim 8 for llama3.2-3b, 16 for qwen3-8b)
+    arch's smoke config (head_dim 8 for llama3.2-3b, 16 for qwen3-8b and
+    deepseek-moe-16b)
     through the paged pool (or the slot pool with ``--no-paged``): every
     request comes back whole, no replica failed, and the decode kernel ran
     n_layers times a decode step."""
@@ -619,3 +622,113 @@ def test_cuda_train_launcher_runs_a_smoke_arch(cuda):
     assert len(out["losses"]) == 5
     assert all(np.isfinite(x) for x in out["losses"])
     assert fa_ops.launches - before == 2 * cfg.n_layers * 5
+
+
+@pytest.mark.cuda
+def test_cuda_train_launcher_runs_moe(cuda):
+    """``--arch deepseek-moe-16b --steps 3``: the MoE smoke config's
+    forward and loss on the card, the flash kernel 2 x n_layers a step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train
+
+    before = fa_ops.launches
+    out = train.main(["--arch", "deepseek-moe-16b", "--steps", "3"])
+    torch.cuda.synchronize()
+    cfg = get_smoke_config("deepseek-moe-16b")
+    assert len(out["losses"]) == 3
+    assert all(np.isfinite(x) for x in out["losses"])
+    assert fa_ops.launches - before == 2 * cfg.n_layers * 3
+
+
+def _moe_engines(mode, **kw):
+    """The deepseek-moe-16b smoke config (f32) from one set of weights,
+    as paged engines on the CPU and on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.training import optim
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("deepseek-moe-16b")
+    params = get_model(cfg).init(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    engine_kw = dict(max_num_seqs=4, max_num_batched_tokens=256, max_len=64,
+                     prefill_buckets=(16, 32), paged=True, block_size=8,
+                     paged_decode_mode=mode, **kw)
+    return cfg, [InferenceEngine(cfg, p, device=d, **engine_kw)
+                 for d, p in (("cpu", params),
+                              ("cuda", optim.tree_map(lambda t: t.cuda(),
+                                                      params)))]
+
+
+def _launch_counts():
+    return ops.launches, ops.contiguous_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["direct", "gather"])
+def test_cuda_moe_paged_engine_matches_cpu_run(cuda, mode):
+    """The MoE paged engine on the card and on the CPU, same weights and
+    prompts (lengths at the block edges): identical greedy transcripts and
+    counters; ``direct`` launches the paged decode kernel n_layers times
+    a decode step and ``gather`` the contiguous one, never the other."""
+    cfg, engines = _moe_engines(mode)
+    rng = np.random.RandomState(7)
+    prompts = [list(map(int, rng.randint(1, cfg.vocab, size=n)))
+               for n in (7, 8, 9, 15, 16, 17)]
+    runs = []
+    for eng in engines:
+        before = _launch_counts()
+        uids = [eng.submit(q, max_new_tokens=6) for q in prompts]
+        done = eng.run()
+        torch.cuda.synchronize()
+        runs.append(([done[u].output for u in uids], eng.stats,
+                     [a - b for a, b in zip(_launch_counts(), before)]))
+    (cpu_out, cpu_stats, cpu_launches), (out, stats, launches) = runs
+    assert out == cpu_out
+    assert cpu_launches == [0, 0]
+    want = cfg.n_layers * stats.decode_steps
+    assert want > 0
+    assert launches == ([want, 0] if mode == "direct" else [0, want])
+    for name in ("decode_steps", "prefill_tokens", "decode_tokens"):
+        assert getattr(stats, name) == getattr(cpu_stats, name), name
+
+
+@pytest.mark.cuda
+def test_cuda_spec_session_matches_plain_target(cuda):
+    """A MoE target (smoke config, f32) with a same-config draft cut to
+    its one dense layer, paged and paged, on the card: the transcripts of
+    the plain target engine; the draft's paged decodes launch the kernel
+    once a draft step, and the target, verifying through ``extend``,
+    launches no decode kernel."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving.engine import (InferenceEngine,
+                                            SpecDecodeSession,
+                                            make_engine_from_scratch)
+
+    cfg, (_, target) = _moe_engines("direct")
+    dcfg = get_smoke_config("deepseek-moe-16b").scaled(n_layers=1)
+    draft = make_engine_from_scratch(dcfg, seed=1, device="cuda",
+                                     paged=True, max_num_seqs=4, max_len=64,
+                                     prefill_buckets=(16, 32), block_size=8)
+    plain = InferenceEngine(cfg, target.params, device="cuda", paged=True,
+                            max_num_seqs=4, max_num_batched_tokens=256,
+                            max_len=64, prefill_buckets=(16, 32),
+                            block_size=8)
+    rng = np.random.RandomState(3)
+    prompts = [list(map(int, rng.randint(1, cfg.vocab, size=n)))
+               for n in (5, 9, 3, 7)]
+    uids = [plain.submit(q, max_new_tokens=10) for q in prompts]
+    done = plain.run()
+    want = [done[u].output for u in uids]
+    sess = SpecDecodeSession(target, draft, k=3)
+    before = _launch_counts()
+    uids = [sess.submit(q, max_new_tokens=10) for q in prompts]
+    done = sess.run()
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(_launch_counts(), before)]
+    assert [done[u].output for u in uids] == want
+    ss = sess.spec_stats()
+    assert ss["proposed"] > 0 and 0.0 <= ss["acceptance_rate"] <= 1.0
+    assert target.stats.decode_steps == 0
+    assert launched == [dcfg.n_layers * draft.stats.steps, 0]

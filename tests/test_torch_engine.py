@@ -124,16 +124,36 @@ def test_engine_matches_reference(scenario, lm):
     assert eng.pool.alloc._ref == ref_eng.pool.alloc._ref
 
 
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+def test_engine_gather_mode_matches_reference(scenario, lm):
+    """``paged_decode_mode="gather"`` (a contiguous view through the
+    slot-pool decode, the new row scattered back): the reference's
+    transcripts and block accounting in the same mode."""
+    cfg, _, params, tcfg, tparams = lm
+    run = SCENARIOS[scenario]
+    ref_eng, ref_out = run(lambda **kw: JaxEngine(
+        cfg, params, paged=True, paged_decode_mode="gather", **kw))
+    eng, out = run(lambda **kw: InferenceEngine(
+        tcfg, tparams, device="cpu", paged=True, paged_decode_mode="gather",
+        **kw))
+    assert out == ref_out
+    for name in COUNTERS:
+        assert getattr(eng.stats, name) == getattr(ref_eng.stats, name), name
+    assert eng.block_telemetry() == ref_eng.block_telemetry()
+    assert eng.pool.alloc._ref == ref_eng.pool.alloc._ref
+
+
 def test_engine_refuses_what_is_not_ported(lm):
     """``paged=False`` builds the slot pool, as the reference's default;
-    the paged engine's ``"gather"`` mode and preemption still raise."""
+    the paged engine takes the ``"gather"`` decode mode, refuses an
+    unknown one, and preemption still raises."""
     _, _, _, tcfg, tparams = lm
     slot = InferenceEngine(tcfg, tparams, device="cpu", **ENGINE_KW)
     assert not slot.paged and slot.pool.n_free == ENGINE_KW["max_num_seqs"]
     assert slot.block_telemetry() is None
-    with pytest.raises(NotImplementedError, match="gather"):
-        InferenceEngine(tcfg, tparams, device="cpu", paged=True,
-                        paged_decode_mode="gather")
+    gather = InferenceEngine(tcfg, tparams, device="cpu", paged=True,
+                             paged_decode_mode="gather")
+    assert gather.paged_decode_mode == "gather"
     with pytest.raises(ValueError, match="paged_decode_mode"):
         InferenceEngine(tcfg, tparams, device="cpu", paged=True,
                         paged_decode_mode="telepathy")

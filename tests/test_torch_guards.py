@@ -80,7 +80,8 @@ def _launched_configs():
 
     picked = [(f"{a}-smoke", get_smoke_config(a)) for a in list_archs()]
     picked += [(f"{a}-full", get_config(a)) for a in
-               ("rhapsody-demo", "llama3.2-3b", "rwkv6-1.6b", "zamba2-2.7b")]
+               ("rhapsody-demo", "llama3.2-3b", "rwkv6-1.6b", "zamba2-2.7b",
+                "deepseek-moe-16b")]
     served = []
     for label, cfg in picked:
         try:

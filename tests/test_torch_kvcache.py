@@ -157,3 +157,72 @@ def test_pools_default_to_the_card():
         tkv.PagedCachePool(tcfg, num_blocks=9, block_size=8, max_len=32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tkv.CachePool(tcfg, 2, 16)
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _fill(pool, rng):
+    """Random cache contents (lengths 1..8) -> {path: ndarray}."""
+    data = {}
+    for path, leaf in _leaves(pool.cache):
+        a = rng.randint(1, 9, size=leaf.shape) if path[-1] == "len" \
+            else rng.randn(*leaf.shape)
+        data[path] = a.astype(leaf.numpy().dtype)
+        leaf.copy_(torch.from_numpy(data[path]))
+    return data
+
+
+def test_slot_pool_set_lens_and_reset_slot_match_reference():
+    """``set_lens`` (many slots' lengths at once, the speculative rewind)
+    and ``reset_slot`` on the same random cache as the reference's, exact:
+    zamba2's cache, whose ``len`` is [G, B] (the reference's layout)."""
+    from repro.configs import get_smoke_config
+
+    cfg = get_smoke_config("zamba2-2.7b")
+    ref = jkv.CachePool(cfg, 4, 16)
+    pool = tkv.CachePool(ModelConfig(**dataclasses.asdict(cfg)), 4, 16,
+                         device="cpu")
+    data = _fill(pool, np.random.RandomState(0))
+
+    def build(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: build(v, path + (k,)) for k, v in tree.items()}
+        return jnp.asarray(data[path], tree.dtype)
+
+    ref.cache = build(ref.cache)
+    for pl in (ref, pool):
+        pl.set_lens({0: 5, 3: 11})
+        pl.set_lens({})
+        pl.reset_slot(1)
+    want = dict(_leaves(ref.cache))
+    got = dict(_leaves(pool.cache))
+    assert set(got) == set(want)
+    for path, leaf in got.items():
+        np.testing.assert_array_equal(leaf.float().numpy(),
+                                      np.asarray(want[path], np.float32),
+                                      err_msg=str(path))
+
+
+def test_dense_slot_pool_set_lens_and_reset_slot():
+    """The dense cache keeps one ``len`` [B] (the reference one a layer):
+    ``set_lens`` sets the named slots only; ``reset_slot`` zeroes one
+    slot's K, V and length and nothing else."""
+    pool = tkv.CachePool(ModelConfig(**dataclasses.asdict(dense_cfg())), 4,
+                         16, device="cpu")
+    data = _fill(pool, np.random.RandomState(1))
+    pool.set_lens({0: 5, 3: 11})
+    pool.reset_slot(1)
+    want_len = data[("len",)].copy()
+    want_len[[0, 3]] = [5, 11]
+    want_len[1] = 0
+    assert pool.cache["len"].tolist() == want_len.tolist()
+    for name in ("k", "v"):
+        want = data[(name,)].copy()
+        want[:, 1] = 0
+        np.testing.assert_array_equal(pool.cache[name].numpy(), want)

@@ -94,7 +94,7 @@ def test_servicer_hooks_and_unported_options():
     while not results:
         results = s.step()
     assert results[0][0] == uid and len(results[0][1]["tokens"]) == 3
-    for kw in ({"phase": "prefill"}, {"draft_group": tcfg}, {"qos": True}):
+    for kw in ({"phase": "prefill"}, {"qos": True}):
         with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
             LLMServicer(tcfg, tparams, device="cpu", **kw, **ENGINE_KW)
     with pytest.raises(NotImplementedError):
@@ -124,3 +124,17 @@ def test_launcher_serves_the_slot_pool_on_cpu(flags, capsys):
     assert out["errors"] == [None, None]
     assert out["decode_steps"] > 0
     assert "paged-block telemetry" not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "moonshot-v1-16b-a3b"])
+def test_launcher_serves_moe_archs_on_cpu(arch, capsys):
+    """``--arch`` of an MoE arch serves its smoke config (as the
+    reference's launcher does) on the paged pool."""
+    out = serve.main(["--device", "cpu", "--arch", arch, "--replicas", "2",
+                      "--requests", "4", "--max-new-tokens", "3"])
+    assert all(len(r["tokens"]) == 3 for r in out["results"])
+    assert out["errors"] == [None, None]
+    assert out["decode_steps"] > 0
+    printed = capsys.readouterr().out
+    assert f"[serve] {arch} x 2 replicas" in printed
+    assert "paged-block telemetry" in printed

@@ -334,6 +334,15 @@ def test_launcher_trains_and_resumes_on_cpu(tmp_path, capsys):
     assert "[train] done: 3 steps, arch=rhapsody-demo" in printed
 
 
+def test_launcher_trains_moe_on_cpu(capsys):
+    """``--arch deepseek-moe-16b`` trains its smoke config: the MoE
+    forward and loss, with the router's aux in the loss."""
+    out = launch_train.main(["--device", "cpu", "--arch", "deepseek-moe-16b",
+                             "--steps", "3", "--log-every", "1"])
+    assert out["steps"] == 3 and np.isfinite(out["losses"]).all()
+    assert "arch=deepseek-moe-16b" in capsys.readouterr().out
+
+
 def test_attention_apply_raises_for_unported_modes(lm):
     from repro_torch.models import attention
 
