@@ -131,13 +131,32 @@ Phases, each printing one JSON line:
    draft sharing its parameters, beside the plain target on the same 8
    requests: acceptance and generated tokens/s of both, at the config's
    decode capacity and at n_experts / top_k (no drops).
+21. disaggregated serving, f32 and exact: llama3.2-3b's full width cut to
+   2 layers; a prefill engine (``step_prefill_only``) exports 8 sequences
+   at their first token, a decode engine imports them (the imported
+   blocks, extracted again, bit-equal to the payload) and finishes them:
+   the transcripts of a unified engine (teacher-forced where they differ);
+   the prefill engine launches no decode kernel.  Then two sequences
+   preempted mid-decode resume with the transcript of uninterrupted decode
+   and their first-token stamps, and ``generate_stream`` gives
+   ``step()``'s tokens.
+22. disaggregated serving at full width: llama3.2-3b (bf16, 28 layers,
+   random weights from seed 0) behind ``Rhapsody`` as a prefill group and
+   a decode group of one replica each over one parameter set, phase 8's
+   traffic addressed to the prefill group: every result handed off and
+   imported (no recompute), the prefill replica never decodes; TTFT and
+   ITL p95s, the payload's bytes and the export and import times, in
+   service and alone; then a WFQ servicer on a small pool where a
+   high-class request preempts low-class decodes.
 
 Every phase that drives a path sets all five kernels' launch counts to 0
 just before it runs and checks every count just after: the paged serving
 phases launch the paged decode kernel n_layers x decode steps times (the
 contiguous one in ``gather`` mode); a speculative session launches its
 draft's decode kernel n_layers x draft steps times and, verifying through
-``extend``, none for the target; the
+``extend``, none for the target; a disaggregated pair launches the paged
+kernel n_layers x the decode engine's decode steps, none for the prefill
+engine; the
 slot-pool phases launch WKV6 n_layers x prefills (rwkv6), SSD n_layers x
 prefills and the contiguous decode n_layers / attn_every x decode steps
 (zamba2), or the contiguous decode n_layers x decode steps (dense); a
@@ -672,11 +691,48 @@ def phase_launcher(serve, configs):
     return runs
 
 
+def p95(xs):
+    xs = sorted(xs)
+    return xs[int(len(xs) * 0.95)]
+
+
+def serve_pass(torch, core, rh, cfg, rng, lens, mnt, where, model=None):
+    """One pass of the main path's traffic through ``rh``: fresh prompts
+    of ``lens`` (addressed to group ``model`` when given), greedy, ``mnt``
+    new tokens each.  -> (prompts, results, record)."""
+    prompts = [list(map(int, rng.randint(0, cfg.vocab, size=int(n))))
+               for n in lens]
+    extra = {} if model is None else {"model": model}
+    descs = [core.TaskDescription(
+        kind=core.TaskKind.INFERENCE, service="llm",
+        payload={"prompt": p, "max_new_tokens": mnt, **extra},
+        task_type="inference") for p in prompts]
+    t0 = time.perf_counter()
+    uids = rh.submit(descs)
+    check(rh.wait(uids, timeout=600), f"{where} timed out")
+    results = [rh.result(u) for u in uids]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(all(len(r["tokens"]) == mnt for r in results),
+          f"{where}: a request came back short")
+    check(all(0 <= t < cfg.vocab for r in results for t in r["tokens"]),
+          f"{where}: a token outside the vocabulary")
+    lat = sorted(r["latency_s"] for r in results)
+    gen_tokens = sum(len(r["tokens"]) for r in results)
+    all_tokens = gen_tokens + sum(r["n_prompt"] for r in results)
+    return prompts, results, {
+        "seconds": dt, "tok_per_s": all_tokens / dt,
+        "gen_tok_per_s": gen_tokens / dt,
+        "latency_p50_s": lat[len(lat) // 2], "latency_p95_s": p95(lat),
+        "ttft_p95_s": p95([r["ttft_s"] for r in results]),
+        "itl_p95_s": p95([r["itl_s"] for r in results])}
+
+
 def phase_main_path(torch, configs, core, client, cfg=None, params=None):
     """llama3.2-3b at full width behind Rhapsody: 2 replicas, 16 requests,
     served twice with fresh prompts of the same lengths.  The first pass
     pays every first call (matmul shapes, allocator growth); the second
-    is warm.  Phase 18 passes another ``cfg`` and the ``params`` both
+    is warm.  Phase 19 passes another ``cfg`` and the ``params`` both
     replicas serve (one parameter set, not a copy each)."""
     cfg = cfg or configs.get_config(MAIN_PATH_ARCH)
     where = "main path" if params is None else cfg.name
@@ -693,40 +749,12 @@ def phase_main_path(torch, configs, core, client, cfg=None, params=None):
         setup_s = time.perf_counter() - t_up
         rng = np.random.RandomState(0)
         lens = main_path_prompt_lens(rng, n_req)
-
-        def serve_pass():
-            prompts = [list(map(int, rng.randint(0, cfg.vocab,
-                                                 size=int(n))))
-                       for n in lens]
-            descs = [core.TaskDescription(
-                kind=core.TaskKind.INFERENCE, service="llm",
-                payload={"prompt": p, "max_new_tokens": mnt},
-                task_type="inference") for p in prompts]
-            t0 = time.perf_counter()
-            uids = rh.submit(descs)
-            check(rh.wait(uids, timeout=600), f"{where} timed out")
-            results = [rh.result(u) for u in uids]
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            check(all(len(r["tokens"]) == mnt for r in results),
-                  f"{where}: a request came back short")
-            check(all(0 <= t < cfg.vocab
-                      for r in results for t in r["tokens"]),
-                  f"{where}: a token outside the vocabulary")
-            lat = sorted(r["latency_s"] for r in results)
-            gen_tokens = sum(len(r["tokens"]) for r in results)
-            all_tokens = gen_tokens + sum(r["n_prompt"] for r in results)
-            return prompts, {
-                "seconds": dt, "tok_per_s": all_tokens / dt,
-                "gen_tok_per_s": gen_tokens / dt,
-                "latency_p50_s": lat[len(lat) // 2],
-                "latency_p95_s": lat[int(len(lat) * 0.95)]}
-
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
-        prompts, cold = serve_pass()
-        _, warm = serve_pass()
+        prompts, _, cold = serve_pass(torch, core, rh, cfg, rng, lens, mnt,
+                                      where)
+        _, _, warm = serve_pass(torch, core, rh, cfg, rng, lens, mnt, where)
         errors = [inst.error for inst in rs.instances]
         decode_steps = sum(inst.servicer.stats.decode_steps
                            for inst in rs.instances)
@@ -2084,6 +2112,361 @@ def phase_spec_bf16(torch, engine_mod, cfg, params):
             "requests": len(prompts), "new_tokens": mnt, "runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# Disaggregated prefill->decode serving and QoS preemption (phases 21-22)
+# ---------------------------------------------------------------------------
+
+
+def export_all(pre, n):
+    """Chunk-prefill on a prefill-role engine until ``n`` sequences are
+    exported: -> {uid: payload}."""
+    pays = {}
+    for _ in range(10000):
+        if len(pays) >= n:
+            break
+        pre.step_prefill_only()
+        for uid in pre.exportable():
+            pays[uid] = pre.export_sequence(uid)
+    check(len(pays) == n, f"prefill engine exported {len(pays)} of {n}")
+    return pays
+
+
+def payload_bytes(pay):
+    return sum(t.numel() * t.element_size() for t in pay["leaves"].values())
+
+
+def phase_disagg_exact(torch, configs, get_model, engine_mod, client,
+                       kvcache):
+    """llama3.2-3b's full width cut to 2 layers, f32, on the card: a
+    prefill engine exports each sequence at its first token and a decode
+    engine imports and finishes it; the imported blocks, extracted again,
+    equal the payload bit for bit, and the transcripts equal a unified
+    engine's (where a token differs, the kernel-free oracle's top-two gap
+    there is under MODEL_GAP_TOL).  The prefill engine launches no decode
+    kernel, the decode engine the paged one n_layers x decode steps.
+    Then a preempt -> resume on a unified engine, and ``generate_stream``
+    against ``step()``."""
+    cfg = configs.get_config(MAIN_PATH_ARCH).scaled(
+        n_layers=2, param_dtype="float32", compute_dtype="float32")
+    params = get_model(cfg).init(torch.Generator(device=DEVICE).manual_seed(0),
+                                 cfg, device=DEVICE)
+    kw = dict(MAIN_PATH_ENGINE, max_len=256)
+
+    def engine():
+        return engine_mod.InferenceEngine(cfg, params, device=DEVICE, **kw)
+
+    rng = np.random.RandomState(21)
+    lens = [int(n) for n in main_path_prompt_lens(rng, 6)] + [16, 17]
+    prompts = [list(map(int, rng.randint(1, cfg.vocab, size=n)))
+               for n in lens]
+    mnt, memo = 12, {}
+    uni = engine()
+    uids = [uni.submit(p, max_new_tokens=mnt) for p in prompts]
+    done = uni.run()
+    want = [done[u].output for u in uids]
+
+    pre, dec = engine(), engine()
+    zero_launches()
+    puids = [pre.submit(p, max_new_tokens=mnt) for p in prompts]
+    pays = export_all(pre, len(prompts))
+    torch.cuda.synchronize()
+    pre_launches = check_launches("disagg exact prefill")
+    check(pre.stats.decode_steps == 0, "the prefill engine decoded")
+    bit_equal = True
+    moved = []
+    for u in puids:
+        nuid = dec.import_sequence(pays[u])
+        check(nuid is not None, "disagg exact: an import was refused")
+        again = kvcache.extract_blocks(dec.pool.cache,
+                                       dec.running[nuid].table)
+        bit_equal &= all(torch.equal(again[k], v)
+                         for k, v in pays[u]["leaves"].items())
+        moved.append(nuid)
+    check(bit_equal, "disagg exact: imported blocks differ from the payload")
+    zero_launches()
+    done = dec.run()
+    torch.cuda.synchronize()
+    dec_launches = check_launches(
+        "disagg exact decode",
+        paged_decode_attention=cfg.n_layers * dec.stats.decode_steps)[
+        "paged_decode_attention"]
+    check(dec_launches > 0, "disagg exact: no decode step ran")
+    got = [done[u].output for u in moved]
+    flips = [] if got == want else teacher_forced(
+        torch, get_model, cfg, params, prompts + prompts, got + want,
+        "disagg exact", memo)
+
+    # preempt -> resume: the first two sequences preempted mid-decode
+    eng = engine()
+    uids = [eng.submit(p, max_new_tokens=mnt) for p in prompts]
+    preempted, stamps = [], {}
+    zero_launches()
+    for _ in range(1000):
+        eng.step()
+        for u in uids[:2]:
+            r = eng.running.get(u)
+            if (u not in preempted and r is not None and len(r.output) >= 3
+                    and not r.pending_tokens):
+                stamps[u] = r.first_token_at
+                check(eng.preempt_sequence(u), "a decoding sequence was "
+                      "not preemptable")
+                preempted.append(u)
+        if len(preempted) == 2:
+            break
+    done = eng.run()
+    torch.cuda.synchronize()
+    check_launches("disagg exact preempt",
+                   paged_decode_attention=cfg.n_layers
+                   * eng.stats.decode_steps)
+    check(eng.stats.preemptions == eng.stats.preempt_resumes == 2,
+          f"preemptions {eng.stats.preemptions}, resumes "
+          f"{eng.stats.preempt_resumes}")
+    check(all(done[u].first_token_at == stamps[u] for u in preempted),
+          "a resumed sequence lost its first-token stamp")
+    resumed = [done[u].output for u in uids]
+    pflips = [] if resumed == want else teacher_forced(
+        torch, get_model, cfg, params, prompts, resumed, "preempt resume",
+        memo)
+
+    # generate_stream vs step() on two servicers over the same weights
+    svs = [client.LLMServicer(cfg, params, device=DEVICE, **kw)
+           for _ in range(2)]
+    payload = {"prompt": prompts[0], "max_new_tokens": mnt}
+    zero_launches()
+    streamed = list(svs[0].generate_stream(payload))
+    uid = svs[1].submit(payload)
+    stepped = []
+    while not stepped:
+        stepped = [res for u, res in svs[1].step() if u == uid]
+    torch.cuda.synchronize()
+    check_launches("generate_stream", paged_decode_attention=cfg.n_layers
+                   * sum(sv.stats.decode_steps for sv in svs))
+    tokens = [e["token"] for e in streamed[:-1]]
+    check(tokens == streamed[-1]["tokens"] == stepped[0]["tokens"],
+          "generate_stream's tokens differ from step()'s")
+    return {"config": f"{cfg.name} f32 x {cfg.n_layers} layers",
+            "d_model": cfg.d_model, "vocab": cfg.vocab,
+            "prompt_lens": lens, "new_tokens": mnt,
+            "payload_bytes": [payload_bytes(pays[u]) for u in puids],
+            "imported_blocks_bit_equal": bit_equal,
+            "transcripts_equal_unified": got == want,
+            "teacher_forced_flips": flips,
+            "prefill_launches": pre_launches,
+            "decode_launches": dec_launches,
+            "decode_steps": dec.stats.decode_steps,
+            "preempted": len(preempted),
+            "preempt_transcripts_equal": resumed == want,
+            "preempt_teacher_forced_flips": pflips,
+            "stream_equal_step": True}
+
+
+def timed(fn, torch, log):
+    """``fn`` wrapped to append its host time (ms) to ``log``, the card's
+    queue drained after it (an import's copies are then done)."""
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return call
+
+
+def handoff_alone(torch, engine_mod, cfg, params, prompts, mnt):
+    """The handoff with nothing else on the card: one engine prefills and
+    exports ``prompts``, another imports them (each call's host time, the
+    card idle before it) and finishes them.  Call on fresh launch
+    counts."""
+    pre, dec = (engine_mod.InferenceEngine(cfg, params, device=DEVICE,
+                                           **MAIN_PATH_ENGINE)
+                for _ in range(2))
+    for p in prompts:
+        pre.submit(p, max_new_tokens=mnt)
+    exp_ms, imp_ms, pays = [], [], []
+    for _ in range(10000):
+        if len(pays) == len(prompts):
+            break
+        pre.step_prefill_only()
+        for uid in pre.exportable():
+            torch.cuda.synchronize()
+            pays.append(timed(pre.export_sequence, torch, exp_ms)(uid))
+    for pay in pays:
+        torch.cuda.synchronize()
+        check(timed(dec.import_sequence, torch, imp_ms)(pay) is not None,
+              "handoff alone: an import was refused")
+    done = dec.run()
+    torch.cuda.synchronize()
+    check(len(done) == len(prompts)
+          and all(len(r.output) == mnt for r in done.values()),
+          "handoff alone: a sequence came back short")
+    check_launches("handoff alone", paged_decode_attention=cfg.n_layers
+                   * (pre.stats.decode_steps + dec.stats.decode_steps))
+    check(pre.stats.decode_steps == 0, "handoff alone: the prefill engine "
+          "decoded")
+    sizes = [payload_bytes(p) for p in pays]
+    return {"sequences": len(pays), "bytes_mean": float(np.mean(sizes)),
+            "bytes_max": max(sizes),
+            "export_ms_median": float(np.median(exp_ms)),
+            "export_ms_max": max(exp_ms),
+            "import_ms_median": float(np.median(imp_ms)),
+            "import_ms_max": max(imp_ms),
+            "host_gb_per_s": sum(sizes) / 1e6 / (sum(exp_ms) + sum(imp_ms))}
+
+
+def qos_preempt_run(torch, client, cfg, params):
+    """A WFQ servicer on a small block pool (12 usable blocks of 16, max_len
+    128): two
+    low-class sequences of 64 + 32 tokens fill it and decode, then a
+    high-class one arrives and preempts them; every request finishes with
+    its full length."""
+    sv = client.LLMServicer(cfg, params, qos=True, device=DEVICE,
+                            **dict(MAIN_PATH_ENGINE, max_len=128,
+                                   num_blocks=13))
+    from repro_torch.core.request import InferenceRequest
+
+    rng = np.random.RandomState(22)
+    mnt, results, uids, arrived = MAIN_PATH_NEW_TOKENS, {}, {}, []
+
+    def step():
+        for u, res in sv.step():
+            results[u] = res
+            arrived.append(u)
+
+    def submit(name, cls):
+        uids[name] = sv.submit(
+            {"prompt": list(map(int, rng.randint(0, cfg.vocab, size=64))),
+             "max_new_tokens": mnt},
+            envelope=InferenceRequest(payload={}, tenant=name,
+                                      priority=cls))
+
+    zero_launches()
+    t0 = time.perf_counter()
+    submit("low1", "low")
+    submit("low2", "low")
+    for _ in range(1000):
+        step()
+        run = sv.engine.running
+        if all(u in run and len(run[u].output) >= 4 for u in uids.values()):
+            break
+    submit("high", "high")
+    for _ in range(10000):
+        if len(results) == len(uids):
+            break
+        step()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    eng = sv.engine
+    check_launches("qos preempt", paged_decode_attention=cfg.n_layers
+                   * eng.stats.decode_steps)
+    qs = sv.qos_stats()
+    check(len(results) == 3 and all(len(r["tokens"]) == mnt
+                                    for r in results.values()),
+          "qos preempt: a request came back short")
+    check(eng.stats.preemptions >= 1
+          and eng.stats.preempt_resumes == eng.stats.preemptions,
+          f"qos preempt: preemptions {eng.stats.preemptions}, resumes "
+          f"{eng.stats.preempt_resumes}")
+    names = {u: k for k, u in uids.items()}
+    return {"seconds": secs, "qos_stats": qs,
+            "preemptions": eng.stats.preemptions,
+            "preempt_resumes": eng.stats.preempt_resumes,
+            "evicted_residencies": eng.stats.evicted_residencies,
+            "decode_steps": eng.stats.decode_steps,
+            "latency_s": {k: results[u]["latency_s"] for k, u in uids.items()},
+            "ttft_s": {k: results[u]["ttft_s"] for k, u in uids.items()},
+            "finish_order": [names[u] for u in arrived]}
+
+
+def phase_disagg_serving(torch, configs, core, client, engine_mod, get_model):
+    """llama3.2-3b's full published config (bf16, random weights from seed
+    0) served disaggregated behind Rhapsody: a prefill group and a decode
+    group of one replica each over one parameter set (``MAIN_PATH_ENGINE``),
+    phase 8's traffic (16 requests a pass, 32 new tokens, greedy, cold then
+    warm) addressed to the prefill group.  Every result comes back handed
+    off to the decode replica, none recomputed; the paged kernel launches
+    n_layers x the decode replica's decode steps and the prefill replica
+    decodes never.  Then the handoff alone and a QoS preemption run on the
+    same weights."""
+    cfg = configs.get_config(MAIN_PATH_ARCH)
+    params = get_model(cfg).init(torch.Generator(device=DEVICE).manual_seed(0),
+                                 cfg, device=DEVICE)
+    n_req, mnt, where = 16, MAIN_PATH_NEW_TOKENS, "disagg serving"
+    rh = core.Rhapsody(core.ResourceDescription(nodes=2, cores_per_node=16),
+                       n_workers=2)
+    try:
+        t_up = time.perf_counter()
+        rs = rh.add_service(core.ServiceDescription(
+            name="llm", replicas=2, ready_timeout=600, models=[
+                client.llm_model_group(
+                    "prefill", cfg, params, role="prefill",
+                    paired_with="decode", replicas=1, device=DEVICE,
+                    **MAIN_PATH_ENGINE),
+                client.llm_model_group(
+                    "decode", cfg, params, role="decode", replicas=1,
+                    device=DEVICE, **MAIN_PATH_ENGINE)]))
+        setup_s = time.perf_counter() - t_up
+        sv = {inst.endpoint.group: inst.servicer for inst in rs.instances}
+        check(sorted(sv) == ["decode", "prefill"], f"groups {sorted(sv)}")
+        exp_ms, imp_ms = [], []
+        pre_eng, dec_eng = sv["prefill"].engine, sv["decode"].engine
+        pre_eng.export_sequence = timed(pre_eng.export_sequence, torch,
+                                        exp_ms)
+        dec_eng.import_sequence = timed(dec_eng.import_sequence, torch,
+                                        imp_ms)
+        rng = np.random.RandomState(0)
+        lens = main_path_prompt_lens(rng, n_req)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps0 = {g: s.stats.decode_steps for g, s in sv.items()}
+        zero_launches()
+        passes, totals = {}, []
+        for name in ("cold", "warm"):
+            _, results, passes[name] = serve_pass(
+                torch, core, rh, cfg, rng, lens, mnt, f"{where} {name}",
+                model="prefill")
+            check(all(r.get("handoff") is True and r.get("role") == "decode"
+                      and not r.get("recompute") for r in results),
+                  f"{where} {name}: a result was not handed off and "
+                  f"imported")
+            totals.append(rs.handoff_totals())
+        steps = {g: s.stats.decode_steps - steps0[g] for g, s in sv.items()}
+        launches = check_launches(
+            where, paged_decode_attention=cfg.n_layers * steps["decode"])[
+            "paged_decode_attention"]
+        check(steps["prefill"] == 0 and steps["decode"] > 0,
+              f"{where}: decode steps {steps}")
+        check(totals == [{"exports": n, "imports": n, "recomputes": 0}
+                         for n in (n_req, 2 * n_req)],
+              f"{where}: handoff totals {totals}")
+        errors = [inst.error for inst in rs.instances]
+        check(all(e is None for e in errors), f"replica errors {errors}")
+        pg = rs.stats()["per_group"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        rh.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(0)
+    alone_prompts = [list(map(int, rng.randint(0, cfg.vocab, size=int(n))))
+                     for n in main_path_prompt_lens(rng, n_req)]
+    zero_launches()
+    alone = handoff_alone(torch, engine_mod, cfg, params, alone_prompts, mnt)
+    qos = qos_preempt_run(torch, client, cfg, params)
+    return {"config": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "dtype": cfg.compute_dtype,
+            "groups": {"prefill": 1, "decode": 1}, "shared_params": True,
+            "requests_per_pass": n_req, "max_new_tokens": mnt,
+            "prompt_lens": [int(x) for x in lens],
+            "setup_seconds": setup_s, **passes,
+            "group_ttft_p95_ms": pg["prefill"]["ttft_p95_ms"],
+            "group_itl_p95_ms": pg["decode"]["itl_p95_ms"],
+            "handoff_totals": totals[-1],
+            "in_service_export_ms_median": float(np.median(exp_ms)),
+            "in_service_import_ms_median": float(np.median(imp_ms)),
+            "handoff_alone": alone, "launches": launches,
+            "decode_steps": steps, "peak_mem_gb": peak, "qos": qos}
+
+
 def main():
     import torch
 
@@ -2106,7 +2489,7 @@ def main():
     from repro_torch.launch import serve
     from repro_torch.launch import train as launch_train
     from repro_torch.models import get_model, moe
-    from repro_torch.serving import client, engine
+    from repro_torch.serving import client, engine, kvcache
     from repro_torch.substrate import data
     from repro_torch.training import optim, train
 
@@ -2257,6 +2640,18 @@ def main():
     emit({"phase": "spec_bf16", **phase_spec_bf16(
         torch, engine, moe_full, moe_params)})
     del moe_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 21. the prefill->decode handoff and preemption, f32 and exact
+    emit({"phase": "disagg_exact", **phase_disagg_exact(
+        torch, configs, get_model, engine, client, kvcache)})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 22. disaggregated serving of llama3.2-3b at full width; QoS
+    emit({"phase": "disagg_serving", **phase_disagg_serving(
+        torch, configs, core, client, engine, get_model)})
     gc.collect()
     torch.cuda.empty_cache()
 

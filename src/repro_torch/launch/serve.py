@@ -2,7 +2,6 @@
 
 The PyTorch port of the JAX package's launcher: the same flags and output
 lines, plus ``--device`` (default ``cuda``; ``cpu`` on request).
-``--disagg`` is not ported yet and raises.
 
 Brings up ONE replicated inference service (``--replicas N``) through the
 RHAPSODY middleware and drives a synthetic request stream as INFERENCE
@@ -57,8 +56,9 @@ from repro_torch.serving.client import llm_model_group, llm_service_factory
 
 
 def main(argv=None) -> dict:
-    """Run the launcher; returns the results and each replica's error (None
-    when it served cleanly) so a caller can check the run."""
+    """Run the launcher; returns the results, each replica's error (None
+    when it served cleanly), the decode steps and the handoff counters, so
+    a caller can check the run."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="rhapsody-demo",
                     choices=list_archs() + ["rhapsody-demo"])
@@ -120,9 +120,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.disagg and args.models:
         ap.error("--disagg and --models are mutually exclusive")
-    if args.disagg:
-        raise NotImplementedError(
-            "--disagg is not yet ported to PyTorch: ROADMAP Queue 1 item 8")
+    if args.disagg and args.paged is False:
+        ap.error("--disagg requires the paged KV cache (drop --no-paged)")
     device = resolve_device(args.device)
 
     cfg = (get_smoke_config(args.arch)
@@ -149,7 +148,29 @@ def main(argv=None) -> dict:
                      num_blocks=args.num_blocks, device=device)
     model_names: list = []
     try:
-        if args.models:
+        if args.disagg:
+            n_pre = args.prefill_replicas or max(1, args.replicas // 2)
+            n_dec = max(1, args.replicas - n_pre)
+            disagg_kw = dict(engine_kw, paged=True)
+            groups = [
+                llm_model_group(
+                    "prefill", cfg, role="prefill", paired_with="decode",
+                    replicas=n_pre, slo_p95_ms=args.slo_p95_ms,
+                    **dict(disagg_kw,
+                           # prefill replicas never interleave decode: the
+                           # whole prompt in as few chunks as possible
+                           max_num_batched_tokens=max(
+                               args.max_num_batched_tokens, args.max_len))),
+                llm_model_group(
+                    "decode", cfg, role="decode", replicas=n_dec,
+                    slo_p95_ms=args.slo_p95_ms, **disagg_kw),
+            ]
+            replica_set = rh.add_service(ServiceDescription(
+                name="llm", replicas=args.replicas, models=groups))
+            print(f"[serve] {cfg.name} disaggregated "
+                  f"{replica_set.group_counts()} ready:",
+                  rh.services.list())
+        elif args.models:
             groups = []
             for spec in args.models:
                 name, _, w = spec.partition(":")
@@ -176,7 +197,11 @@ def main(argv=None) -> dict:
 
         def payload(i, p):
             out = {"prompt": p, "max_new_tokens": args.max_new_tokens}
-            if model_names:  # address models round-robin across stream
+            if args.disagg:  # clients address the prefill pool; the set
+                #              migrates each sequence to a decode replica
+                #              on first token
+                out["model"] = "prefill"
+            elif model_names:  # address models round-robin across stream
                 out["model"] = model_names[i % len(model_names)]
             return out
 
@@ -210,6 +235,20 @@ def main(argv=None) -> dict:
                        "shared": t["shared_blocks"],
                        "cow": t["cow_copies"]}
                    for g, t in btel.items() if t is not None})
+        if args.disagg:
+            handed = sum(1 for r in results if r.get("handoff"))
+            print(f"[serve] disagg: {handed}/{len(results)} sequences "
+                  f"migrated prefill->decode; handoff totals:",
+                  replica_set.handoff_totals())
+            print("[serve] per-phase groups:",
+                  {g: {"replicas": s["replicas"],
+                       "role": s["role"],
+                       "requests": s["requests"],
+                       "ttft_p95_ms": s["ttft_p95_ms"]
+                       and round(s["ttft_p95_ms"], 1),
+                       "itl_p95_ms": s["itl_p95_ms"]
+                       and round(s["itl_p95_ms"], 1)}
+                   for g, s in stats["per_group"].items()})
         if model_names:
             print("[serve] per-model groups:",
                   {g: {"replicas": s["replicas"],
@@ -236,6 +275,7 @@ def main(argv=None) -> dict:
                 "errors": [inst.error for inst in replica_set.instances],
                 "decode_steps": sum(inst.servicer.stats.decode_steps
                                     for inst in replica_set.instances),
+                "handoff_totals": replica_set.handoff_totals(),
                 "seconds": dt}
     finally:
         rh.close()

@@ -38,12 +38,18 @@ prefix and the rest of the prompt is fed through decode.
 of slot pool and paged pool) behind the same surface: the draft proposes
 k tokens, the target verifies them in one ``extend``.
 
+Disaggregated serving splits the paged steps across two engines: a prefill
+engine only chunk-prefills (``step_prefill_only``) and exports each
+sequence once its first token is out (``export_sequence``: its blocks'
+rows on the host plus what decode needs to resume); a decode engine adopts
+it into blocks of its own (``import_sequence``, admission-gated) and
+decodes it with the paged kernel.  ``preempt_sequence`` retires a decoding
+sequence's blocks to residency and requeues it; its readmission forks them
+back and catches up through ``extend``, so the transcript is unchanged.
+
 Greedy output is token-for-token the reference engine's.  Caches and
 stores are updated in place where the reference donates them to jitted
 functions, and there is one host sync per prefill and per decode step.
-
-Not ported yet (ROADMAP Queue 1 item 8): sequence export/import and
-preemption.
 """
 from __future__ import annotations
 
@@ -60,11 +66,9 @@ from repro_torch.core.prefix import RadixIndex
 from repro_torch.device import resolve_device
 from repro_torch.models import ModelApi, get_model
 from repro_torch.models.config import ModelConfig
-from .kvcache import (CachePool, PagedCachePool, gather_block_view,
-                      scatter_block_writes)
+from .kvcache import (CachePool, PagedCachePool, extract_blocks,
+                      gather_block_view, insert_blocks, scatter_block_writes)
 from .sampling import sample
-
-_NOT_PORTED = "not ported to PyTorch yet: ROADMAP Queue 1 item 8"
 
 
 @dataclasses.dataclass
@@ -142,8 +146,9 @@ class EngineStats:
     peak_running: int = 0  # high-water concurrent admitted sequences
     shared_block_peak: int = 0  # max physical blocks saved by sharing
     evicted_residencies: int = 0  # resident sequences dropped for space
-    preemptions: int = 0  # always 0 here: preemption is not ported yet
-    preempt_resumes: int = 0
+    preemptions: int = 0  # decoding sequences requeued by the WFQ
+    #                       scheduler (KV retired to residency)
+    preempt_resumes: int = 0  # preempted sequences re-admitted
     free_blocks: int = 0  # live gauges, refreshed every step
     reserved_blocks: int = 0
     started: float = dataclasses.field(default_factory=time.perf_counter)
@@ -354,17 +359,120 @@ class InferenceEngine:
                 done[req.uid] = req
         return done
 
-    def step_prefill_only(self):
-        raise NotImplementedError(f"disaggregated prefill is {_NOT_PORTED}")
+    def step_prefill_only(self) -> list:
+        """One prefill-role iteration (disaggregated serving): admit and
+        chunk-prefill, never decode, so the step's whole token budget goes
+        to prompt chunks.  Sequences whose first token is out (and that are
+        not done) wait in ``running`` for ``export_sequence()``."""
+        if not self.paged:
+            raise ValueError("step_prefill_only requires a paged engine")
+        return self._step_paged(decode=False)
 
-    def export_sequence(self, uid: int):
-        raise NotImplementedError(f"sequence export is {_NOT_PORTED}")
+    def exportable(self) -> list:
+        """Uids of running sequences ready for a prefill->decode handoff:
+        past prefill (first token emitted), not finished."""
+        if not self.paged:
+            return []
+        return [r.uid for r in self.running.values()
+                if r.output and not r.pending_tokens and not r.done]
 
-    def import_sequence(self, payload: dict):
-        raise NotImplementedError(f"sequence import is {_NOT_PORTED}")
+    def export_sequence(self, uid: int) -> dict:
+        """Export a running sequence past prefill for migration to another
+        paged engine: its blocks' K/V rows on the host (``extract_blocks``)
+        and what ``import_sequence`` needs to resume decode exactly.  The
+        request then retires here as a finished one does: its reserve is
+        released and its blocks move to a residency entry (prefix reuse
+        on, so a follow-up turn on this engine skips the prefill) or
+        free."""
+        if not self.paged:
+            raise ValueError("export_sequence requires a paged engine")
+        req = self.running.get(uid)
+        if req is None:
+            raise KeyError(f"no running request {uid}")
+        if not req.output or req.pending_tokens:
+            raise ValueError(f"request {uid} has not finished prefill")
+        n_pre = self.cfg.first_dense_layers if self.cfg.is_moe else 0
+        payload = {
+            "leaves": extract_blocks(self.pool.cache, req.table, n_pre),
+            "block_size": self.block_size,
+            "n_blocks": len(req.table),
+            "pos": req.pos,
+            "prompt": list(req.prompt),
+            "output": list(req.output),
+            "last_token": req.last_token,
+            "max_new_tokens": req.max_new_tokens,
+            "temperature": req.temperature,
+            "eos_id": req.eos_id,
+            "cached_prefix": req.cached_prefix,
+            "truncated": req.truncated,
+            "submitted_at": req.submitted_at,
+            "first_token_at": req.first_token_at,
+        }
+        self._retire_paged(req)
+        self._refresh_gauges()
+        return payload
 
-    def preempt_sequence(self, uid: int):
-        raise NotImplementedError(f"preemption is {_NOT_PORTED}")
+    def import_sequence(self, payload: dict) -> Optional[int]:
+        """Adopt an exported sequence into freshly reserved blocks and
+        resume its decode here (the receiving half of the handoff).  Gated
+        as ``_admit_paged``: the remaining generation must be covered by
+        free + reclaimable blocks net of reservations, and a sequence slot
+        must be free; otherwise (or on a block-size mismatch) it returns
+        None and the caller recomputes the prompt.  The submit and
+        first-token stamps travel with the sequence."""
+        if not self.paged:
+            raise ValueError("import_sequence requires a paged engine")
+        if payload["block_size"] != self.block_size:
+            return None
+        pos = int(payload["pos"])
+        out = list(payload["output"])
+        if pos >= self.max_len:
+            return None
+        if len(self.running) >= self.max_running:
+            return None
+        remaining = max(0, int(payload["max_new_tokens"]) - len(out))
+        need = self._blocks_needed(pos + remaining, 0)
+        if not self._reserve(need):
+            return None
+        req = Request(uid=next(self._uid), prompt=list(payload["prompt"]),
+                      max_new_tokens=int(payload["max_new_tokens"]),
+                      temperature=float(payload["temperature"]),
+                      eos_id=payload["eos_id"], output=out,
+                      submitted_at=payload["submitted_at"],
+                      first_token_at=payload["first_token_at"],
+                      cached_prefix=int(payload.get("cached_prefix", 0)),
+                      truncated=bool(payload.get("truncated", False)),
+                      pos=pos, last_token=payload["last_token"])
+        req.reserve_left = need
+        req.table = [self._alloc_block(req)
+                     for _ in range(int(payload["n_blocks"]))]
+        insert_blocks(self.pool.cache, payload["leaves"], req.table)
+        self.running[req.uid] = req
+        self._check_done(req)
+        self._refresh_gauges()
+        return req.uid
+
+    def preempt_sequence(self, uid: int) -> bool:
+        """Preempt a DECODING sequence: retire its blocks to a residency
+        entry, as at finish, and requeue the request, where the WFQ
+        scheduler orders it.  Its readmission (``_readmit_preempted``)
+        forks the blocks back and catches up from the last covered
+        position, so the transcript equals uninterrupted decode.  Queued,
+        prefilling, finished and truncated sequences are not preemptable:
+        returns False."""
+        if not self.paged:
+            return False
+        req = self.running.get(uid)
+        if (req is None or req.done or req.pending_tokens
+                or not req.output or req.truncated or not req.table):
+            return False
+        self._retire_paged(req)
+        req.pos = 0
+        req.last_token = None
+        self.queue.append(req)
+        self.stats.preemptions += 1
+        self._refresh_gauges()
+        return True
 
     # ------------------------------------------------------------------
     # Internals
@@ -527,51 +635,54 @@ class InferenceEngine:
     # Internals (paged pool)
     # ------------------------------------------------------------------
 
-    def _step_paged(self) -> list:
+    def _step_paged(self, decode: bool = True) -> list:
         self._admit_paged()
         self.stats.peak_running = max(self.stats.peak_running,
                                       len(self.running))
         self._prefill_step_paged()
-        events = self._decode_step_paged()
+        events = self._decode_step_paged() if decode else []
         self.stats.steps += 1
         self.stats.active_slot_steps += len(self.running)
         self.stats.slot_steps += max(self.max_num_seqs, len(self.running))
         self.stats.shared_block_peak = max(self.stats.shared_block_peak,
                                            self.pool.block_savings())
-        self.stats.free_blocks = self.pool.n_free
-        self.stats.reserved_blocks = self._reserved
+        self._refresh_gauges()
         return events
 
-    def _collect_finished_paged(self) -> list:
-        """Retire finished requests.  With prefix reuse on, the block table
-        transfers to a residency entry (the references move, they are not
-        duplicated), so the blocks stay shareable until block-granular
-        eviction reclaims them."""
-        done = []
-        for uid, req in list(self.running.items()):
-            if not req.done:
-                continue
-            del self.running[uid]
-            if req in self._prefill_order:
-                self._prefill_order.remove(req)
-            self._reserved -= req.reserve_left
-            req.reserve_left = 0
-            if self._prefix_reuse and not req.truncated and req.table:
-                seq = tuple(req.prompt) + tuple(req.output)
-                res_id = next(self._res_counter)
-                self._residency[res_id] = _Residency(tuple(req.table),
-                                                     len(seq))
-                for b in req.table:
-                    self._res_holds[b] = self._res_holds.get(b, 0) + 1
-                self._prefix_index.insert(seq, res_id)
-            else:
-                for b in req.table:
-                    self.pool.alloc.free(b)
-            req.table = []
-            done.append(req)
+    def _refresh_gauges(self):
         self.stats.free_blocks = self.pool.n_free
         self.stats.reserved_blocks = self._reserved
+
+    def _collect_finished_paged(self) -> list:
+        """Retire finished requests (``_retire_paged``)."""
+        done = [req for req in self.running.values() if req.done]
+        for req in done:
+            self._retire_paged(req)
+        self._refresh_gauges()
         return done
+
+    def _retire_paged(self, req: Request):
+        """Take ``req`` out of the running set and release its unconsumed
+        reserve.  With prefix reuse on (and a prompt the KV covers), the
+        block table transfers to a residency entry (the references move,
+        they are not duplicated), so the blocks stay shareable until
+        block-granular eviction reclaims them; otherwise they free."""
+        del self.running[req.uid]
+        if req in self._prefill_order:
+            self._prefill_order.remove(req)
+        self._reserved -= req.reserve_left
+        req.reserve_left = 0
+        if self._prefix_reuse and not req.truncated and req.table:
+            seq = tuple(req.prompt) + tuple(req.output)
+            res_id = next(self._res_counter)
+            self._residency[res_id] = _Residency(tuple(req.table), len(seq))
+            for b in req.table:
+                self._res_holds[b] = self._res_holds.get(b, 0) + 1
+            self._prefix_index.insert(seq, res_id)
+        else:
+            for b in req.table:
+                self.pool.alloc.free(b)
+        req.table = []
 
     def _blocks_needed(self, total_len: int, covered: int) -> int:
         """Blocks a sequence of ``total_len`` tokens must be able to
@@ -603,6 +714,11 @@ class InferenceEngine:
     def _admit_paged(self):
         while self.queue and len(self.running) < self.max_running:
             req = self.queue[0]
+            if req.output:  # preempted mid-generation: its own resume
+                if not self._readmit_preempted(req):
+                    break
+                self.queue.pop(0)
+                continue
             if self._prefix_reuse and self._try_resume_paged(req):
                 self.queue.pop(0)
                 continue
@@ -660,6 +776,51 @@ class InferenceEngine:
         if d < ent.length and d < m:
             self.stats.prefix_partial_hits += 1
         self.stats.prefix_cached_tokens += covered
+        return True
+
+    def _readmit_preempted(self, req: Request) -> bool:
+        """Re-admit a preempted request: its catch-up prompt is the whole
+        transcript so far (prompt + output, ending with the last emitted
+        token).  The deepest resident prefix (normally its own retired
+        blocks, unless eviction claimed them) is forked back and only the
+        tail is fed through ``extend``, whose last logits row gives the
+        token uninterrupted decode would have given next."""
+        seq = list(req.prompt) + list(req.output)
+        L = len(seq)
+        remaining = req.max_new_tokens - len(req.output)
+        bs = self.block_size
+        best = None
+        if self._prefix_reuse:
+            for res_id, d in self._prefix_index.match_lengths(seq).items():
+                ent = self._residency.get(res_id)
+                if ent is None:
+                    continue
+                covered = min(d, ent.length - 1, L - 1)
+                if covered >= bs and (best is None or covered > best[0]):
+                    best = (covered, res_id, ent)
+        covered, shared, pinned = 0, (), 0
+        if best is not None:
+            covered, res_id, ent = best
+            shared = ent.blocks[:-(-covered // bs)]
+            alloc = self.pool.alloc
+            pinned = sum(1 for b in set(shared)
+                         if self._res_holds.get(b, 0) > 0
+                         and alloc.refcount(b) == self._res_holds[b])
+        need = self._blocks_needed(L + remaining, covered)
+        if not self._reserve(need, pinned=pinned):
+            return False
+        for b in shared:
+            self.pool.alloc.fork(b)
+        if best is not None:
+            self._residency.move_to_end(res_id)
+            self.stats.prefix_cached_tokens += covered
+        req.table = list(shared)
+        req.pos = covered
+        req.pending_tokens = list(seq[covered:])
+        req.reserve_left = need
+        self.running[req.uid] = req
+        self._prefill_order.append(req)
+        self.stats.preempt_resumes += 1
         return True
 
     def _alloc_block(self, req: Request) -> int:
@@ -759,7 +920,8 @@ class InferenceEngine:
                 tok = self._first_token(req, logits[0, T - 1])
                 req.output.append(tok)
                 req.last_token = tok
-                if req.first_token_at is None:
+                if req.first_token_at is None:  # a resumed preemption
+                    #                 keeps its original first-token stamp
                     req.first_token_at = time.perf_counter()
                 self._check_done(req)
 
@@ -974,8 +1136,7 @@ class SpecDecodeSession:
         if t.paged:
             t.stats.shared_block_peak = max(t.stats.shared_block_peak,
                                             t.pool.block_savings())
-            t.stats.free_blocks = t.pool.n_free
-            t.stats.reserved_blocks = t._reserved
+            t._refresh_gauges()
         if self.min_acceptance > 0 and self.proposed >= self.probe_proposals \
                 and self.accepted < self.min_acceptance * self.proposed:
             self._disable_spec()

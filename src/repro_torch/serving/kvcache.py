@@ -19,13 +19,16 @@ null block: padded batch rows and padded chunk positions write there.
 Decode writes straight into the store (``attention_decode_paged``); only
 chunked prefill reassembles a contiguous view (``gather_block_view``) and
 scatters the newly produced positions back (``scatter_block_writes``).
-Stores are updated in place.
+Stores are updated in place.  A sequence migrating between engines (the
+disaggregated prefill->decode handoff) carries its blocks' rows on the host
+in the reference's payload format (``extract_blocks`` / ``insert_blocks``).
 """
 from __future__ import annotations
 
 from collections import deque
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -321,6 +324,57 @@ def copy_block(store, src: int, dst: int):
     layer's K and V store."""
     for name in ("k", "v"):
         store[name][:, dst] = store[name][:, src]
+
+
+def extract_blocks(store, blocks, n_pre: int = 0):
+    """Serialize physical blocks out of a paged store for migration.
+
+    Returns the reference's payload: ``{leaf_path: host tensor}`` with the
+    block dim in front, keyed as the reference's store is laid out (an MoE
+    model's first ``n_pre`` dense layers apart from the scanned stack):
+    ``("scan", "k")`` -> ``[n_blocks, L - n_pre, block_size, Hkv, D]`` and
+    ``("pre", "layer_i", "k")`` -> ``[n_blocks, block_size, Hkv, D]``, the
+    same for ``"v"``.  The tensors are copied to the host (a bf16 tensor
+    has no numpy dtype), which is what ``insert_blocks`` writes back on the
+    receiving engine."""
+    idx = torch.as_tensor(list(blocks), dtype=torch.long,
+                          device=store["k"].device)
+    out = {}
+    for name in ("k", "v"):
+        rows = store[name].index_select(1, idx).movedim(1, 0).cpu()
+        for i in range(n_pre):
+            out[("pre", f"layer_{i}", name)] = rows[:, i]
+        out[("scan", name)] = rows[:, n_pre:]
+    return out
+
+
+def insert_blocks(store, leaves, dst_blocks):
+    """Write serialized block rows (``extract_blocks``' payload, from this
+    package or a numpy payload from the reference's, possibly of another
+    engine) into this store at ``dst_blocks``, in place, cast to the
+    store's dtype and device.  The scanned stack fills the last layers, so
+    the number of ``pre`` layers follows from its depth.  Block 0 is the
+    null block and is never a destination."""
+    if NULL_BLOCK in dst_blocks:
+        raise ValueError("insert_blocks never writes the null block 0")
+    idx = torch.as_tensor(list(dst_blocks), dtype=torch.long,
+                          device=store["k"].device)
+    for path, src in leaves.items():
+        name = path[-1]
+        if name not in ("k", "v"):
+            continue
+        s = store[name]
+        if isinstance(src, np.ndarray):
+            if src.dtype.kind not in "fiu":  # a numpy bfloat16 extension
+                src = src.astype(np.float32)
+            src = torch.tensor(src)
+        src = src.to(device=s.device, dtype=s.dtype)
+        if path[0] == "scan":
+            dst, src = s[s.shape[0] - src.shape[1]:], src.movedim(0, 1)
+        else:
+            dst = s[int(path[1].removeprefix("layer_"))]
+        dst.index_copy_(dst.dim() - 4, idx, src)
+    return store
 
 
 class PagedCachePool:

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain versions, on the card;
 one training step, the slot engine, the MoE paged engine in both decode
-modes and a speculative-decoding session on the card against the same
-work on the CPU or the plain target engine.
+modes, a speculative-decoding session, the prefill->decode handoff and a
+preempted sequence's resume on the card against the same work on the CPU,
+the plain target engine or a unified engine.
 
 Needs a CUDA card and imports neither JAX nor the JAX package, so it runs
 where the port runs:
@@ -732,3 +733,84 @@ def test_cuda_spec_session_matches_plain_target(cuda):
     assert ss["proposed"] > 0 and 0.0 <= ss["acceptance_rate"] <= 1.0
     assert target.stats.decode_steps == 0
     assert launched == [dcfg.n_layers * draft.stats.steps, 0]
+
+
+def _demo_engines(n, **kw):
+    """rhapsody-demo (f32) paged engines on the card sharing one weight
+    set drawn from seed 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import InferenceEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("rhapsody-demo")
+    params = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(0),
+                                 cfg, device="cuda")
+    kw = dict(dict(max_num_seqs=4, max_num_batched_tokens=256, max_len=128,
+                   prefill_buckets=(16, 32), paged=True, block_size=16), **kw)
+    return cfg, [InferenceEngine(cfg, params, device="cuda", **kw)
+                 for _ in range(n)]
+
+
+@pytest.mark.cuda
+def test_cuda_disagg_round_trip_bit_equal_and_token_identical(cuda):
+    """A prefill engine on the card exports each sequence at its first
+    token (host tensors), a decode engine imports it: the imported blocks,
+    extracted again, equal the payload bit for bit; the transcripts equal
+    a unified engine's; the prefill engine launches no decode kernel and
+    the decode engine the paged one n_layers times a decode step."""
+    from repro_torch.serving.kvcache import extract_blocks
+
+    cfg, (pre, dec, uni) = _demo_engines(3)
+    rng = np.random.RandomState(2)
+    prompts = [list(map(int, rng.randint(1, cfg.vocab, size=n)))
+               for n in (3, 16, 17, 40)]
+    uids = [uni.submit(q, max_new_tokens=8) for q in prompts]
+    done = uni.run()
+    want = [done[u].output for u in uids]
+    before = _launch_counts()
+    puids = [pre.submit(q, max_new_tokens=8) for q in prompts]
+    pays = {}
+    while len(pays) < len(prompts):
+        pre.step_prefill_only()
+        for u in pre.exportable():
+            pays[u] = pre.export_sequence(u)
+    assert _launch_counts() == before and pre.stats.decode_steps == 0
+    moved = []
+    for u in puids:
+        pay = pays[u]
+        assert all(t.device.type == "cpu" for t in pay["leaves"].values())
+        nuid = dec.import_sequence(pay)
+        again = extract_blocks(dec.pool.cache, dec.running[nuid].table)
+        assert all(torch.equal(again[k], v) for k, v in pay["leaves"].items())
+        moved.append(nuid)
+    done = dec.run()
+    torch.cuda.synchronize()
+    assert [done[u].output for u in moved] == want
+    launched = [a - b for a, b in zip(_launch_counts(), before)]
+    assert launched == [cfg.n_layers * dec.stats.decode_steps, 0]
+    assert dec.stats.decode_steps > 0
+
+
+@pytest.mark.cuda
+def test_cuda_preempt_resume_token_identical(cuda):
+    """A decoding sequence preempted on the card (its blocks retired to
+    residency) resumes through a catch-up extend with the transcript of
+    uninterrupted decode and its first-token stamp."""
+    cfg, (eng, uni) = _demo_engines(2)
+    prompts = [[5] * 12, [9] * 7, [4] * 20]
+    uids = [uni.submit(q, max_new_tokens=10) for q in prompts]
+    done = uni.run()
+    want = [done[u].output for u in uids]
+    uids = [eng.submit(q, max_new_tokens=10) for q in prompts]
+    for _ in range(100):
+        eng.step()
+        req = eng.running.get(uids[0])
+        if req is not None and len(req.output) >= 3:
+            break
+    stamp = eng.running[uids[0]].first_token_at
+    assert eng.preempt_sequence(uids[0])
+    done = eng.run()
+    assert [done[u].output for u in uids] == want
+    assert done[uids[0]].first_token_at == stamp
+    assert eng.stats.preemptions == eng.stats.preempt_resumes == 1

@@ -145,8 +145,9 @@ def test_engine_gather_mode_matches_reference(scenario, lm):
 
 def test_engine_refuses_what_is_not_ported(lm):
     """``paged=False`` builds the slot pool, as the reference's default;
-    the paged engine takes the ``"gather"`` decode mode, refuses an
-    unknown one, and preemption still raises."""
+    the paged engine takes the ``"gather"`` decode mode and refuses an
+    unknown one; preempting an unknown uid returns False, as the
+    reference's does (``tests/test_torch_qos.py`` holds preemption)."""
     _, _, _, tcfg, tparams = lm
     slot = InferenceEngine(tcfg, tparams, device="cpu", **ENGINE_KW)
     assert not slot.paged and slot.pool.n_free == ENGINE_KW["max_num_seqs"]
@@ -159,8 +160,14 @@ def test_engine_refuses_what_is_not_ported(lm):
                         paged_decode_mode="telepathy")
     eng = InferenceEngine(tcfg, tparams, device="cpu", paged=True,
                           **ENGINE_KW)
-    with pytest.raises(NotImplementedError):
-        eng.preempt_sequence(0)
+    ref = JaxEngine(lm[0], lm[2], paged=True, **ENGINE_KW)
+    assert eng.preempt_sequence(0) is ref.preempt_sequence(0) is False
+    assert slot.preempt_sequence(0) is False
+    assert eng.exportable() == [] and slot.exportable() == []
+    for call in (slot.step_prefill_only, lambda: slot.export_sequence(0),
+                 lambda: slot.import_sequence({})):
+        with pytest.raises(ValueError, match="paged engine"):
+            call()
 
 
 def test_sampled_requests_terminate(lm):

@@ -1,7 +1,8 @@
 """The port's paged KV pool against the JAX package's: the allocator's
 conservation, refcounts and error paths; ``gather_block_view`` /
 ``scatter_block_writes`` / copy-on-write on the same numpy store (exact:
-they only move data)."""
+they only move data); ``extract_blocks`` / ``insert_blocks``, the
+migration payload, in both directions."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -226,3 +227,79 @@ def test_dense_slot_pool_set_lens_and_reset_slot():
         want = data[(name,)].copy()
         want[:, 1] = 0
         np.testing.assert_array_equal(pool.cache[name].numpy(), want)
+
+
+def _ref_store(k, v, n_pre):
+    """The reference's paged store over the same rows: the first ``n_pre``
+    layers apart (an MoE model's dense layers), the rest stacked."""
+    store = {"scan": {"k": jnp.asarray(k[n_pre:]), "v": jnp.asarray(v[n_pre:]),
+                      "len": jnp.zeros((k.shape[0] - n_pre, k.shape[1]),
+                                       jnp.int32)}}
+    if n_pre:
+        store["pre"] = {f"layer_{i}": {"k": jnp.asarray(k[i]),
+                                       "v": jnp.asarray(v[i]),
+                                       "len": jnp.zeros((k.shape[1],),
+                                                        jnp.int32)}
+                        for i in range(n_pre)}
+    return store
+
+
+@pytest.mark.parametrize("n_pre", [0, 1])
+def test_extract_and_insert_blocks_match_reference(n_pre):
+    """``extract_blocks`` gives the reference's payload (keys, shapes and
+    values, the block dim in front, on the host); ``insert_blocks`` writes
+    the port's payload or the reference's numpy one in place, and both
+    packages' stores then agree; the null block is never a destination."""
+    L, N, bs, H, D = 3, 10, 4, 2, 3
+    rng = np.random.RandomState(3)
+    k = rng.randn(L, N, bs, H, D).astype(np.float32)
+    v = rng.randn(L, N, bs, H, D).astype(np.float32)
+    src = [7, 2, 5]
+    jpay = jkv.extract_blocks(_ref_store(k, v, n_pre), src)
+    tpay = tkv.extract_blocks({"k": torch.from_numpy(k.copy()),
+                               "v": torch.from_numpy(v.copy())}, src, n_pre)
+    assert set(tpay) == set(jpay)
+    for path, leaf in tpay.items():
+        assert leaf.device.type == "cpu"
+        np.testing.assert_array_equal(leaf.numpy(), jpay[path])
+    dst = [9, 1, 4]
+    zeros = np.zeros_like(k)
+    jout = jkv.insert_blocks(_ref_store(zeros, zeros, n_pre), jpay, dst)
+    want = np.zeros_like(k)
+    want[n_pre:] = np.asarray(jout["scan"]["k"])
+    for i in range(n_pre):
+        want[i] = np.asarray(jout["pre"][f"layer_{i}"]["k"])
+    for pay in (tpay, jpay):  # the port's payload and the reference's
+        store = {"k": torch.zeros(L, N, bs, H, D),
+                 "v": torch.zeros(L, N, bs, H, D)}
+        keep = store["k"]
+        assert tkv.insert_blocks(store, pay, dst) is store
+        assert store["k"] is keep  # in place
+        np.testing.assert_array_equal(store["k"].numpy(), want)
+        np.testing.assert_array_equal(store["k"].numpy()[:, dst],
+                                      k[:, src])
+        np.testing.assert_array_equal(store["v"].numpy()[:, dst],
+                                      v[:, src])
+    with pytest.raises(ValueError, match="null block"):
+        tkv.insert_blocks(store, tpay, [0, 1, 4])
+
+
+def test_insert_blocks_takes_a_reference_bf16_payload():
+    """A bf16 payload exported by the reference (numpy's bfloat16
+    extension type) lands in a bf16 store with its bits unchanged; the
+    port's own payload is a bf16 host tensor."""
+    L, N, bs, H, D = 2, 6, 4, 2, 8
+    rng = np.random.RandomState(4)
+    k = rng.randn(L, N, bs, H, D).astype(np.float32)
+    jk = jnp.asarray(k, jnp.bfloat16)
+    jstore = {"scan": {"k": jk, "v": jk,
+                       "len": jnp.zeros((L, N), jnp.int32)}}
+    jpay = jkv.extract_blocks(jstore, [3, 5])
+    tk = torch.tensor(np.asarray(jk.astype(jnp.float32))).bfloat16()
+    store = {"k": torch.zeros(L, N, bs, H, D, dtype=torch.bfloat16),
+             "v": torch.zeros(L, N, bs, H, D, dtype=torch.bfloat16)}
+    tkv.insert_blocks(store, jpay, [1, 2])
+    assert torch.equal(store["k"][:, [1, 2]], tk[:, [3, 5]])
+    tpay = tkv.extract_blocks({"k": tk, "v": tk}, [3, 5])
+    assert tpay[("scan", "k")].dtype == torch.bfloat16
+    assert torch.equal(tpay[("scan", "k")].movedim(0, 1), tk[:, [3, 5]])

@@ -81,6 +81,9 @@ def test_servicer_resolves_the_pool_as_the_reference():
 
 
 def test_servicer_hooks_and_unported_options():
+    """The servicer's hooks on a unified replica; the disaggregated
+    phases and QoS build (``tests/test_torch_{disagg,qos}.py`` hold them
+    to the reference)."""
     _, _, _, tcfg, tparams = build()
     s = LLMServicer(tcfg, tparams, device="cpu", **ENGINE_KW)
     assert s.engine.paged and s.engine.paged_decode_mode == "direct"
@@ -94,11 +97,16 @@ def test_servicer_hooks_and_unported_options():
     while not results:
         results = s.step()
     assert results[0][0] == uid and len(results[0][1]["tokens"]) == 3
-    for kw in ({"phase": "prefill"}, {"qos": True}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            LLMServicer(tcfg, tparams, device="cpu", **kw, **ENGINE_KW)
-    with pytest.raises(NotImplementedError):
-        llm_model_group("p", tcfg, tparams, role="prefill")
+    for kw, hs, qs in (({"phase": "prefill"}, "prefill", None),
+                       ({"phase": "decode"}, "decode", None),
+                       ({"qos": True}, None, 0)):
+        sv = LLMServicer(tcfg, tparams, device="cpu", **kw, **ENGINE_KW)
+        assert (sv.handoff_stats() or {}).get("role") == hs
+        assert (sv.qos_stats() or {}).get("preempted") == qs
+    for role in ("prefill", "decode"):
+        group = llm_model_group("p", tcfg, tparams, role=role, device="cpu",
+                                **ENGINE_KW)
+        assert group.role == role and group.factory().phase == role
 
 
 def test_launcher_runs_on_cpu(capsys):
@@ -110,8 +118,11 @@ def test_launcher_runs_on_cpu(capsys):
     printed = capsys.readouterr().out
     assert "[serve] 4 requests" in printed
     assert "per-replica requests" in printed
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serve.main(["--device", "cpu", "--disagg"])
+    out = serve.main(["--device", "cpu", "--disagg", "--replicas", "2",
+                      "--requests", "4", "--max-new-tokens", "3"])
+    assert all(r.get("handoff") is True and len(r["tokens"]) == 3
+               for r in out["results"])
+    assert out["handoff_totals"]["exports"] == 4
 
 
 @pytest.mark.parametrize("flags", [["--arch", "rwkv6-1.6b"], ["--no-paged"]])
