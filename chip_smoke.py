@@ -104,8 +104,9 @@ Phases, each printing one JSON line:
    synthetic corpus on the card, after which the loss on a batch the steps
    did not see has fallen.
 15. trainer launcher: ``repro_torch.launch.train --steps 20``, then
-   ``--arch llama3.2-3b --steps 5`` (its smoke config, head_dim 8) and
-   ``--arch deepseek-moe-16b --steps 3`` (MoE forward and loss).
+   ``--arch llama3.2-3b --steps 5`` (its smoke config, head_dim 8),
+   ``--arch deepseek-moe-16b --steps 3`` (MoE forward and loss), and
+   ``--arch rwkv6-1.6b`` and ``--arch zamba2-2.7b`` with ``--steps 3``.
 16. training main path at full width: llama3.2-3b (bf16, 28 layers, remat
    full, random weights from seed 0) through ``DataPipeline``,
    ``init_state`` and ``make_train_step``: global batch 2, seq 2048,
@@ -148,6 +149,30 @@ Phases, each printing one JSON line:
    ITL p95s, the payload's bytes and the export and import times, in
    service and alone; then a WFQ servicer on a small pool where a
    high-class request preempts low-class decodes.
+23. scan gradients: ``wkv`` at rwkv6-1.6b's shape (H 32, hd 64, chunk 32,
+   T 256) and ``ssd`` at zamba2-2.7b's (H 80, P = N = 64, chunk 128, T
+   384), f32 and bf16, the initial state absent and set: one forward
+   launch a call, outputs with a ``grad_fn`` held to the plain version,
+   every input's gradient against autograd of the plain version on the
+   card (1e-4 relative for f32, 2e-2 for bf16, as phase 12).
+24. state-family training, card vs CPU, f32: rwkv6-1.6b at full width cut
+   to 2 layers and zamba2-2.7b cut to one group (6 Mamba2 layers and the
+   shared block): every gradient leaf of ``loss`` against the CPU's
+   (``STATE_GRAD_TOL``), then one AdamW step at phase 14's tolerances.
+25. training at full width: rwkv6-1.6b (bf16, 24 layers) and zamba2-2.7b
+   (bf16, 54 layers), remat full, as phase 16: global batch 2, seq 2048,
+   AdamW, 3 steps; step time, tok/s, peak memory; then one layer's scan
+   backward at the step's shape, timed (x n_layers: its share of a step)
+   and under ``torch.profiler`` (its ``wkv6/backward`` / ``ssd/backward``
+   span, the device's busy share inside it).
+26. workflows: ``heat_stencil``, ``lj_step`` and ``surrogate_eval`` on the
+   card against the CPU from one seed, then timed at a 4096^2 heat grid
+   over 100 steps and 4096 LJ particles over 10 steps; ``TorchBackend``
+   beside the pool backend in one ``Rhapsody``; exp6's agent population
+   (8 agents x 4 decisions, 12-token prompts, 16 new tokens,
+   ``surrogate_eval`` tools) behind llama3.2-3b at full width (bf16, one
+   paged replica); then ``benchmarks_torch`` exp1, exp2 and exp5 on the
+   card with no failed suite.
 
 Every phase that drives a path sets all five kernels' launch counts to 0
 just before it runs and checks every count just after: the paged serving
@@ -161,11 +186,16 @@ slot-pool phases launch WKV6 n_layers x prefills (rwkv6), SSD n_layers x
 prefills and the contiguous decode n_layers / attn_every x decode steps
 (zamba2), or the contiguous decode n_layers x decode steps (dense); a
 training phase launches the flash kernel 2 x n_layers x steps times (remat
-runs each block's forward again), zamba2's forward SSD n_layers and flash
-n_layers / attn_every times; every other kernel never.  Any failure
+runs each block's forward again), for rwkv6 WKV6 2 x n_layers x steps, for
+zamba2 SSD 2 x n_layers and flash 2 x n_layers / attn_every x steps (the
+scans' backward runs the plain version and launches nothing), zamba2's
+forward SSD n_layers and flash n_layers / attn_every times; the agent
+population the paged decode kernel n_layers x decode steps; the payloads
+and benchmark suites none; every other kernel never.  Any failure
 exits non-zero.  The last lines are the five kernels' JSON record (the
 decode pair's, the flash kernel's and the scans' rows also carry
-``graph_ms``, and the attention kernels' ``library_graph_ms``), the
+``graph_ms``, and the attention kernels' ``library_graph_ms``; every row
+``launches_by_path``, its launches on each full-width path), the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without a
 CUDA card it exits 2 and prints no result.
 """
@@ -177,6 +207,7 @@ import os
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 
@@ -1442,6 +1473,7 @@ def phase_state_serving(torch, configs, core, client, arch):
         setup_s = time.perf_counter() - t_up
         check(all(not inst.servicer.engine.paged for inst in rs.instances),
               f"{arch}: the servicer did not resolve to the slot pool")
+        first = list(rs.instances)  # a crashed replica is relaunched
         rng = np.random.RandomState(1)
         lens = state_prompt_lens(rng, arch, n_req)
 
@@ -1477,9 +1509,11 @@ def phase_state_serving(torch, configs, core, client, arch):
         zero_launches()
         prompts, cold = serve_pass()
         _, warm = serve_pass()
-        errors = [inst.error for inst in rs.instances]
-        check(all(e is None for e in errors), f"{arch}: replica errors "
-                                              f"{errors}")
+        errors = ["".join(traceback.format_exception(inst.error))
+                  for inst in first + rs.instances if inst.error is not None]
+        check(not errors and rs.instances == first,
+              f"{arch}: a replica crashed and was relaunched "
+              f"(its in-flight requests replayed): {errors}")
         decode_steps = sum(inst.servicer.stats.decode_steps
                            for inst in rs.instances)
         prefills = 2 * n_req  # exact-length prefills: no prefix reuse here
@@ -1735,11 +1769,14 @@ def phase_train_step(torch, configs, get_model, optim, train, data):
 
 def phase_train_launcher(launch_train, configs):
     """The trainer launcher with its defaults except --steps 20, then
-    ``--arch llama3.2-3b --steps 5`` (its smoke config, head_dim 8) and
-    ``--arch deepseek-moe-16b --steps 3`` (MoE forward and loss)."""
+    ``--arch llama3.2-3b --steps 5`` (its smoke config, head_dim 8),
+    ``--arch deepseek-moe-16b --steps 3`` (MoE forward and loss), and
+    ``--arch rwkv6-1.6b`` and ``--arch zamba2-2.7b`` with ``--steps 3``
+    (the scans' autograd Functions)."""
     runs = []
     for arch, steps in (("rhapsody-demo", 20), ("llama3.2-3b", 5),
-                        ("deepseek-moe-16b", 3)):
+                        ("deepseek-moe-16b", 3), ("rwkv6-1.6b", 3),
+                        ("zamba2-2.7b", 3)):
         argv = (([] if arch == "rhapsody-demo" else ["--arch", arch])
                 + ["--steps", str(steps)])
         cfg = (configs.get_config(arch) if arch == "rhapsody-demo"
@@ -1748,9 +1785,8 @@ def phase_train_launcher(launch_train, configs):
         out = launch_train.main(argv + ([] if DEVICE == "cuda" else
                                         ["--device", DEVICE]))
         where = f"trainer launcher {' '.join(argv)}"
-        launches = check_launches(
-            where, flash_attention=2 * cfg.n_layers * steps)[
-            "flash_attention"]
+        launches = check_launches(where,
+                                  **expected_train_launches(cfg, steps))
         losses = out["losses"]
         check(len(losses) == steps and all(math.isfinite(x) for x in losses),
               f"{where}: losses {losses}")
@@ -2467,6 +2503,440 @@ def phase_disagg_serving(torch, configs, core, client, engine_mod, get_model):
             "decode_steps": steps, "peak_mem_gb": peak, "qos": qos}
 
 
+# ---------------------------------------------------------------------------
+# Training the state-carrying families (phases 23-25) and the workflow
+# payloads (phase 26)
+# ---------------------------------------------------------------------------
+
+
+def expected_train_launches(cfg, steps=1):
+    """Kernel launches of ``steps`` training steps of ``cfg``: remat full
+    runs each checkpointed forward twice (the forward, then the rerun in the
+    backward), and the scans' backward recomputes through the plain
+    version, so it launches nothing."""
+    per = (2 if cfg.remat == "full" else 1) * steps
+    if cfg.family == "ssm":
+        return {"wkv6": per * cfg.n_layers}
+    if cfg.family == "hybrid":
+        return {"ssd": per * cfg.n_layers,
+                "flash_attention": per * (cfg.n_layers // cfg.attn_every)}
+    return {"flash_attention": per * cfg.n_layers}
+
+
+def scan_grad_case(torch, name, fn, plain, inputs, dtype, tol, gtol):
+    """``fn`` (the wrapper, launching the kernel once) on the card against
+    ``plain`` (autograd of the plain version on float32 copies of the
+    inputs): both outputs within ``tol``; every input's gradient, under
+    random cotangents of both outputs, within ``gtol`` relative."""
+    leaves = [t for t in inputs if t is not None]
+    mine = [t.clone().requires_grad_() for t in leaves]
+    ref32 = [t.float().clone().requires_grad_() for t in leaves]
+
+    def call(f, xs):
+        it = iter(xs)
+        return f(*[None if t is None else next(it) for t in inputs])
+
+    zero_launches()
+    y, s = call(fn, mine)
+    torch.cuda.synchronize()
+    launches = check_launches(f"{name} gradient", **{name: 1})[name]
+    check(y.grad_fn is not None and s.grad_fn is not None,
+          f"{name}: the wrapper's outputs carry no gradient")
+    py, ps = call(plain, ref32)
+    err_y, ok_y = within(y.detach(), py.detach(), tol)
+    err_s, ok_s = within(s.detach(), ps.detach(), SCAN_F32_TOL)
+    check(ok_y and ok_s, f"{name} {dtype}: outputs {err_y} / {err_s} off "
+                         f"the plain version")
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    wy = torch.randn(y.shape, generator=gen, device=DEVICE)
+    ws = torch.randn(s.shape, generator=gen, device=DEVICE)
+    grads = torch.autograd.grad((y, s), mine, (wy.to(y.dtype), ws))
+    want = torch.autograd.grad((py, ps), ref32, (wy.to(y.dtype).float(), ws))
+    worst = 0.0
+    for i, (g, w, x) in enumerate(zip(grads, want, leaves)):
+        check(g.dtype == x.dtype, f"{name}: gradient {i} in {g.dtype}, its "
+                                  f"input in {x.dtype}")
+        d = (g.float() - w).abs()
+        worst = max(worst, float(d.max()))
+        check(bool((d <= gtol + gtol * w.abs()).all()),
+              f"{name} {dtype}: gradient {i} error {float(d.max())} > "
+              f"{gtol} + {gtol} x |plain|")
+    return {"kernel": name, "dtype": str(dtype).split(".")[-1],
+            "shape": list(leaves[0].shape),
+            "state_set": inputs[-1] is not None, "out_err": err_y,
+            "state_err": err_s, "grad_err": worst, "grad_tol": gtol,
+            "launches": launches}
+
+
+# phase 23's shapes: the serving prefill's (``WKV_SHAPE``, ``SSD_SHAPE``)
+# and a training step's, global batch x seq, where the state is carried
+# over 64 chunks (rwkv6-1.6b) and 16 (zamba2-2.7b)
+WKV_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 32, 64, 32)
+SSD_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 80, 64, 64, 128)
+
+
+def phase_scan_grads(torch, wkv_ops, wkv_ref, ssd_ops, ssd_ref):
+    """Phase 23: ``wkv`` at rwkv6-1.6b's prefill and training shapes and
+    ``ssd`` at zamba2-2.7b's, f32 and bf16, the initial state absent and
+    set: one forward launch a call, y and the final state against the plain
+    version, outputs with a ``grad_fn``, every input's gradient against
+    autograd of the plain version on the card.  In f32 the Function's
+    backward is that same plain version, so the gradient case checks its
+    wiring (grad_fn, every cotangent, dtypes); the numerical check of the
+    backward is the CPU tests' against the JAX package."""
+    records = []
+    for dtype, tol, gtol in ((torch.float32, SCAN_F32_TOL, F32_GRAD_TOL),
+                             (torch.bfloat16, BF16_TOL, BF16_GRAD_TOL)):
+        for (B, T, H, hd, L), (sB, sT, sH, P, N, sL) in (
+                (WKV_SHAPE, SSD_SHAPE), (WKV_TRAIN_SHAPE, SSD_TRAIN_SHAPE)):
+            for scale in (0.0, 0.1):
+                gen = torch.Generator(device=DEVICE).manual_seed(2300)
+                records.append(scan_grad_case(
+                    torch, "wkv6",
+                    lambda r, k, v, lw, u, s0, L=L: wkv_ops.wkv(
+                        r, k, v, lw, u, chunk=L, s0=s0),
+                    lambda r, k, v, lw, u, s0, L=L: wkv_ref.wkv_chunked_ref(
+                        r, k, v, lw, u, L, s0),
+                    wkv_inputs(torch, gen, dtype, B, T, H, hd, scale),
+                    dtype, tol, gtol))
+                records.append(scan_grad_case(
+                    torch, "ssd",
+                    lambda x, dt, A, Bm, Cm, h0, sL=sL: ssd_ops.ssd(
+                        x, dt, A, Bm, Cm, chunk=sL, h0=h0),
+                    lambda x, dt, A, Bm, Cm, h0, sL=sL:
+                        ssd_ref.ssd_chunked_ref(x, dt, A, Bm, Cm, sL, h0),
+                    ssd_inputs(torch, gen, dtype, sB, sT, sH, P, N, scale),
+                    dtype, tol, gtol))
+                gc.collect()
+                torch.cuda.empty_cache()
+    return records
+
+
+# phase 24: card vs CPU, f32, at full width cut in depth; a gradient leaf
+# within 1e-3 of its largest magnitude plus 1e-3 relative (float32 sums
+# over d 2048-2560 and vocab 32000-65536 in another order, and the kernel's
+# forward feeding the backward on the card)
+STATE_TRAIN_CUTS = (("rwkv6-1.6b", {"n_layers": 2}, 2, 64),
+                    ("zamba2-2.7b", {"n_layers": 6}, 1, 256))
+STATE_GRAD_TOL = 1e-3
+
+
+def phase_state_train_step(torch, configs, get_model, optim, train):
+    """Phase 24: rwkv6-1.6b (2 layers) and zamba2-2.7b (one group: 6 Mamba2
+    layers and the shared block) at full width in f32: every gradient leaf
+    of ``loss`` on the card against the CPU's, then one AdamW step held to
+    phase 14's tolerances (Adam eps 1e-3)."""
+    records = []
+    for arch, cut, B, T in STATE_TRAIN_CUTS:
+        cfg = configs.get_config(arch).scaled(
+            param_dtype="float32", compute_dtype="float32", **cut)
+        api = get_model(cfg)
+        opt = optim.OptimizerConfig(lr=1e-3, eps=1e-3, warmup_steps=1,
+                                    decay_steps=10)
+        cpu = train.init_state(torch.Generator().manual_seed(0), api, cfg,
+                               opt, device="cpu")
+        card = {"params": optim.tree_map(
+            lambda t: t.detach().to(DEVICE, copy=True).requires_grad_(),
+            cpu["params"])}
+        card["opt"] = optim.adamw_init(card["params"], opt)
+        rng = np.random.RandomState(24)
+        toks = torch.from_numpy(
+            rng.randint(0, cfg.vocab, (B, T + 1)).astype(np.int32))
+        batch = {"tokens": toks[:, :-1].contiguous(),
+                 "targets": toks[:, 1:].contiguous()}
+        gbatch = {k: v.to(DEVICE) for k, v in batch.items()}
+        loss_cpu, _ = api.loss(cpu["params"], batch, cfg)
+        g_cpu = torch.autograd.grad(loss_cpu,
+                                    optim.tree_leaves(cpu["params"]))
+        zero_launches()
+        loss_card, _ = api.loss(card["params"], gbatch, cfg)
+        g_card = torch.autograd.grad(loss_card,
+                                     optim.tree_leaves(card["params"]))
+        loss_cpu, loss_card = loss_cpu.detach(), loss_card.detach()
+        torch.cuda.synchronize()
+        grad_launches = check_launches(f"{arch} gradient",
+                                       **expected_train_launches(cfg))
+        check(abs(float(loss_card) - float(loss_cpu))
+              <= 1e-5 * abs(float(loss_cpu)),
+              f"{arch}: loss {float(loss_card)} on the card != "
+              f"{float(loss_cpu)} on the CPU")
+        worst = 0.0
+        names = [p for p, _ in optim.named_leaves(cpu["params"])]
+        for path, a, b in zip(names, g_card, g_cpu):
+            d = (a.cpu() - b).abs()
+            scale = float(b.abs().max())
+            worst = max(worst, float(d.max()) / max(scale, 1e-30))
+            check(bool((d <= STATE_GRAD_TOL * scale
+                        + STATE_GRAD_TOL * b.abs()).all()),
+                  f"{arch}: gradient of {path} off the CPU's by "
+                  f"{float(d.max())} (largest {scale})")
+        del g_cpu, g_card
+        step = train.make_train_step(api, cfg, train.TrainConfig(
+            optimizer=opt))
+        _, m_cpu = step(cpu, batch)
+        zero_launches()
+        _, m_card = step(card, gbatch)
+        torch.cuda.synchronize()
+        step_launches = check_launches(f"{arch} train step",
+                                       **expected_train_launches(cfg))
+        check(abs(float(m_card["loss"]) - float(m_cpu["loss"]))
+              <= 1e-5 * abs(float(m_cpu["loss"])),
+              f"{arch} step: loss {float(m_card['loss'])} != "
+              f"{float(m_cpu['loss'])}")
+        perr = 0.0
+        for a, b in zip(optim.tree_leaves(card["params"]),
+                        optim.tree_leaves(cpu["params"])):
+            d = (a.detach().cpu() - b.detach()).abs()
+            perr = max(perr, float(d.max()))
+            check(bool((d <= 2e-5 + 2e-3 * b.detach().abs()).all()),
+                  f"{arch} step: parameter error {float(d.max())}")
+        records.append({
+            "config": arch, "cut": cut, "d_model": cfg.d_model,
+            "vocab": cfg.vocab, "batch": B, "seq": T,
+            "loss_cpu": float(loss_cpu), "loss_card": float(loss_card),
+            "grad_leaves": len(names), "grad_max_err_rel": worst,
+            "grad_tol": STATE_GRAD_TOL, "grad_launches": grad_launches,
+            "step_loss_cpu": float(m_cpu["loss"]),
+            "step_loss_card": float(m_card["loss"]),
+            "step_max_param_err": perr, "step_launches": step_launches})
+        del cpu, card
+        gc.collect()
+        torch.cuda.empty_cache()
+    return records
+
+
+STATE_TRAIN_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b")
+
+
+def phase_state_train_full(torch, configs, get_model, optim, train, data,
+                           arch):
+    """Phase 25: ``arch`` at full width (bf16, remat full, random weights
+    from seed 0) through ``DataPipeline``, ``init_state`` and
+    ``make_train_step``, global batch 2 x seq 2048, AdamW, 3 timed steps;
+    then one more step under ``torch.profiler``, from which the scans'
+    backward span (``wkv6/backward`` or ``ssd/backward``, one a layer) is
+    read: its host and device time summed over the step's layers, and its
+    share of the profiled step."""
+    t_up = time.perf_counter()
+    cfg = configs.get_config(arch)
+    api = get_model(cfg)
+    tcfg = train.TrainConfig(
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        optimizer=optim.OptimizerConfig(lr=3e-4, warmup_steps=1,
+                                        decay_steps=100))
+    pipe = data.DataPipeline(data.DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH),
+        device=DEVICE)
+    state = train.init_state(torch.Generator(device=DEVICE).manual_seed(0),
+                             api, cfg, tcfg.optimizer, device=DEVICE)
+    step = train.make_train_step(api, cfg, tcfg)
+    n_params = sum(p.numel() for p in optim.tree_leaves(state["params"]))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_up
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    times, losses, norms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        batch = pipe.next_batch()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launches = check_launches(f"{arch} training",
+                              **expected_train_launches(cfg, TRAIN_STEPS))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"{arch} training: loss {losses} / grad norm {norms}")
+    check(1.0 < losses[0] < 3 * math.log(cfg.vocab),
+          f"{arch} training: first loss {losses[0]} is not near ln(vocab) "
+          f"= {math.log(cfg.vocab)}")
+    median = sorted(times)[len(times) // 2]
+
+    span = "wkv6/backward" if cfg.family == "ssm" else "ssd/backward"
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    batch = pipe.next_batch()
+    zero_launches()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    check_launches(f"{arch} profiled step", **expected_train_launches(cfg))
+    check(math.isfinite(float(m["loss"])), f"{arch} profiled step: loss "
+                                           f"{float(m['loss'])}")
+    ka = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0))
+
+    # the span has two rows, its host range and its device annotation, each
+    # summed over the step's calls; kernels carry no CPU time of their own
+    rec = [e for e in ka if e.key == span]
+    check(bool(rec), f"no {span} span in the profiled {arch} step")
+    kernels_us = sum(dev_us(e) for e in ka if dev_us(e) > 0
+                     and e.self_cpu_time_total == 0 and e.key != span)
+    span_device_ms = max(dev_us(e) for e in rec) / 1e3
+    del state, step, prof, ka
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"config": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab,
+            "dtype": cfg.compute_dtype, "remat": cfg.remat,
+            "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "setup_seconds": setup_s, "step_seconds": times,
+            "step_median_s": median,
+            "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / median,
+            "losses": losses, "grad_norms": norms, "launches": launches,
+            "peak_mem_gb": peak,
+            "profiled_step": {
+                "seconds": window, "span": span,
+                "span_calls": max(e.count for e in rec),
+                "span_host_ms": max(e.cpu_time_total for e in rec) / 1e3,
+                "span_device_ms": span_device_ms,
+                "span_share": span_device_ms / (window * 1e3),
+                "device_busy_share": kernels_us / (window * 1e6)}}
+
+
+# phase 26: the simulation payloads at the reference's default sizes (card
+# vs CPU), then at sizes a simulation user runs
+HEAT_TIMED = (4096, 100)  # grid side, steps
+LJ_TIMED = (4096, 10)  # particles, steps
+AGENTS, AGENT_DECISIONS, AGENT_NEW_TOKENS = 8, 4, 16
+
+
+def phase_workflows(torch, configs, get_model, core, sim, torchrt, local,
+                    bench_agentic, bench_run, bench_common):
+    """Phase 26: the payloads on the card against the CPU from one seed
+    (heat within 1e-6, LJ and the surrogate within 1e-4 relative), timed at
+    a 4096^2 heat grid over 100 steps and 4096 LJ particles over 10 steps;
+    ``TorchBackend`` beside the pool backend in one ``Rhapsody``; exp6's
+    agent population behind llama3.2-3b at full width (bf16, one paged
+    replica); then exp1, exp2 and exp5 of ``benchmarks_torch`` on the
+    card."""
+    out = {}
+    checks = []
+    # (atol, rtol): heat within 1e-6; LJ and the surrogate within 1e-4
+    # relative, with a 1e-6 floor for values near 0
+    for name, fn, kw, tol in (
+            ("heat_stencil", sim.heat_stencil, {"_ranks": 4}, (1e-6, 0.0)),
+            ("lj_step", sim.lj_step, {}, (1e-6, 1e-4)),
+            ("surrogate_eval", sim.surrogate_eval, {}, (1e-6, 1e-4))):
+        zero_launches()
+        got = fn(seed=26, device=DEVICE, **kw)
+        check_launches(name)
+        want = fn(seed=26, device="cpu", **kw)
+        d = np.abs(got - want)
+        ok = got.shape == want.shape and bool(
+            np.all(d <= tol[0] + tol[1] * np.abs(want)))
+        check(ok and bool(np.isfinite(got).all()),
+              f"{name}: card vs CPU error {float(d.max())}")
+        checks.append({"payload": name, "shape": list(got.shape),
+                       "max_abs_err": float(d.max()), "tol": tol})
+    out["card_vs_cpu"] = checks
+    # the step functions alone on inputs already on the card (the rates);
+    # then the whole payload call: the CPU draw, the copies both ways and
+    # the steps
+    n, steps = HEAT_TIMED
+    n_lj, steps_lj = LJ_TIMED
+    grid = sim._heat_draw(n, 0).to(DEVICE)
+    pos = sim._lj_draw(n_lj, 0).to(DEVICE)
+    step_fns = {
+        "heat_stencil": lambda: sim._heat_steps(grid, steps),
+        "lj_step": lambda: sim._lj_steps(pos, torch.zeros_like(pos),
+                                         steps_lj)[0]}
+    timed = {}
+    for name, fn, kw in (
+            ("heat_stencil", sim.heat_stencil, {"n": n, "steps": steps}),
+            ("lj_step", sim.lj_step,
+             {"n_particles": n_lj, "steps": steps_lj})):
+        res = step_fns[name]()
+        check(bool(torch.isfinite(res).all()), f"{name}: non-finite steps")
+        step_ms = cuda_ms(step_fns[name], reps=3)
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = fn(device=DEVICE, **kw)
+            ts.append(time.perf_counter() - t0)
+        check(bool(np.isfinite(res).all()), f"{name}: non-finite result")
+        timed[name] = {**kw, "steps_ms": step_ms, "call_seconds": ts,
+                       "call_median_s": sorted(ts)[1]}
+    timed["heat_stencil"]["cell_updates_per_s"] = \
+        (n - 2) ** 2 * steps / (timed["heat_stencil"]["steps_ms"] / 1e3)
+    timed["lj_step"]["pair_evals_per_s"] = \
+        n_lj * n_lj * steps_lj / (timed["lj_step"]["steps_ms"] / 1e3)
+    del grid, pos
+    out["timed"] = timed
+
+    # TorchBackend beside the pool backend in one allocation
+    backends = {"pool": local.PoolBackend(n_workers=2),
+                "torch": torchrt.TorchBackend(device=DEVICE)}
+    rh = core.Rhapsody(core.ResourceDescription(nodes=4, cores_per_node=8),
+                       backends=backends, partitions={"pool": 2, "torch": 2})
+    try:
+        xs = [torch.arange(16.0, device=DEVICE) + i for i in range(4)]
+        t_tasks = [core.TaskDescription(
+            fn=lambda x: (x * x + 1.0).sum(), args=(x,), partition="torch",
+            task_type="torch_compute") for x in xs]
+        p_tasks = [core.TaskDescription(fn=lambda i=i: i * 2,
+                                        partition="pool", task_type="py_fn")
+                   for i in range(4)]
+        zero_launches()
+        uids = rh.submit(t_tasks + p_tasks)
+        check(rh.wait(uids, timeout=120), "TorchBackend tasks timed out")
+        check_launches("TorchBackend composition")
+        got = [float(rh.result(t.uid)) for t in t_tasks]
+        want = [float(((torch.arange(16.0) + i) ** 2 + 1.0).sum())
+                for i in range(4)]
+        check(got == want and rh.result(p_tasks[3].uid) == 6,
+              f"TorchBackend composition: {got} != {want}")
+        stats = {k: b.stats() for k, b in backends.items()}
+        check(stats["torch"]["executed"] == 4
+              and stats["pool"]["executed"] == 4,
+              f"TorchBackend composition: {stats}")
+        out["composition"] = stats
+    finally:
+        rh.close()
+
+    # exp6's agent population behind llama3.2-3b at full width
+    cfg = configs.get_config(MAIN_PATH_ARCH)
+    params = get_model(cfg).init(
+        torch.Generator(device=DEVICE).manual_seed(0), cfg, device=DEVICE)
+    zero_launches()
+    pop = bench_agentic.run_population(
+        AGENTS, AGENT_DECISIONS, device=DEVICE, cfg=cfg, params=params,
+        max_new_tokens=AGENT_NEW_TOKENS)
+    pop["launches"] = check_launches(
+        "agent population",
+        paged_decode_attention=cfg.n_layers * pop["decode_steps"])[
+        "paged_decode_attention"]
+    check(pop["decisions"] == AGENTS * AGENT_DECISIONS
+          and pop["tasks"] == 2 * AGENTS * AGENT_DECISIONS
+          and not pop["errors"] and not pop["decision_errors"]
+          and not pop["replica_errors"] and pop["decode_steps"] > 0,
+          f"agent population: {pop}")
+    out["agents"] = {**pop, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                     "dtype": cfg.compute_dtype}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the port's benchmark suites on the card
+    suites = ["exp1_scaling", "exp2_heterogeneity", "exp5_coupling"]
+    zero_launches()
+    t0 = time.perf_counter()
+    payload, failures = bench_run.run_suites(bench_common.Reporter(), suites,
+                                             DEVICE)
+    check_launches("benchmarks_torch suites")
+    check(not failures, f"benchmarks_torch suites failed: {failures}")
+    out["benchmarks_torch"] = {"seconds": time.perf_counter() - t0,
+                               **payload}
+    return out
+
+
 def main():
     import torch
 
@@ -2492,6 +2962,11 @@ def main():
     from repro_torch.serving import client, engine, kvcache
     from repro_torch.substrate import data
     from repro_torch.training import optim, train
+    from repro_torch.backends import local, torchrt
+    from repro_torch.substrate import simulation
+    from benchmarks_torch import bench_agentic
+    from benchmarks_torch import common as bench_common
+    from benchmarks_torch import run as bench_run
 
     COUNTERS.update({
         "paged_decode_attention": (ops, "launches"),
@@ -2655,16 +3130,59 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 23. the scans' gradients at the full configs' shapes
+    emit({"phase": "scan_grads", "cases": phase_scan_grads(
+        torch, wkv_ops, wkv_ref, ssd_ops, ssd_ref)})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 24. rwkv6 and zamba2 gradients and one step, card vs CPU, f32
+    emit({"phase": "state_train_step", "models": phase_state_train_step(
+        torch, configs, get_model, optim, train)})
+
+    # 25. rwkv6-1.6b and zamba2-2.7b training at full width
+    state_train = {}
+    for arch in STATE_TRAIN_ARCHS:
+        state_train[arch] = phase_state_train_full(
+            torch, configs, get_model, optim, train, data, arch)
+        emit({"phase": "state_train_full", **state_train[arch]})
+
+    # 26. the workflow payloads, the compute backend, the agents and the
+    # port's benchmark suites on the card
+    workflows = phase_workflows(torch, configs, get_model, core, simulation,
+                                torchrt, local, bench_agentic, bench_run,
+                                bench_common)
+    emit({"phase": "workflows", **workflows})
+    gc.collect()
+    torch.cuda.empty_cache()
+
     decode_src = ("src/repro_torch/kernels/decode_attention/csrc/"
                   "decode_attention.cu")
     rwkv, zamba = (state_paths[arch] for arch in STATE_ARCHS)
+
+    rwkv_train, zamba_train = (state_train[a] for a in STATE_TRAIN_ARCHS)
+    agents = workflows["agents"]["launches"]
+    by_path = {  # launches on each path this script drives at full width
+        "paged_decode_attention": {"main_path": main_path["launches"],
+                                   "agent_population": agents},
+        "decode_attention": {"zamba2_serving":
+                             zamba["launches"]["decode_attention"]},
+        "flash_attention": {"train_main_path": train_path["launches"],
+                            "zamba2_training":
+                            zamba_train["launches"]["flash_attention"]},
+        "ssd": {"zamba2_serving": zamba["launches"]["ssd"],
+                "zamba2_training": zamba_train["launches"]["ssd"]},
+        "wkv6": {"rwkv6_serving": rwkv["launches"]["wkv6"],
+                 "rwkv6_training": rwkv_train["launches"]["wkv6"]},
+    }
 
     def line(name, source, replaces, launches, err, t):
         rec = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches,
                "max_abs_err": err, "ms": t["kernel_ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-               "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+               "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+               "launches_by_path": by_path[name]}
         if "graph_ms" in t:  # device time replayed from a CUDA graph
             rec.update(graph_ms=t["graph_ms"],
                        library_graph_ms=t.get("library_graph_ms"))

@@ -1,12 +1,16 @@
-"""Chunked Mamba2 SSD on model-layout tensors: the CUDA kernel or its plain
-version, chosen by where the tensors lie.
+"""Chunked Mamba2 SSD on model-layout tensors, with its gradient: the CUDA
+kernel or its plain version, chosen by where the tensors lie.
 
-A CUDA tensor launches the hand-written Hopper kernel (``csrc/ssd.cu``,
-replacing the TPU kernel ``ssd_bthp`` at
-``src/repro/kernels/mamba2/kernel.py:61``) or raises; a CPU tensor runs
-``ref.ssd_chunked_ref``.  There is no fallback from one to the other.
-``launches`` counts kernel launches, so a run can show that its prefill
-went through the kernel.
+``SSD`` is a ``torch.autograd.Function``.  Its forward launches the
+hand-written Hopper kernel (``csrc/ssd.cu``, replacing the TPU kernel
+``ssd_bthp`` at ``src/repro/kernels/mamba2/kernel.py:61``) on a CUDA
+tensor, or raises, and runs ``ref.ssd_chunked_ref`` on a CPU tensor.
+There is no fallback from one to the other.  Its backward recomputes
+``ref.ssd_chunked_ref`` under autograd from the saved inputs, on both: the
+TPU kernel has no backward, and the JAX package takes the gradient through
+its jnp ``ssd_chunked``.  ``launches`` counts kernel launches, so a run can
+show that its prefill or training forward went through the kernel (a block
+recomputed under remat launches again).
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import threading
 
 import torch
 
+from ..recompute import recompute_grads
 from . import ref
 from .kernel import MAX_CHUNK, check_bf16_shape, ssd_forward
 
@@ -77,22 +82,46 @@ def _launch(x, dt, A, Bm, Cm, h0, chunk):
     return y, h
 
 
+def _forward(x, dt, A, Bm, Cm, h0, chunk):
+    global launches
+    if x.device.type == "cpu":
+        return ref.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk, h0)
+    y, h = _launch(x, dt, A, Bm, Cm, h0, chunk)
+    with _count_lock:
+        launches += 1
+    return y, h
+
+
+class SSD(torch.autograd.Function):
+    """(x, dt, A, Bm, Cm, h0, chunk) with T % chunk == 0 -> (y, h_final);
+    the gradient reaches x, dt, A, Bm, Cm and h0 from both outputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, h0, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, A, Bm, Cm, h0)
+        return _forward(x, dt, A, Bm, Cm, h0, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        saved = ctx.saved_tensors
+        with torch.profiler.record_function("ssd/backward"):
+            return recompute_grads(
+                lambda *a: ref.ssd_chunked_ref(*a[:5], ctx.chunk, a[5]),
+                saved, ctx.needs_input_grad[:6], (dy, dh)) + (None,)
+
+
 def ssd(x, dt, A, Bm, Cm, *, chunk: int, h0=None):
     """Chunked SSD: x [B,T,H,P]; dt [B,T,H] float32; A [H] float32
     (negative); Bm/Cm [B,T,N] in x's dtype; h0 [B,H,N,P] float32 or None
     (zeros) -> (y [B,T,H,P] in x's dtype, h_final [B,H,N,P] float32).
 
     The chunk is ``min(chunk, T)``; a T that is not a multiple of it raises
-    ``ValueError``, as the reference's ``ssd_chunked`` does."""
-    global launches
+    ``ValueError``, as the reference's ``ssd_chunked`` does, before the
+    autograd Function runs."""
     _check(x, dt, A, Bm, Cm, h0)
     T = x.shape[1]
     L = min(chunk, T)
     if T % L:
         raise ValueError(f"T={T} not divisible by chunk={L}")
-    if x.device.type == "cpu":
-        return ref.ssd_chunked_ref(x, dt, A, Bm, Cm, L, h0)
-    y, h = _launch(x, dt, A, Bm, Cm, h0, L)
-    with _count_lock:
-        launches += 1
-    return y, h
+    return SSD.apply(x, dt, A, Bm, Cm, h0, L)

@@ -1,12 +1,16 @@
-"""Chunked WKV6 on model-layout tensors: the CUDA kernel or its plain
-version, chosen by where the tensors lie.
+"""Chunked WKV6 on model-layout tensors, with its gradient: the CUDA
+kernel or its plain version, chosen by where the tensors lie.
 
-A CUDA tensor launches the hand-written Hopper kernel (``csrc/wkv6.cu``,
-replacing the TPU kernel ``wkv_bhtc`` at
-``src/repro/kernels/rwkv6/kernel.py:60``) or raises; a CPU tensor runs
-``ref.wkv_chunked_ref``.  There is no fallback from one to the other.
-``launches`` counts kernel launches, so a run can show that its prefill
-went through the kernel.
+``WKV`` is a ``torch.autograd.Function``.  Its forward launches the
+hand-written Hopper kernel (``csrc/wkv6.cu``, replacing the TPU kernel
+``wkv_bhtc`` at ``src/repro/kernels/rwkv6/kernel.py:60``) on a CUDA
+tensor, or raises, and runs ``ref.wkv_chunked_ref`` on a CPU tensor.
+There is no fallback from one to the other.  Its backward recomputes
+``ref.wkv_chunked_ref`` under autograd from the saved inputs, on both: the
+TPU kernel has no backward, and the JAX package takes the gradient through
+its jnp ``wkv_chunked``.  ``launches`` counts kernel launches, so a run can
+show that its prefill or training forward went through the kernel (a block
+recomputed under remat launches again).
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from ..recompute import recompute_grads
 from . import ref
 from .kernel import check_bf16_shape, check_f32_shape, wkv6_forward
 
@@ -72,6 +77,35 @@ def _launch(r, k, v, lw, u, s0, chunk):
     return y, s
 
 
+def _forward(r, k, v, lw, u, s0, chunk):
+    global launches
+    if r.device.type == "cpu":
+        return ref.wkv_chunked_ref(r, k, v, lw, u, chunk, s0)
+    y, s = _launch(r, k, v, lw, u, s0, chunk)
+    with _count_lock:
+        launches += 1
+    return y, s
+
+
+class WKV(torch.autograd.Function):
+    """(r, k, v, lw, u, s0, chunk) with T % chunk == 0 -> (y, s_final);
+    the gradient reaches r, k, v, lw, u and s0 from both outputs."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u, s0, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(r, k, v, lw, u, s0)
+        return _forward(r, k, v, lw, u, s0, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        saved = ctx.saved_tensors
+        with torch.profiler.record_function("wkv6/backward"):
+            return recompute_grads(
+                lambda *a: ref.wkv_chunked_ref(*a[:5], ctx.chunk, a[5]),
+                saved, ctx.needs_input_grad[:6], (dy, ds)) + (None,)
+
+
 def wkv(r, k, v, lw, u, *, chunk: int, s0=None):
     """Chunked WKV6: r/k/v [B,T,H,hd] in one dtype; lw [B,T,H,hd] float32
     log-decay (<= 0); u [H,hd] float32; s0 [B,H,hd,hd] float32 or None
@@ -79,18 +113,13 @@ def wkv(r, k, v, lw, u, *, chunk: int, s0=None):
 
     The chunk is ``min(chunk, T)``; T is padded to a multiple of it as the
     reference's ``wkv_chunked`` pads (r/k/v = 0 and lw = 0, which leaves
-    the state as it is), and y is cut back to T."""
-    global launches
+    the state as it is), and y is cut back to T, outside the autograd
+    Function, so the gradient passes through the padding."""
     _check(r, k, v, lw, u, s0)
     T = r.shape[1]
     L = min(chunk, T)
     pad = -T % L
     if pad:
         r, k, v, lw = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v, lw))
-    if r.device.type == "cpu":
-        y, s = ref.wkv_chunked_ref(r, k, v, lw, u, L, s0)
-    else:
-        y, s = _launch(r, k, v, lw, u, s0, L)
-        with _count_lock:
-            launches += 1
+    y, s = WKV.apply(r, k, v, lw, u, s0, L)
     return y[:, :T], s

@@ -2,9 +2,8 @@
 
 The dense and MoE families (one transformer, ``transformer.py`` with
 ``moe.py`` as its FFN), rwkv6 (``ssm``) and zamba2 (``hybrid``) are
-ported; encoder-decoder and VLM raise, naming the ROADMAP item that ports
-them.  The state-carrying families serve (forward, prefill, decode) but do
-not train yet: their ``loss`` raises.
+ported, and each serves and trains; encoder-decoder and VLM raise, naming
+the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -47,12 +46,6 @@ def _require_ported(cfg: ModelConfig):
             f"yet: {item}")
 
 
-def _no_training(params, batch, cfg: ModelConfig):
-    raise NotImplementedError(
-        f"training the {cfg.family} family is not ported to PyTorch yet: "
-        f"ROADMAP Queue 1 item 14 (training the state-carrying families)")
-
-
 def get_model(cfg: ModelConfig) -> ModelApi:
     _require_ported(cfg)
     if cfg.positions not in ("rope", "none"):
@@ -62,7 +55,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     if cfg.family == "hybrid":
         return ModelApi(
             init=mamba2.hybrid_init,
-            loss=_no_training,
+            loss=mamba2.hybrid_loss,
             forward=mamba2.hybrid_forward,
             prefill=mamba2.hybrid_prefill,
             decode=mamba2.hybrid_decode_step,
@@ -70,7 +63,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     if cfg.family == "ssm":
         return ModelApi(
             init=rwkv6.rwkv_init,
-            loss=_no_training,
+            loss=rwkv6.rwkv_loss,
             forward=rwkv6.rwkv_forward,
             prefill=rwkv6.rwkv_prefill,
             decode=rwkv6.rwkv_decode_step,

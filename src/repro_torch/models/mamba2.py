@@ -274,17 +274,29 @@ def _readout(p, x, cfg: ModelConfig):
 
 def hybrid_forward(p, batch, cfg: ModelConfig):
     """tokens [B,T] -> (logits [B,T,V], aux = 0).  The shared block runs
-    ``transformer.block_apply`` (the flash-attention kernel on the card)."""
+    ``transformer.block_apply`` (the flash-attention kernel on the card).
+    ``cfg.remat == "full"`` checkpoints each group body, its Mamba2 layers
+    and the shared block as one unit, as the reference's ``group_body``."""
     tokens = batch["tokens"]
     x = nn.embedding_apply(p["embed"], tokens, cfg.cdtype)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
-    for group in p["groups"]:
+
+    def group_body(x, group):
         for bp in group:
             x = mamba_block_apply(bp, x, cfg)
-        x, _ = tfm.block_apply(p["shared"], x, cfg, causal=True,
-                               positions=positions)
+        return tfm.block_apply(p["shared"], x, cfg, causal=True,
+                               positions=positions)[0]
+
+    run = tfm.remat_wrap(group_body, cfg)
+    for group in p["groups"]:
+        x = run(x, group)
     return _readout(p, x, cfg), torch.zeros((), dtype=torch.float32,
                                              device=x.device)
+
+
+def hybrid_loss(p, batch, cfg: ModelConfig):
+    logits, aux = hybrid_forward(p, batch, cfg)
+    return tfm._ce_from_logits(logits, batch, aux, cfg)
 
 
 def _stack(trees):

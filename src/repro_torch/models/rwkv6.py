@@ -23,6 +23,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 
 from . import nn
+from . import transformer as tfm
 from .config import ModelConfig
 
 
@@ -244,12 +245,19 @@ def _readout(p, x, cfg: ModelConfig):
 
 
 def rwkv_forward(p, batch, cfg: ModelConfig):
-    """tokens [B,T] -> (logits [B,T,V], aux = 0)."""
+    """tokens [B,T] -> (logits [B,T,V], aux = 0).  ``cfg.remat == "full"``
+    checkpoints each block, as the reference's ``remat_wrap``."""
     x = _embed(p, batch["tokens"], cfg)
+    run = tfm.remat_wrap(lambda x, bp: rwkv_block_apply(bp, x, cfg)[0], cfg)
     for bp in p["blocks"]:
-        x, _ = rwkv_block_apply(bp, x, cfg)
+        x = run(x, bp)
     return _readout(p, x, cfg), torch.zeros((), dtype=torch.float32,
                                              device=x.device)
+
+
+def rwkv_loss(p, batch, cfg: ModelConfig):
+    logits, aux = rwkv_forward(p, batch, cfg)
+    return tfm._ce_from_logits(logits, batch, aux, cfg)
 
 
 def rwkv_prefill(p, batch, cfg: ModelConfig, *, max_len: int = 0):

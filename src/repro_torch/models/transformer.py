@@ -148,21 +148,25 @@ def lm_init(gen, cfg: ModelConfig, *, device=None):
 # ---------------------------------------------------------------------------
 
 
-def _run_blocks(p, x, cfg: ModelConfig, *, positions=None):
+def remat_wrap(fn, cfg: ModelConfig):
+    """``fn`` as it is (``remat="none"``), or under
+    ``torch.utils.checkpoint`` (``"full"``: the backward runs its forward
+    again), as the reference's ``remat_wrap``."""
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(
             f"remat={cfg.remat!r} is not ported yet: ROADMAP Queue 1 item 13 "
             f"(launch tooling)")
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in p["blocks"]:
-        def body(x, layer=layer):
-            return block_apply(layer, x, cfg, causal=True,
-                               positions=positions)
+    if cfg.remat == "none":
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
-        if cfg.remat == "full":
-            x, a = checkpoint(body, x, use_reentrant=False)
-        else:
-            x, a = body(x)
+
+def _run_blocks(p, x, cfg: ModelConfig, *, positions=None):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    run = remat_wrap(lambda x, layer: block_apply(
+        layer, x, cfg, causal=True, positions=positions), cfg)
+    for layer in p["blocks"]:
+        x, a = run(x, layer)
         aux = aux + a
     return x, aux
 

@@ -1,8 +1,9 @@
-"""The hand-written CUDA kernels against their plain versions, on the card;
-one training step, the slot engine, the MoE paged engine in both decode
-modes, a speculative-decoding session, the prefill->decode handoff and a
-preempted sequence's resume on the card against the same work on the CPU,
-the plain target engine or a unified engine.
+"""The hand-written CUDA kernels against their plain versions, on the card,
+the scans' autograd Functions among them; one training step (dense, rwkv6
+and zamba2), the slot engine, the MoE paged engine in both decode modes, a
+speculative-decoding session, the prefill->decode handoff, a preempted
+sequence's resume and the simulation payloads on the card against the
+same work on the CPU, the plain target engine or a unified engine.
 
 Needs a CUDA card and imports neither JAX nor the JAX package, so it runs
 where the port runs:
@@ -814,3 +815,189 @@ def test_cuda_preempt_resume_token_identical(cuda):
     assert [done[u].output for u in uids] == want
     assert done[uids[0]].first_token_at == stamp
     assert eng.stats.preemptions == eng.stats.preempt_resumes == 1
+
+
+def _scan_case(kind, dtype, s0_set):
+    """Inputs of a ``wkv`` (T 37 in chunks of 8: padded) or ``ssd`` (T 48 in
+    chunks of 16) call on the card, drawn with numpy."""
+    rng = np.random.RandomState(23)
+
+    def t(*shape, scale=1.0, dt=dtype):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).cuda().to(dt)
+
+    f32 = torch.float32
+    if kind == "wkv":
+        B, T, H, hd, L = 2, 37, 2, 16, 8
+        args = [t(B, T, H, hd, scale=0.5), t(B, T, H, hd, scale=0.5),
+                t(B, T, H, hd, scale=0.5),
+                -torch.exp(t(B, T, H, hd, dt=f32) - 1.0),
+                t(H, hd, scale=0.1, dt=f32)]
+        s0 = t(B, H, hd, hd, scale=0.1, dt=f32) if s0_set else None
+        return args, s0, L
+    B, T, H, P, N, L = 2, 48, 4, 16, 16, 16
+    args = [t(B, T, H, P), torch.nn.functional.softplus(
+        t(B, T, H, dt=f32) - 2.0), -(1.0 + 15.0 * torch.rand(H).cuda()),
+        t(B, T, N), t(B, T, N)]
+    s0 = t(B, H, N, P, scale=0.1, dt=f32) if s0_set else None
+    return args, s0, L
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s0_set", [False, True])
+@pytest.mark.parametrize("dtype,gtol", [("float32", 1e-4),
+                                        ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("kind", ["wkv", "ssd"])
+def test_cuda_scan_functions_carry_the_gradient(cuda, kind, dtype, gtol,
+                                                s0_set):
+    """On the card ``wkv`` and ``ssd`` launch their kernel once and return
+    outputs with a ``grad_fn``; every input's gradient, under cotangents of
+    both outputs, equals autograd of the plain version on float32 copies
+    (1e-4 relative for f32 inputs, 2e-2 for bf16), in its input's
+    dtype."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, s0, L = _scan_case(kind, getattr(torch, dtype), s0_set)
+    leaves = args + ([s0] if s0 is not None else [])
+    mine = [a.clone().requires_grad_() for a in leaves]
+    plain = [a.float().clone().requires_grad_() for a in leaves]
+    st = (lambda xs: xs[5] if s0_set else None)
+    if kind == "wkv":
+        counter = wkv_ops
+        before = counter.launches
+        y, s = wkv_ops.wkv(*mine[:5], chunk=L, s0=st(mine))
+        pad = -args[0].shape[1] % L
+        py, ps = wkv_ref.wkv_chunked_ref(
+            *[torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
+              for a in plain[:4]], plain[4], L, st(plain))
+        py = py[:, :args[0].shape[1]]
+    else:
+        counter = ssd_ops
+        before = counter.launches
+        y, s = ssd_ops.ssd(*mine[:5], chunk=L, h0=st(mine))
+        py, ps = ssd_ref.ssd_chunked_ref(*plain[:5], L, st(plain))
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert y.grad_fn is not None and s.grad_fn is not None
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    wy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+    ws = torch.randn(s.shape, generator=gen, device="cuda")
+    got = torch.autograd.grad((y, s), mine, (wy, ws))
+    want = torch.autograd.grad((py, ps), plain, (wy.float(), ws))
+    assert counter.launches == before + 1  # the backward launches nothing
+    for g, w, x in zip(got, want, leaves):
+        assert g.dtype == x.dtype
+        torch.testing.assert_close(g.float(), w, rtol=gtol, atol=gtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b"])
+def test_cuda_state_family_gradient_and_step_match_cpu(cuda, arch):
+    """The smoke config in float32: every gradient leaf of ``loss`` on the
+    card (the scans' kernels forward, their Functions backward) equals the
+    CPU's within 1e-4, and one AdamW step (eps 1e-3) the CPU's step within
+    rtol 2e-3, atol 2e-5; the scan kernels ran 2 x n_layers times a pass
+    (remat full reruns each checkpointed forward)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.training import optim
+    from repro_torch.training.train import TrainConfig, init_state, \
+        make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    api = get_model(cfg)
+    opt = optim.OptimizerConfig(lr=1e-3, eps=1e-3, warmup_steps=1,
+                                decay_steps=10)
+    cpu = init_state(torch.Generator().manual_seed(0), api, cfg, opt,
+                     device="cpu")
+    gpu = {"params": optim.tree_map(
+        lambda t: t.detach().cuda().requires_grad_(), cpu["params"])}
+    gpu["opt"] = optim.adamw_init(gpu["params"], opt)
+    rng = np.random.RandomState(0)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 33)).astype(
+        np.int32))
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "targets": toks[:, 1:].contiguous()}
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    counter = wkv_ops if cfg.family == "ssm" else ssd_ops
+    g_cpu = torch.autograd.grad(api.loss(cpu["params"], batch, cfg)[0],
+                                optim.tree_leaves(cpu["params"]))
+    before = counter.launches
+    g_gpu = torch.autograd.grad(api.loss(gpu["params"], gbatch, cfg)[0],
+                                optim.tree_leaves(gpu["params"]))
+    torch.cuda.synchronize()
+    assert counter.launches - before == 2 * cfg.n_layers
+    for a, b in zip(g_gpu, g_cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    step = make_train_step(api, cfg, TrainConfig(optimizer=opt))
+    _, m_cpu = step(cpu, batch)
+    _, m_gpu = step(gpu, gbatch)
+    assert abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) <= \
+        1e-5 * abs(float(m_cpu["loss"]))
+    for a, b in zip(optim.tree_leaves(gpu["params"]),
+                    optim.tree_leaves(cpu["params"])):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=2e-3,
+                                   atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b"])
+def test_cuda_train_launcher_runs_state_families(cuda, arch):
+    """``--arch rwkv6-1.6b`` / ``--arch zamba2-2.7b --steps 3`` on the card:
+    finite losses; WKV6 (rwkv6) or SSD (zamba2) 2 x n_layers a step, and
+    for zamba2 the flash kernel 2 x n_layers / attn_every."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train
+
+    cfg = get_smoke_config(arch)
+    counters = {"wkv": (wkv_ops, wkv_ops.launches),
+                "ssd": (ssd_ops, ssd_ops.launches),
+                "flash": (fa_ops, fa_ops.launches)}
+    out = train.main(["--arch", arch, "--steps", "3"])
+    torch.cuda.synchronize()
+    got = {k: mod.launches - before for k, (mod, before) in counters.items()}
+    assert out["device"].startswith("cuda")
+    assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
+    if cfg.family == "ssm":
+        assert got == {"wkv": 2 * cfg.n_layers * 3, "ssd": 0, "flash": 0}
+    else:
+        assert got == {"wkv": 0, "ssd": 2 * cfg.n_layers * 3,
+                       "flash": 2 * cfg.n_layers // cfg.attn_every * 3}
+
+
+@pytest.mark.cuda
+def test_cuda_payloads_and_backend_match_cpu(cuda):
+    """The simulation payloads on the card equal their CPU runs from the
+    same seed (heat within 1e-6, LJ and the surrogate within 1e-4
+    relative); ``TorchBackend`` on the card completes a task only once its
+    result is ready."""
+    from repro_torch.backends.torchrt import TorchBackend
+    from repro_torch.core.task import Task, TaskDescription
+    from repro_torch.substrate import simulation as sim
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    np.testing.assert_allclose(sim.heat_stencil(seed=3, _ranks=4,
+                                                device="cuda"),
+                               sim.heat_stencil(seed=3, _ranks=4,
+                                                device="cpu"),
+                               rtol=0, atol=1e-6)
+    for fn in (sim.lj_step, sim.surrogate_eval):
+        np.testing.assert_allclose(fn(seed=3, device="cuda"),
+                                   fn(seed=3, device="cpu"), rtol=1e-4,
+                                   atol=1e-6)
+    import threading
+
+    done, seen = threading.Event(), []
+    backend = TorchBackend().start(
+        lambda task, res, err: (seen.append((res, err)), done.set()))
+    try:
+        x = torch.arange(1 << 20, device="cuda", dtype=torch.float32)
+        backend.submit(Task(TaskDescription(fn=lambda: (x * x).sum())))
+        assert done.wait(60)
+    finally:
+        backend.shutdown()
+    (res, err), = seen
+    assert err is None and res.device.type == "cuda"
+    assert backend.device.type == "cuda"
+    exact = float((x.double() ** 2).sum())
+    assert abs(float(res) - exact) <= 1e-3 * exact

@@ -1,5 +1,6 @@
-"""Guards of the PyTorch port: it and its scripts for the card import
-neither JAX nor the JAX package, its copies of the JAX-free middleware
+"""Guards of the PyTorch port: it, its scripts for the card, its benchmarks
+(``benchmarks_torch/``) and examples (``examples_torch/``) import neither
+JAX nor the JAX package, its copies of the JAX-free middleware
 stay equal to their originals up to the package name in import lines, and
 every attention config it runs by default fits both attention kernels,
 every hybrid one the SSD kernel and every rwkv6 one the WKV6 kernel."""
@@ -21,6 +22,7 @@ MIDDLEWARE = [
     "core/request.py", "core/prefix.py", "core/events.py", "core/router.py",
     "core/autoscale.py", "core/service.py", "core/middleware.py",
     "backends/base.py", "backends/local.py", "serving/qos.py",
+    "core/agent.py", "core/coupling.py",
 ]
 _FORBIDDEN = re.compile(r"^(jax|jaxlib|repro)(\.|$)")
 
@@ -38,21 +40,30 @@ def _imported_modules(path):
     [*PORT.rglob("*.py"), ROOT / "chip_smoke.py", ROOT / "bench_flash.py",
      ROOT / "bench_decode.py", ROOT / "bench_ssd.py",
      ROOT / "profile_engine.py",
-     ROOT / "profile_train.py"]),
+     ROOT / "profile_train.py",
+     *(ROOT / "benchmarks_torch").glob("*.py"),
+     *(ROOT / "examples_torch").glob("*.py")]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_no_reference(path):
     bad = [m for m in _imported_modules(path) if _FORBIDDEN.match(m)]
     assert not bad, f"{path.name} imports {bad}"
 
 
-@pytest.mark.parametrize("launcher", ["serve", "train"])
+LAUNCHERS = {"serve": "repro_torch.launch.serve",
+             "train": "repro_torch.launch.train",
+             "benchmarks": "benchmarks_torch.run"}
+
+
+@pytest.mark.parametrize("launcher", sorted(LAUNCHERS))
 def test_launcher_import_loads_no_jax(launcher):
-    code = (f"import sys, repro_torch.launch.{launcher}; "
+    code = (f"import sys, {LAUNCHERS[launcher]}; "
             "bad = sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro', "
+            "'benchmarks')); "
             "print(bad); sys.exit(1 if bad else 0)")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-c", code], env=env,
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

@@ -208,9 +208,8 @@ def test_decode_at_a_full_cache_matches_reference():
 def test_unported_families_raise(arch):
     """encdec and vlm raise, naming the ROADMAP item that ports them.  MoE
     serves and trains through the transformer's API.  rwkv6 and zamba2
-    serve: ``get_model`` returns their family's API (no paged entry
-    points, as in the reference), and only its ``loss`` raises, naming
-    the item that trains them."""
+    serve and train: ``get_model`` returns their family's API (no paged
+    entry points, as in the reference), its ``loss`` the family's own."""
     cfg = get_smoke_config(arch)
     if cfg.family == "moe":
         api = get_model(cfg)
@@ -223,9 +222,9 @@ def test_unported_families_raise(arch):
         assert api.prefill.__module__ == f"repro_torch.models.{module}"
         assert api.decode.__module__ == f"repro_torch.models.{module}"
         assert api.extend is None and api.decode_paged is None
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 14"):
-            api.loss(None, None, cfg)
+        assert api.loss.__module__ == f"repro_torch.models.{module}"
+        assert api.loss.__name__ == {"ssm": "rwkv_loss",
+                                     "hybrid": "hybrid_loss"}[cfg.family]
         return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         get_model(cfg)

@@ -84,7 +84,9 @@ def _within(got, want, tol):
 
 @pytest.mark.parametrize("shape,h0_scale", [
     (SSD_SHAPE, 0.0), (SSD_SHAPE, 0.1), ((1, 37, 80, 64, 64, 37), 0.1),
-    ((2, 96, 4, 16, 16, 16), 0.1)])
+    ((2, 96, 4, 16, 16, 16), 0.1),
+    # a training step's length (2 x 2048, 16 chunks) at 8 of the 80 heads
+    ((2, 2048, 8, 64, 64, 128), 0.0), ((2, 2048, 8, 64, 64, 128), 0.1)])
 def test_bf16_rounding_scheme_meets_the_card_limits(shape, h0_scale):
     B, T, H, P, N, L = shape
     x, dt, A, Bm, Cm, h0 = _inputs(6, B, T, H, P, N, h0_scale)
@@ -98,8 +100,8 @@ def test_bf16_rounding_scheme_meets_the_card_limits(shape, h0_scale):
 def _run_shapes():
     """(B, T, H, P, N, L) of every SSD launch the launchers and
     chip_smoke.py make: zamba2-2.7b's prefills (B 1, T up to 384 in chunks
-    of 128, one short chunk), its forward, the smoke config, and the card
-    checks' shapes."""
+    of 128, one short chunk), its forward, a training step's (2 x 2048),
+    the smoke config, and the card checks' shapes."""
     full, smoke = get_config("zamba2-2.7b"), get_smoke_config("zamba2-2.7b")
     shapes = []
     for cfg in (full, smoke):
@@ -112,7 +114,7 @@ def _run_shapes():
     shapes += [(1, 1, 80, 64, 64, 1), (1, 200, 4, 64, 64, 40),
                (2, 64, 8, 16, 16, 16), (1, 256, 8, 32, 32, 128),
                (1, 128, 33, 16, 96, 128), (2, 128, 40, 32, 128, 128),
-               (1, 256, 8, 64, 128, 128)]
+               (1, 256, 8, 64, 128, 128), (2, 2048, 80, 64, 64, 128)]
     return shapes
 
 

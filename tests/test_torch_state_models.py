@@ -157,10 +157,14 @@ def test_recurrent_oracles_match_chunked(lm):
 
 def test_make_batch_and_loss(lm):
     """``make_batch`` serves the state-carrying families (tokens only);
-    their ``loss`` raises, naming the ROADMAP item that trains them."""
-    arch, (cfg, _, _, tcfg, tp) = lm
-    batch = make_batch(tcfg, 2, 9, device="cpu")
+    their ``loss`` on it equals the reference's within 1e-5 relative
+    (``tests/test_torch_state_training.py`` holds the gradients)."""
+    arch, (cfg, api, params, tcfg, tp) = lm
+    batch = make_batch(tcfg, 2, 16, device="cpu")
     assert set(batch) == {"tokens", "targets", "loss_mask"}
-    assert tuple(batch["tokens"].shape) == (2, 9)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        get_model(tcfg).loss(tp, batch, tcfg)
+    assert tuple(batch["tokens"].shape) == (2, 16)
+    loss, metrics = get_model(tcfg).loss(tp, batch, tcfg)
+    want, _ = api.loss(params, {k: jnp.asarray(v.numpy())
+                                for k, v in batch.items()}, cfg)
+    assert abs(float(loss) - float(want)) <= 1e-5 * abs(float(want))
+    assert float(metrics["tokens"]) == 32

@@ -152,10 +152,13 @@ def _run(shape, s0_scale, strong=False, single=()):
 
 # (shape, s0 scale, strong decay): rwkv6-1.6b's prefill with s0 absent and
 # set, the strong decay, one ragged chunk of 20, T 37 in chunks of 8 at
-# the smoke width, head_dim 32
+# the smoke width, head_dim 32, and a training step's length (2 x 2048,
+# the state carried over 64 chunks) at 4 of the 32 heads
 CASES = [(WKV_SHAPE, 0.0, False), (WKV_SHAPE, 0.1, False),
          (WKV_SHAPE, 0.1, True), ((1, 20, 32, 64, 32), 0.1, False),
-         ((2, 37, 4, 16, 8), 0.1, False), ((1, 96, 4, 32, 32), 0.1, True)]
+         ((2, 37, 4, 16, 8), 0.1, False), ((1, 96, 4, 32, 32), 0.1, True),
+         ((2, 2048, 4, 64, 32), 0.0, False),
+         ((2, 2048, 4, 64, 32), 0.1, False)]
 
 
 @pytest.mark.parametrize("shape,s0_scale,strong", CASES, ids=str)
@@ -182,8 +185,8 @@ def test_each_pair_is_needed(name):
 def _run_shapes():
     """(B, T, H, hd, L) of every WKV6 launch the launchers and
     chip_smoke.py make: rwkv6-1.6b's prefills and the smoke config's (T
-    up to a chunk as one chunk, longer T padded to a multiple of it), and
-    the card checks' shapes."""
+    up to a chunk as one chunk, longer T padded to a multiple of it), a
+    training step's (2 x 2048), and the card checks' shapes."""
     shapes = []
     for cfg in (get_config("rwkv6-1.6b"), get_smoke_config("rwkv6-1.6b")):
         hd, L = cfg.rwkv_head_dim, cfg.rwkv_chunk
@@ -193,7 +196,7 @@ def _run_shapes():
                 Lt = min(L, T)
                 shapes.append((B, T + -T % Lt, H, hd, Lt))
     shapes += [(2, 40, 4, 16, 8), (1, 224, 32, 64, 32), (2, 72, 4, 16, 8),
-               (1, 96, 8, 32, 32), (1, 24, 8, 64, 24)]
+               (1, 96, 8, 32, 32), (1, 24, 8, 64, 24), (2, 2048, 32, 64, 32)]
     return shapes
 
 
