@@ -17,7 +17,8 @@ Phases, each printing one JSON line:
    and SSD libraries' SASS (``cuobjdump -sass``).
 2. paged decode kernel vs plain: against ``ref.paged_decode_ref`` on the
    card at every head dim (8, 16, 32, 64, 80, 128; the heads of the
-   configs that run each, ``DECODE_HEADS``) in f32 and bf16 (ragged
+   configs that run each, ``DECODE_HEADS``, internvl2-1b's seven query
+   heads a group among them) in f32 and bf16 (ragged
    lengths, permuted tables, null-block padding rows; f32 within 2e-5,
    bf16 within 4e-3 + 2^-7 x |plain|; physical relocation exact); the
    split's edges (one kv head of one sequence, so the kernel splits it
@@ -32,9 +33,12 @@ Phases, each printing one JSON line:
    bound).
 3. contiguous decode kernel vs plain: against ``ref.decode_ref`` at every
    head dim of ``DECODE_HEADS``, f32 and bf16, the same limits; S 77 and
-   512; ragged lengths and idle rows past S; then its times, as in phase
-   2, at zamba2's decode shape (B 8, Hkv 32, D 80, S 512, 9 layer caches)
-   and at llama3.2-3b's heads, beside the plain version, SDPA (GQA,
+   512; ragged lengths and idle rows past S; whisper-small's cross shape
+   (``WHISPER_CROSS``: B 8, Hkv 12, G 1, D 64, all 1500 positions); then
+   its times, as in phase 2, at zamba2's decode shape (B 8, Hkv 32, D 80,
+   S 512, 9 layer caches), at llama3.2-3b's heads, at whisper's cross
+   shape (12 layer caches) and at internvl2-1b's heads (B 8, Hkv 2, G 7,
+   D 64, S 512, 24 layer caches), beside the plain version, SDPA (GQA,
    length mask) and the bound.
 4. WKV6 kernel vs plain: y and the final state against
    ``ref.wkv_chunked_ref`` (``WKV_CASES`` in f32 and bf16: T 37 in chunks
@@ -85,13 +89,16 @@ Phases, each printing one JSON line:
    of 32 new tokens, cold then warm; prompts up to 400 tokens (rwkv6) and
    256/384-token ones (zamba2) besides the log-normal ones.
 12. flash kernel vs plain: out and lse against ``ref.attention_fwd_ref``
-   (rhapsody-demo heads, D 32, in f32; zamba2-2.7b's, D 80, and
-   llama3.2-3b's, D 128, in f32 and bf16; B 2, S in ``FLASH_SEQS``, the
+   (rhapsody-demo heads, D 32, in f32; zamba2-2.7b's, D 80,
+   llama3.2-3b's, D 128, and internvl2-1b's, Hq 14 over Hkv 2 at D 64, in
+   f32 and bf16; B 2, S in ``FLASH_SEQS``, the
    edges of the 128-row query tiles and the diagonal tile; the same limits
    as phase 2), and the gradient of ``FlashAttention`` against autograd of
    the plain version in float32 (1e-4 for f32 inputs, 2e-2 for bf16).
 13. flash at the llama3.2-3b training shape (B 2, S 2048, Hq 24, Hkv 8,
-   D 128, bf16) and at zamba2-2.7b's (B 1, S 384, Hq = Hkv = 32, D 80):
+   D 128, bf16), at zamba2-2.7b's (B 1, S 384, Hq = Hkv = 32, D 80) and at
+   phase 29's (internvl2-1b: B 2, S 2304, Hq 14, Hkv 2, D 64;
+   whisper-small: B 2, S 448, Hq = Hkv = 12, D 64):
    the wrapper's out, lse and gradient against the plain version as in
    phase 12, then the times of the kernel, the plain version, the library
    yardstick (SDPA, causal, GQA) and the bound (and ``attention_bwd`` at
@@ -173,6 +180,25 @@ Phases, each printing one JSON line:
    ``surrogate_eval`` tools) behind llama3.2-3b at full width (bf16, one
    paged replica); then ``benchmarks_torch`` exp1, exp2 and exp5 on the
    card with no failed suite.
+27. encoder-decoder and vision prefix, f32 on the card: whisper-small at
+   full width and depth (12 + 12 layers) and internvl2-1b at full width
+   (24 layers), random weights from seed 0, through the slot engine (4
+   requests, 6 new tokens): every token against an oracle on the card
+   that runs no kernel (``slot_oracle``: the engine's zero frontend stub,
+   whisper's cross K/V padded to 1500 positions, ``decode_step`` on the
+   plain version), teacher-forced as in phase 9; then whisper's
+   ``prefill`` over 1500 random frames and 8 ``decode_step``s with the
+   kernel against without it (``ENCDEC_F32_TOL``).
+28. slot-pool serving at full width: whisper-small and internvl2-1b, bf16,
+   random weights from seed 0, behind ``Rhapsody`` with 2 replicas through
+   the default ``LLMServicer``, phase 8's traffic (16 requests of 32 new
+   tokens, log-normal prompts), cold then warm (``ENCDEC_VLM_ENGINE``:
+   internvl2-1b's max_len holds its 256 patches plus the largest bucket).
+29. training: one step card vs CPU of each at full width cut to 2 (+ 2)
+   layers in f32 (phase 14's tolerances), then both at full width in
+   bf16, remat full, AdamW, 3 steps: internvl2-1b at 2 x 2048 text tokens
+   after 256 stubbed patches, whisper-small at 2 x 448 tokens over 1500
+   stubbed frames; step time, tok/s, peak memory.
 
 Every phase that drives a path sets all five kernels' launch counts to 0
 just before it runs and checks every count just after: the paged serving
@@ -184,7 +210,8 @@ kernel n_layers x the decode engine's decode steps, none for the prefill
 engine; the
 slot-pool phases launch WKV6 n_layers x prefills (rwkv6), SSD n_layers x
 prefills and the contiguous decode n_layers / attn_every x decode steps
-(zamba2), or the contiguous decode n_layers x decode steps (dense); a
+(zamba2), or the contiguous decode n_layers x decode steps (dense,
+internvl2-1b; 2 x n_layers for whisper-small: self and cross attention); a
 training phase launches the flash kernel 2 x n_layers x steps times (remat
 runs each block's forward again), for rwkv6 WKV6 2 x n_layers x steps, for
 zamba2 SSD 2 x n_layers and flash 2 x n_layers / attn_every x steps (the
@@ -200,6 +227,7 @@ decode pair's, the flash kernel's and the scans' rows also carry
 CUDA card it exits 2 and prints no result.
 """
 import concurrent.futures
+import contextlib
 import gc
 import json
 import math
@@ -231,6 +259,23 @@ MAIN_PATH_ENGINE = dict(max_num_seqs=8, max_num_batched_tokens=512,
                         paged=True, block_size=16)
 # the training main path (phase 16)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
+# the encoder-decoder and vision-prefix families (phases 27-29): Whisper's
+# audio and text contexts (30 s of audio at 50 frames/s; arXiv:2212.04356)
+# and internvl2-1b's patches a image
+WHISPER_AUDIO_FRAMES, WHISPER_TEXT_CTX = 1500, 448
+VISION_TOKENS = 256
+ENCDEC_VLM_ARCHS = ("whisper-small", "internvl2-1b")
+# their slot engines: the default buckets (32 ... 512); internvl2-1b's
+# max_len holds its 256 patches plus the largest bucket (a prefill past
+# max_len raises, as the reference's does)
+ENCDEC_VLM_ENGINE = {
+    "whisper-small": dict(max_num_seqs=8, max_num_batched_tokens=1024,
+                          max_len=512),
+    "internvl2-1b": dict(max_num_seqs=8, max_num_batched_tokens=1024,
+                         max_len=1024)}
+# whisper-small in f32 through 24 layers at d 768: decode kernel vs plain
+# (within 2e-5 each) summed in another order, as HYBRID_F32_TOL
+ENCDEC_F32_TOL = (1e-3, 1e-3)
 # gradients of the flash kernel's Function vs autograd of the plain version
 # in float32: 1e-4 for f32 inputs; 2e-2 for bf16 (the reference's own bf16
 # limit for this kernel, tests/test_kernels.py)
@@ -401,10 +446,15 @@ def paged_inputs(torch, rng, *, L, B, Hkv, G, D, bs, mb, num_blocks, lens,
 # every decode head dim, as (label, Hkv, G, D): the heads of the configs
 # that run each width (llama3.2-3b and nemotron-4-340b smoke: D 8;
 # qwen3-8b, qwen1.5-0.5b and zamba2-2.7b smoke: 16; rhapsody-demo: 32;
-# zamba2-2.7b: 80; llama3.2-3b: 128) and D 64 at four query heads a group
+# zamba2-2.7b: 80; llama3.2-3b: 128), D 64 at four query heads a group, and
+# internvl2-1b's seven query heads a group (its smoke config: D 8; full: 64)
 DECODE_HEADS = (("llama3.2-3b-smoke", 2, 3, 8), ("qwen3-8b-smoke", 2, 2, 16),
                 ("rhapsody-demo", 4, 2, 32), ("d64-group4", 2, 4, 64),
-                ("zamba2-2.7b", 32, 1, 80), ("llama3.2-3b", 8, 3, 128))
+                ("zamba2-2.7b", 32, 1, 80), ("llama3.2-3b", 8, 3, 128),
+                ("internvl2-1b-smoke", 1, 7, 8), ("internvl2-1b", 2, 7, 64))
+# whisper-small's cross-attention decode: B 8, 12 kv heads of one query
+# head, D 64, every row over the slot's 1500 cross positions
+WHISPER_CROSS = (8, 12, 1, 64, 1500)
 
 
 def graph_ms(torch, fn, reps):
@@ -799,7 +849,7 @@ def phase_main_path(torch, configs, core, client, cfg=None, params=None):
         eng = rs.instances[0].servicer.engine
         _, logits = eng.api.prefill(
             eng.params, {"tokens": torch.tensor([prompts[0]], device=DEVICE)},
-            cfg, max_len=64)
+            cfg, max_len=eng.max_len)
         check(tuple(logits.shape) == (1, cfg.vocab)
               and bool(torch.isfinite(logits).all()),
               f"{where}: prefill logits not finite")
@@ -913,8 +963,9 @@ def phase_decode(torch, ops, ref, kernel):
     every head dim of ``DECODE_HEADS`` in f32 and bf16; S = 77 and the slot
     engine's max_len; ragged lengths and idle rows
     whose length is past S (the kernel clamps, the plain mask admits
-    everything); then its times at zamba2's decode shape and at
-    llama3.2-3b's heads."""
+    everything); whisper-small's cross shape (``WHISPER_CROSS``); then its
+    times at zamba2's decode shape, at llama3.2-3b's heads, at whisper's
+    cross shape and at internvl2-1b's heads (G 7)."""
     f32, bf16 = torch.float32, torch.bfloat16
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     cases, worst = [], 0.0
@@ -941,6 +992,23 @@ def phase_decode(torch, ops, ref, kernel):
             cases.append({"config": name, "dtype": str(dtype).split(".")[-1],
                           "Hkv": Hkv, "G": G, "D": D, "S": S, "lens": lens,
                           "max_err": err, "atol": tol[0], "rtol": tol[1]})
+    B, Hkv, G, D, S = WHISPER_CROSS
+    for dtype, tol in ((f32, F32_TOL), (bf16, BF16_TOL)):
+        q = card_randn(torch, gen, (B, 1, Hkv * G, D), dtype)
+        kc = card_randn(torch, gen, (B, S, Hkv, D), dtype)
+        vc = card_randn(torch, gen, (B, S, Hkv, D), dtype)
+        ln = torch.full((B,), S, dtype=torch.int32, device=DEVICE)
+        out = ops.decode_attention(q, kc, vc, ln)
+        plain = ref.decode_ref(q.reshape(B, Hkv, G, D), kc, vc,
+                               ln).reshape(out.shape)
+        torch.cuda.synchronize()
+        err, ok = within(out, plain, tol)
+        name = f"whisper-small-cross-{str(dtype).split('.')[-1]}"
+        check(ok, f"decode {name}: kernel vs plain error {err}")
+        worst = max(worst, err)
+        cases.append({"config": name, "dtype": str(dtype).split(".")[-1],
+                      "Hkv": Hkv, "G": G, "D": D, "S": S, "lens": [S] * B,
+                      "max_err": err, "atol": tol[0], "rtol": tol[1]})
     rng = np.random.RandomState(4)
     zlens = state_prompt_lens(rng, STATE_ARCHS[1], 16)[:8] + \
         rng.randint(1, 33, size=8)  # prompts and generated tokens
@@ -950,8 +1018,16 @@ def phase_decode(torch, ops, ref, kernel):
     llama = decode_timing(torch, ops, ref, kernel, "llama3.2-3b", 28, 8, 8,
                           3, 128, MAIN_PATH_ENGINE["max_len"],
                           rng.randint(480, 545, size=8))
-    worst = max(worst, zamba["max_err"], llama["max_err"])
-    return cases, zamba, llama, worst
+    # whisper-small's cross decode (its 12 decoder layers' caches) and
+    # internvl2-1b's self decode (24 layers, G 7) at S 512
+    whisper = decode_timing(torch, ops, ref, kernel, "whisper-small-cross",
+                            12, B, Hkv, G, D, S, [S] * B)
+    internvl = decode_timing(torch, ops, ref, kernel, "internvl2-1b", 24, 8,
+                             2, 7, 64, 512, rng.randint(480, 545, size=8))
+    extra = {"whisper-small-cross": whisper, "internvl2-1b": internvl}
+    worst = max([worst, zamba["max_err"], llama["max_err"]]
+                + [t["max_err"] for t in extra.values()])
+    return cases, zamba, llama, extra, worst
 
 
 def wkv_inputs(torch, gen, dtype, B, T, H, hd, s0_scale, strong=False):
@@ -1454,11 +1530,14 @@ def phase_hybrid_forward(torch, configs, get_model):
     return records
 
 
-def phase_state_serving(torch, configs, core, client, arch):
-    """rwkv6-1.6b or zamba2-2.7b at full width (bf16, random weights from
-    seed 0) behind ``Rhapsody`` with 2 replicas through the default
-    ``LLMServicer`` (auto: the slot pool): 16 requests of 32 new tokens,
-    served twice (cold, then warm) with prompts of the same lengths."""
+def phase_state_serving(torch, configs, core, client, arch,
+                        engine=STATE_ENGINE):
+    """rwkv6-1.6b or zamba2-2.7b (phases 10-11), or whisper-small or
+    internvl2-1b (phase 28, log-normal prompts as phase 8's) at full width
+    (bf16, random weights from seed 0) behind ``Rhapsody`` with 2
+    replicas through the default ``LLMServicer`` (auto: the slot pool): 16
+    requests of 32 new tokens, served twice (cold, then warm) with prompts
+    of the same lengths."""
     cfg = configs.get_config(arch)
     replicas, n_req, mnt = 2, 16, MAIN_PATH_NEW_TOKENS
     rh = core.Rhapsody(core.ResourceDescription(nodes=replicas,
@@ -1469,13 +1548,17 @@ def phase_state_serving(torch, configs, core, client, arch):
         rs = rh.add_service(core.ServiceDescription(
             name="llm", replicas=replicas, ready_timeout=600,
             factory=client.llm_service_factory(cfg, device=DEVICE,
-                                               **STATE_ENGINE)))
+                                               **engine)))
         setup_s = time.perf_counter() - t_up
         check(all(not inst.servicer.engine.paged for inst in rs.instances),
               f"{arch}: the servicer did not resolve to the slot pool")
         first = list(rs.instances)  # a crashed replica is relaunched
         rng = np.random.RandomState(1)
-        lens = state_prompt_lens(rng, arch, n_req)
+        if arch in STATE_ARCHS:
+            lens = state_prompt_lens(rng, arch, n_req)
+        else:
+            lens = np.clip(np.exp(rng.normal(3.0, 0.7, n_req)), 4,
+                           engine["max_len"] - mnt - 1).astype(int)
 
         def serve_pass():
             prompts = [list(map(int, rng.randint(0, cfg.vocab, size=int(n))))
@@ -1519,25 +1602,27 @@ def phase_state_serving(torch, configs, core, client, arch):
         prefills = 2 * n_req  # exact-length prefills: no prefix reuse here
         if cfg.family == "ssm":
             want = {"wkv6": cfg.n_layers * prefills}
-        else:
+        elif cfg.family == "hybrid":
             want = {"ssd": cfg.n_layers * prefills,
                     "decode_attention": (cfg.n_layers // cfg.attn_every)
                     * decode_steps}
+        else:
+            want = {"decode_attention": decode_per_step(cfg) * decode_steps}
         launches = check_launches(arch, **want)
         check(decode_steps > 0, f"{arch}: no decode step ran")
         peak = torch.cuda.max_memory_allocated() / 1e9
         stats = rs.stats()
         eng = rs.instances[0].servicer.engine
         _, logits = eng.api.prefill(
-            eng.params, {"tokens": torch.tensor([prompts[0]], device=DEVICE)},
-            cfg, max_len=eng.max_len)
+            eng.params, stub_batch(torch, cfg, [prompts[0]]), cfg,
+            max_len=eng.max_len + cfg.vision_tokens)
         check(tuple(logits.shape) == (1, cfg.vocab)
               and bool(torch.isfinite(logits).all()),
               f"{arch}: prefill logits not finite")
         return {"config": cfg.name, "layers": cfg.n_layers,
                 "d_model": cfg.d_model, "vocab": cfg.vocab,
                 "dtype": cfg.compute_dtype, "replicas": replicas,
-                "engine": STATE_ENGINE, "requests_per_pass": n_req,
+                "engine": engine, "requests_per_pass": n_req,
                 "max_new_tokens": mnt,
                 "prompt_lens": [int(x) for x in lens],
                 "setup_seconds": setup_s, "cold": cold, "warm": warm,
@@ -1597,8 +1682,9 @@ def flash_case(torch, fa, fa_ref, name, dtype, B, S, Hq, Hkv, D, tol, gtol):
 
 def phase_flash(torch, fa, fa_ref):
     """Flash kernel vs plain on the card: out, lse and the gradient, for
-    each body and head_dim on a path (D 32 f32; D 80 and 128, f32 and
-    bf16) at every length of ``FLASH_SEQS``."""
+    each body and head_dim on a path (D 32 f32; D 80, 128 and internvl2-1b's
+    D 64 at seven query heads a group, f32 and bf16) at every length of
+    ``FLASH_SEQS``."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
     for name, dtype, Hq, Hkv, D, tol, gtol in (
@@ -1606,7 +1692,9 @@ def phase_flash(torch, fa, fa_ref):
             ("zamba2-2.7b-f32", f32, 32, 32, 80, F32_TOL, F32_GRAD_TOL),
             ("zamba2-2.7b", bf16, 32, 32, 80, BF16_TOL, BF16_GRAD_TOL),
             ("llama3.2-3b-f32", f32, 24, 8, 128, F32_TOL, F32_GRAD_TOL),
-            ("llama3.2-3b", bf16, 24, 8, 128, BF16_TOL, BF16_GRAD_TOL)):
+            ("llama3.2-3b", bf16, 24, 8, 128, BF16_TOL, BF16_GRAD_TOL),
+            ("internvl2-1b-f32", f32, 14, 2, 64, F32_TOL, F32_GRAD_TOL),
+            ("internvl2-1b", bf16, 14, 2, 64, BF16_TOL, BF16_GRAD_TOL)):
         for S in FLASH_SEQS:
             cases.append(flash_case(torch, fa, fa_ref, name, dtype, 2, S,
                                     Hq, Hkv, D, tol, gtol)[0])
@@ -1658,17 +1746,23 @@ def flash_times(torch, fa_kernel, fa_ref, q, k, v, out, lse):
 
 
 def phase_flash_timing(torch, fa_kernel, fa, fa_ref, sass):
-    """The flash kernel at the llama3.2-3b training shape and at zamba2's
-    (B 1, S 384, Hq = Hkv = 32, D 80): the wrapper and its gradient held
-    against the plain version there, then the raw kernel's times (and the
-    plain backward's at the training shape).  Fails unless the library's
+    """The flash kernel at the llama3.2-3b training shape, at zamba2's
+    (B 1, S 384, Hq = Hkv = 32, D 80), and at the decoder self-attention
+    of phase 29's training steps (internvl2-1b: B 2, S 256 + 2048, Hq 14,
+    Hkv 2, D 64; whisper-small: B 2, S 448, Hq = Hkv = 12, D 64): the
+    wrapper and its gradient held against the plain version there, then
+    the raw kernel's times (and the plain backward's at the llama3.2-3b
+    training shape).  Fails unless the library's
     SASS holds wgmma (HGMMA) and TMA loads (UTMALDG)."""
     check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
           f"flash library SASS has no wgmma or no TMA load: {sass}")
     records = {}
     for name, B, S, Hq, Hkv, D in (
             ("llama3.2-3b", TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128),
-            ("zamba2-2.7b", 1, 384, 32, 32, 80)):
+            ("zamba2-2.7b", 1, 384, 32, 32, 80),
+            ("internvl2-1b", TRAIN_BATCH, VISION_TOKENS + TRAIN_SEQ, 14, 2,
+             64),
+            ("whisper-small", TRAIN_BATCH, WHISPER_TEXT_CTX, 12, 12, 64)):
         case, (q, k, v, out, lse) = flash_case(
             torch, fa, fa_ref, name, torch.bfloat16, B, S, Hq, Hkv, D,
             BF16_TOL, BF16_GRAD_TOL)
@@ -2937,6 +3031,315 @@ def phase_workflows(torch, configs, get_model, core, sim, torchrt, local,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The encoder-decoder (whisper-small) and vision-prefix (internvl2-1b)
+# families (phases 27-29): the contiguous decode kernel, self and cross, and
+# the flash kernel in training
+# ---------------------------------------------------------------------------
+
+
+def decode_per_step(cfg):
+    """Contiguous-decode launches of one slot-pool decode step of a
+    transformer: each decoder layer's self-attention, and its
+    cross-attention in an encoder-decoder."""
+    return cfg.n_layers * (2 if cfg.family == "encdec" else 1)
+
+
+def stub_batch(torch, cfg, tokens, frames=64):
+    """``{"tokens"}`` on the card plus the family's zero frontend stub, as
+    the slot engine's prefill makes it: ``frames`` zero audio frames
+    (encdec) or ``vision_tokens`` zero patches (vlm)."""
+    t = torch.tensor(tokens, device=DEVICE)
+    batch = {"tokens": t}
+    n = {"encdec": frames, "vlm": cfg.vision_tokens or 16}.get(cfg.family)
+    if n:
+        name = "frame_embeds" if cfg.family == "encdec" else "patch_embeds"
+        batch[name] = torch.zeros((t.shape[0], n, cfg.d_model),
+                                  device=DEVICE)
+    return batch
+
+
+@contextlib.contextmanager
+def plain_decode(ops, ref):
+    """Within it, ``ops.decode_attention`` runs its plain version on the
+    card, so a model's ``decode_step`` launches no kernel (the oracle of
+    phase 27)."""
+    kernel_path = ops.decode_attention
+
+    def plain(q, k, v, kv_length):
+        B, _, Hq, D = q.shape
+        qg = q.reshape(B, k.shape[2], Hq // k.shape[2], D)
+        return ref.decode_ref(qg, k, v, kv_length).reshape(q.shape)
+
+    ops.decode_attention = plain
+    try:
+        yield
+    finally:
+        ops.decode_attention = kernel_path
+
+
+def slot_oracle(torch, ops, ref, engine_mod, kvcache, cfg, params, eng,
+                prompt, out):
+    """The logits the slot engine's path gives each token of ``out`` for
+    ``prompt`` alone, with no kernel: the prompt right-padded into its
+    bucket and prefilled with the engine's zero stub, whisper's cross K/V
+    zero-padded to the pool's 1500 positions and the length set to the
+    prompt's (so a VLM decodes from position n, inside its prefix, as the
+    reference's engine does), then ``decode_step`` on the plain version,
+    fed the transcript."""
+    api = eng.api
+    n = min(len(prompt), eng.max_len - 1)
+    bucket = engine_mod._bucket(n, eng.buckets)
+    n = min(n, bucket)
+    tokens = [0] * bucket
+    tokens[:n] = prompt[-n:]
+    with torch.no_grad(), plain_decode(ops, ref):
+        cache, logits = api.prefill(
+            params, stub_batch(torch, cfg, [tokens],
+                               frames=engine_mod.ENC_STUB_FRAMES),
+            cfg, max_len=eng.max_len, last_only=False)
+        for name in ("cross_k", "cross_v"):
+            if name in cache:
+                pad = kvcache.WHISPER_FRAMES - cache[name].shape[2]
+                cache[name] = torch.nn.functional.pad(
+                    cache[name], (0, 0, 0, 0, 0, pad)).contiguous()
+        cache["len"].fill_(n)
+        seq = [logits[0, n - 1]]
+        for tok in out[:-1]:
+            cache, step = api.decode(params, cache,
+                                     torch.tensor([tok], device=DEVICE), cfg)
+            seq.append(step[0])
+    return seq
+
+
+def phase_encdec_vlm_model(torch, configs, get_model, engine_mod, kvcache,
+                           ops, ref):
+    """Phase 27, f32 on the card: whisper-small at full width and depth (12
+    + 12 layers) and internvl2-1b at full width (24 layers), random weights
+    from seed 0, through the slot engine (4 requests, 6 new tokens): every
+    token against ``slot_oracle`` (no kernel), flipping only where the
+    oracle's top-two gap is under MODEL_GAP_TOL; the contiguous decode
+    kernel ``decode_per_step`` (24) times a step.  Then whisper's
+    ``prefill`` over 1500 random frames and 8 ``decode_step``s with the
+    kernel against the same without it (``ENCDEC_F32_TOL``, greedy equal
+    but under the gap)."""
+    records = []
+    for arch in ENCDEC_VLM_ARCHS:
+        cfg = configs.get_config(arch).scaled(param_dtype="float32",
+                                              compute_dtype="float32")
+        api = get_model(cfg)
+        params = api.init(torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                          device=DEVICE)
+        eng = engine_mod.InferenceEngine(
+            cfg, params, device=DEVICE, paged=False, max_num_seqs=4,
+            max_num_batched_tokens=1024,
+            max_len=ENCDEC_VLM_ENGINE[arch]["max_len"])
+        lens = (3, 17, 64, 300)
+        rng = np.random.RandomState(27)
+        prompts = [list(map(int, rng.randint(1, cfg.vocab, size=n)))
+                   for n in lens]
+        zero_launches()
+        uids = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        done = eng.run()
+        torch.cuda.synchronize()
+        launches = check_launches(
+            f"{arch} engine",
+            decode_attention=decode_per_step(cfg) * eng.stats.decode_steps)
+        outs = [done[u].output for u in uids]
+        flips = []
+        zero_launches()
+        for p, out in zip(prompts, outs):
+            seq = slot_oracle(torch, ops, ref, engine_mod, kvcache, cfg,
+                              params, eng, p, out)
+            for i, (tok, logits) in enumerate(zip(out, seq)):
+                best = int(logits.argmax())
+                if tok != best:
+                    gap = float(logits[best] - logits[tok])
+                    check(gap < MODEL_GAP_TOL,
+                          f"{arch}: engine token {tok} != oracle {best} at "
+                          f"step {i} of a {len(p)}-token prompt, gap {gap}")
+                    flips.append({"prompt_len": len(p), "step": i,
+                                  "gap": gap})
+        check_launches(f"{arch} oracle")  # the oracle ran no kernel
+        rec = {"config": arch, "layers": cfg.n_layers,
+               "enc_layers": cfg.enc_layers, "d_model": cfg.d_model,
+               "vocab": cfg.vocab, "prompt_lens": lens, "new_tokens": 6,
+               "transcripts_equal": not flips, "teacher_forced_flips": flips,
+               "launches": launches, "decode_steps": eng.stats.decode_steps}
+        del eng
+        if cfg.family == "encdec":
+            rec["audio_context"] = whisper_audio_decode(torch, ops, ref, api,
+                                                        cfg, params)
+        records.append(rec)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return records
+
+
+def whisper_audio_decode(torch, ops, ref, api, cfg, params):
+    """``prefill`` over WHISPER_AUDIO_FRAMES random frames (x 0.02, seed
+    27) and a 16-token prompt, batch 2, then 8 ``decode_step``s with the
+    kernel (self and cross attention, the cross one at S 1500) against the
+    same steps on the plain version, both fed the kernel's greedy tokens:
+    every step's logits within ENCDEC_F32_TOL."""
+    gen = torch.Generator(device=DEVICE).manual_seed(27)
+    frames = torch.randn((2, WHISPER_AUDIO_FRAMES, cfg.d_model),
+                         generator=gen, device=DEVICE) * 0.02
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=gen,
+                           device=DEVICE)
+    batch = {"tokens": tokens, "frame_embeds": frames}
+    steps, runs = 8, {}
+    with torch.no_grad():
+        feed = None
+        for name in ("kernel", "plain"):
+            cache, logits = api.prefill(params, batch, cfg, max_len=64)
+            check(cache["cross_k"].shape[2] == WHISPER_AUDIO_FRAMES,
+                  f"whisper cross cache {tuple(cache['cross_k'].shape)}")
+            seq = [logits]
+            zero_launches()
+            for i in range(steps):
+                tok = seq[-1].argmax(-1) if feed is None else feed[i]
+                if name == "plain":
+                    with plain_decode(ops, ref):
+                        cache, logits = api.decode(params, cache, tok, cfg)
+                else:
+                    cache, logits = api.decode(params, cache, tok, cfg)
+                seq.append(logits)
+            torch.cuda.synchronize()
+            runs[name] = (seq, check_launches(
+                f"whisper audio decode ({name})",
+                decode_attention=(decode_per_step(cfg) * steps
+                                  if name == "kernel" else 0)))
+            feed = [t.argmax(-1) for t in seq[:-1]]
+    (ks, launches), (ps, _) = runs["kernel"], runs["plain"]
+    err, flips = 0.0, []
+    for i, (a, b) in enumerate(zip(ks, ps)):
+        e, ok = within(a, b, ENCDEC_F32_TOL)
+        check(ok, f"whisper audio decode step {i}: kernel vs plain error {e}")
+        err = max(err, e)
+        for row in range(a.shape[0]):
+            ka, pb = int(a[row].argmax()), int(b[row].argmax())
+            if ka != pb:
+                gap = float(b[row, pb] - b[row, ka])
+                check(gap < MODEL_GAP_TOL, f"whisper audio decode step {i}: "
+                                           f"token {ka} != {pb}, gap {gap}")
+                flips.append({"step": i, "row": row, "gap": gap})
+    return {"frames": WHISPER_AUDIO_FRAMES, "batch": 2, "prompt": 16,
+            "decode_steps": steps, "max_err": err, "tol": ENCDEC_F32_TOL,
+            "greedy_flips": flips, "launches": launches}
+
+
+def phase_encdec_vlm_train(torch, configs, get_model, optim, train,
+                           make_batch):
+    """Phase 29: first one step of each family at full width cut to 2 (+
+    2) layers in f32, card vs CPU, at phase 14's tolerances (Adam eps
+    1e-3); then whisper-small and internvl2-1b at full width (bf16, remat
+    full, random weights from seed 0) through ``init_state`` and
+    ``make_train_step``, AdamW, 3 timed steps on ``make_batch`` batches
+    with stubbed frontends: internvl2-1b 2 x 2048 text tokens after 256
+    patches, whisper-small 2 x 448 tokens over 1500 frames."""
+    shapes = {"whisper-small": (WHISPER_TEXT_CTX, WHISPER_AUDIO_FRAMES),
+              "internvl2-1b": (TRAIN_SEQ, VISION_TOKENS)}
+    cut_steps, records = [], []
+    for arch in ENCDEC_VLM_ARCHS:
+        cfg = configs.get_config(arch).scaled(
+            param_dtype="float32", compute_dtype="float32", n_layers=2,
+            **({"enc_layers": 2, "dec_layers": 2}
+               if arch == "whisper-small" else {}))
+        api = get_model(cfg)
+        opt = optim.OptimizerConfig(lr=1e-3, eps=1e-3, warmup_steps=1,
+                                    decay_steps=10)
+        cpu = train.init_state(torch.Generator().manual_seed(0), api, cfg,
+                               opt, device="cpu")
+        card = {"params": optim.tree_map(
+            lambda t: t.detach().to(DEVICE, copy=True).requires_grad_(),
+            cpu["params"])}
+        card["opt"] = optim.adamw_init(card["params"], opt)
+        batch = make_batch(cfg, 2, 64, torch.Generator().manual_seed(29),
+                           device="cpu", frontend_len=shapes[arch][1])
+        step = train.make_train_step(api, cfg, train.TrainConfig(
+            optimizer=opt))
+        _, m_cpu = step(cpu, batch)
+        zero_launches()
+        _, m_card = step(card, {k: v.to(DEVICE) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        launches = check_launches(f"{arch} cut step",
+                                  **expected_train_launches(cfg))
+        loss_cpu, loss_card = float(m_cpu["loss"]), float(m_card["loss"])
+        check(abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu),
+              f"{arch} cut step: loss {loss_card} on the card != {loss_cpu} "
+              f"on the CPU")
+        worst = 0.0
+        for a, b in zip(optim.tree_leaves(card["params"]),
+                        optim.tree_leaves(cpu["params"])):
+            d = (a.detach().cpu() - b.detach()).abs()
+            worst = max(worst, float(d.max()))
+            check(bool((d <= 2e-5 + 2e-3 * b.detach().abs()).all()),
+                  f"{arch} cut step: parameter error {float(d.max())}")
+        cut_steps.append({"config": arch, "layers": cfg.n_layers,
+                          "enc_layers": cfg.enc_layers,
+                          "frontend": shapes[arch][1], "seq": 64,
+                          "loss_cpu": loss_cpu, "loss_card": loss_card,
+                          "max_param_err": worst, "launches": launches})
+        del cpu, card
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for arch in ENCDEC_VLM_ARCHS:
+        seq, front = shapes[arch]
+        t_up = time.perf_counter()
+        cfg = configs.get_config(arch)
+        api = get_model(cfg)
+        tcfg = train.TrainConfig(
+            global_batch=TRAIN_BATCH, seq_len=seq,
+            optimizer=optim.OptimizerConfig(lr=3e-4, warmup_steps=1,
+                                            decay_steps=100))
+        state = train.init_state(
+            torch.Generator(device=DEVICE).manual_seed(0), api, cfg,
+            tcfg.optimizer, device=DEVICE)
+        step = train.make_train_step(api, cfg, tcfg)
+        n_params = sum(p.numel() for p in optim.tree_leaves(state["params"]))
+        gen = torch.Generator(device=DEVICE).manual_seed(29)
+        batches = [make_batch(cfg, TRAIN_BATCH, seq, gen, device=DEVICE,
+                              frontend_len=front)
+                   for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t_up
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        times, losses, norms = [], [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        launches = check_launches(
+            f"{arch} training", **expected_train_launches(cfg, TRAIN_STEPS))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(all(math.isfinite(x) for x in losses + norms),
+              f"{arch} training: loss {losses} / grad norm {norms}")
+        check(1.0 < losses[0] < 3 * math.log(cfg.vocab),
+              f"{arch} training: first loss {losses[0]} is not near "
+              f"ln(vocab) = {math.log(cfg.vocab)}")
+        median = sorted(times)[len(times) // 2]
+        records.append({
+            "config": cfg.name, "layers": cfg.n_layers,
+            "enc_layers": cfg.enc_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab, "dtype": cfg.compute_dtype,
+            "remat": cfg.remat, "params": n_params, "batch": TRAIN_BATCH,
+            "seq": seq, "frontend": front, "setup_seconds": setup_s,
+            "step_seconds": times, "step_median_s": median,
+            "tok_per_s": TRAIN_BATCH * seq / median, "losses": losses,
+            "grad_norms": norms, "launches": launches, "peak_mem_gb": peak})
+        del state, step, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return cut_steps, records
+
+
 def main():
     import torch
 
@@ -2958,7 +3361,7 @@ def main():
     from repro_torch.kernels.rwkv6 import ref as wkv_ref
     from repro_torch.launch import serve
     from repro_torch.launch import train as launch_train
-    from repro_torch.models import get_model, moe
+    from repro_torch.models import get_model, make_batch, moe
     from repro_torch.serving import client, engine, kvcache
     from repro_torch.substrate import data
     from repro_torch.training import optim, train
@@ -3013,10 +3416,11 @@ def main():
           "timing": timing})
 
     # 3-5. contiguous decode, WKV6 and SSD kernels vs plain, with times
-    dec_cases, dec_timing, dec_llama, dec_worst = phase_decode(
+    dec_cases, dec_timing, dec_llama, dec_more, dec_worst = phase_decode(
         torch, ops, ref, kernel)
     emit({"phase": "decode_kernel", "cases": dec_cases,
-          "timing": dec_timing, "timing_llama_heads": dec_llama})
+          "timing": dec_timing, "timing_llama_heads": dec_llama,
+          "timing_encdec_vlm": dec_more})
     wkv_cases, wkv_refused, wkv_timings, wkv_worst = phase_wkv(
         torch, wkv_ops, wkv_ref, wkv_kernel, wkv_sass)
     emit({"phase": "wkv_kernel", "sass": wkv_sass, "cases": wkv_cases,
@@ -3156,20 +3560,52 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 27. whisper-small and internvl2-1b in f32 on the card: the slot
+    # engine against a kernel-free oracle; whisper at its 1500-frame audio
+    # context with the decode kernel against without it
+    emit({"phase": "encdec_vlm_model", "models": phase_encdec_vlm_model(
+        torch, configs, get_model, engine, kvcache, ops, ref)})
+
+    # 28. slot-pool serving of whisper-small and internvl2-1b at full width
+    encdec_vlm_paths = {}
+    for arch in ENCDEC_VLM_ARCHS:
+        encdec_vlm_paths[arch] = phase_state_serving(
+            torch, configs, core, client, arch,
+            engine=ENCDEC_VLM_ENGINE[arch])
+        emit({"phase": "encdec_vlm_serving", **encdec_vlm_paths[arch]})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 29. one cut step card vs CPU, then training at full width
+    cut_steps, encdec_vlm_train = phase_encdec_vlm_train(
+        torch, configs, get_model, optim, train, make_batch)
+    emit({"phase": "encdec_vlm_train", "cut_steps": cut_steps,
+          "full": encdec_vlm_train})
+    gc.collect()
+    torch.cuda.empty_cache()
+
     decode_src = ("src/repro_torch/kernels/decode_attention/csrc/"
                   "decode_attention.cu")
     rwkv, zamba = (state_paths[arch] for arch in STATE_ARCHS)
 
     rwkv_train, zamba_train = (state_train[a] for a in STATE_TRAIN_ARCHS)
+    whisper, internvl = (encdec_vlm_paths[a] for a in ENCDEC_VLM_ARCHS)
+    whisper_train, internvl_train = encdec_vlm_train
     agents = workflows["agents"]["launches"]
     by_path = {  # launches on each path this script drives at full width
         "paged_decode_attention": {"main_path": main_path["launches"],
                                    "agent_population": agents},
-        "decode_attention": {"zamba2_serving":
-                             zamba["launches"]["decode_attention"]},
+        "decode_attention": {
+            "zamba2_serving": zamba["launches"]["decode_attention"],
+            "whisper_serving": whisper["launches"]["decode_attention"],
+            "internvl_serving": internvl["launches"]["decode_attention"]},
         "flash_attention": {"train_main_path": train_path["launches"],
                             "zamba2_training":
-                            zamba_train["launches"]["flash_attention"]},
+                            zamba_train["launches"]["flash_attention"],
+                            "whisper_training":
+                            whisper_train["launches"]["flash_attention"],
+                            "internvl_training":
+                            internvl_train["launches"]["flash_attention"]},
         "ssd": {"zamba2_serving": zamba["launches"]["ssd"],
                 "zamba2_training": zamba_train["launches"]["ssd"]},
         "wkv6": {"rwkv6_serving": rwkv["launches"]["wkv6"],

@@ -8,7 +8,9 @@ One ``InferenceEngine`` (no middleware) with a full published config and
 random weights from seed 0: by default the main path's llama3.2-3b on the
 paged engine, with ``chip_smoke.py`` phase 8's settings and prompt
 lengths; with ``--arch rwkv6-1.6b`` or ``zamba2-2.7b`` the slot pool with
-phases 10-11's settings and prompt lengths.  Eight requests of 32 new
+phases 10-11's settings and prompt lengths; with ``--arch whisper-small``
+or ``internvl2-1b`` the slot pool with phase 28's settings and phase 8's
+prompt lengths.  Eight requests of 32 new
 tokens.  It serves the requests twice: the first pass is cold (first calls of
 every kernel and matmul shape), the second warm.  Every step ends in
 ``torch.cuda.synchronize()``, so step times are device-complete.  The
@@ -32,7 +34,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from chip_smoke import (MAIN_PATH_ARCH, MAIN_PATH_ENGINE,  # noqa: E402
+from chip_smoke import (ENCDEC_VLM_ARCHS, ENCDEC_VLM_ENGINE,  # noqa: E402
+                        MAIN_PATH_ARCH, MAIN_PATH_ENGINE,
                         MAIN_PATH_NEW_TOKENS, STATE_ARCHS, STATE_ENGINE,
                         main_path_prompt_lens, state_prompt_lens)
 
@@ -70,7 +73,8 @@ def serve_once(torch, eng, prompts, mnt):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=MAIN_PATH_ARCH,
-                    choices=(MAIN_PATH_ARCH,) + STATE_ARCHS)
+                    choices=(MAIN_PATH_ARCH,) + STATE_ARCHS
+                    + ENCDEC_VLM_ARCHS)
     ap.add_argument("--engines", type=int, default=1,
                     help="also serve a warm pass on N engines in N threads")
     ap.add_argument("--trace", default=None,
@@ -96,6 +100,9 @@ def main():
     rng = np.random.RandomState(0)
     if args.arch == MAIN_PATH_ARCH:
         engine_kw = MAIN_PATH_ENGINE
+        lens = main_path_prompt_lens(rng, REQUESTS)
+    elif args.arch in ENCDEC_VLM_ARCHS:
+        engine_kw = ENCDEC_VLM_ENGINE[args.arch]
         lens = main_path_prompt_lens(rng, REQUESTS)
     else:
         engine_kw = STATE_ENGINE

@@ -4,7 +4,11 @@ The PyTorch port of the JAX package's launcher: the same flags and output
 lines, plus ``--device`` (default ``cuda``; ``cpu`` on request).  One
 device, the real data pipeline, checkpoint/restart.  As in the reference,
 every arch other than ``rhapsody-demo`` trains its smoke config, and
-``--smoke`` asks for it there too.
+``--smoke`` asks for it there too.  The token pipeline gives no frontend
+inputs: ``internvl2-1b`` trains text-only (no vision prefix), and
+``whisper-small``, whose encoder needs ``frame_embeds``, raises a
+``KeyError`` naming them at its first step, as the reference's launcher
+does (``make_train_step`` trains it on batches that carry frames).
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """Model registry: the uniform API that training and serving drive.
 
-The dense and MoE families (one transformer, ``transformer.py`` with
-``moe.py`` as its FFN), rwkv6 (``ssm``) and zamba2 (``hybrid``) are
-ported, and each serves and trains; encoder-decoder and VLM raise, naming
-the ROADMAP item that ports them.
+Every family of the JAX package is ported, and each serves and trains:
+the transformer families (``transformer.py``: dense, MoE with ``moe.py``
+as its FFN, the encoder-decoder ``encdec`` and the vision-prefix ``vlm``),
+rwkv6 (``ssm``) and zamba2 (``hybrid``).
 """
 from __future__ import annotations
 
@@ -32,26 +32,7 @@ class ModelApi:
     decode_paged: Optional[Callable] = None  # (params, store, block_tables, lens, tokens [B], write_phys, write_off, cfg) -> (store, logits [B,V])
 
 
-_NOT_PORTED = {
-    "encdec": "ROADMAP Queue 1 item 9 (encoder-decoder and VLM)",
-    "vlm": "ROADMAP Queue 1 item 9 (encoder-decoder and VLM)",
-}
-
-
-def _require_ported(cfg: ModelConfig):
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        item = _NOT_PORTED.get(cfg.family, "the ROADMAP")
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to PyTorch "
-            f"yet: {item}")
-
-
 def get_model(cfg: ModelConfig) -> ModelApi:
-    _require_ported(cfg)
-    if cfg.positions not in ("rope", "none"):
-        raise NotImplementedError(
-            f"positions={cfg.positions!r} is not ported yet: ROADMAP Queue 1 "
-            f"item 9 (encoder-decoder and VLM)")
     if cfg.family == "hybrid":
         return ModelApi(
             init=mamba2.hybrid_init,
@@ -68,6 +49,9 @@ def get_model(cfg: ModelConfig) -> ModelApi:
             prefill=rwkv6.rwkv_prefill,
             decode=rwkv6.rwkv_decode_step,
         )
+    # dense / moe / encdec / vlm all run through the transformer stack
+    # (decode_paged is for dense/moe only: the paged engine takes no
+    # cross-attention or vision prefix, as in the reference)
     return ModelApi(
         init=tfm.lm_init,
         loss=tfm.loss_fn,
@@ -85,22 +69,32 @@ def get_model(cfg: ModelConfig) -> ModelApi:
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int,
-               gen: Optional[torch.Generator] = None,
-               device=None) -> dict[str, Any]:
+               gen: Optional[torch.Generator] = None, device=None, *,
+               frontend_len: Optional[int] = None) -> dict[str, Any]:
     """Random token batch drawn from ``gen`` on ``device`` (the CUDA card
     unless the caller asks for the CPU): tokens, next-token targets
-    (tokens rolled left by one) and an all-ones loss mask.  The ported
-    families only; the frontend stubs of encdec/vlm come with their
-    families."""
-    _require_ported(cfg)
+    (tokens rolled left by one) and an all-ones loss mask.  An
+    encoder-decoder also gets stubbed audio frames ``frame_embeds`` [batch,
+    frontend_len or seq, d], a vision-prefix model stubbed patches
+    ``patch_embeds`` [batch, frontend_len or vision_tokens or 16, d], both
+    standard normal x 0.02 (the modality frontends are stubs, as in the
+    reference)."""
     device = resolve_device(device)
     if gen is None:
         gen = torch.Generator(device=device).manual_seed(0)
     tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
                            device=device, dtype=torch.int32)
-    return {
+    out = {
         "tokens": tokens,
         "targets": torch.roll(tokens, -1, dims=1),
         "loss_mask": torch.ones((batch, seq), dtype=torch.float32,
                                 device=device),
     }
+    stubs = {"encdec": ("frame_embeds", seq),
+             "vlm": ("patch_embeds", cfg.vision_tokens or 16)}
+    if cfg.family in stubs:
+        name, n = stubs[cfg.family]
+        n = frontend_len if frontend_len is not None else n
+        out[name] = torch.randn((batch, n, cfg.d_model), generator=gen,
+                                device=device) * 0.02
+    return out

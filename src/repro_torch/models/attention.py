@@ -1,10 +1,12 @@
 """Attention: GQA + RoPE (+ optional qk-norm / qkv-bias).
 
 The counterpart of the JAX package's ``models/attention.py`` for the paths
-a dense decoder (and zamba2's shared block) trains and serves with: the
-full-sequence training forward (``attention_apply``, through the causal
-flash-attention kernel), prefill, chunked extend, contiguous decode
-(through the contiguous flash-decode kernel) and paged decode.  Scores
+the transformer families (and zamba2's shared block) train and serve
+with: the full-sequence training forward (``attention_apply``, causal
+through the flash-attention kernel; the encoder's non-causal and the
+decoder's cross attention in PyTorch ops), prefill, chunked extend,
+contiguous decode (through the contiguous flash-decode kernel) and paged
+decode.  Scores
 are float32 and masked with ``NEG_INF = -1e30`` (never ``-inf``; the
 kernels skip masked positions, which adds the same zeros): masked columns
 then underflow to exact zeros in the softmax, which keeps chunked extend
@@ -64,20 +66,29 @@ def attention_init(gen, cfg: ModelConfig, *, device="cpu"):
 # ---------------------------------------------------------------------------
 
 
+def project_q(p, x, cfg: ModelConfig):
+    """q [B,S,Hq,D] without rope: the query side of ``_project_qkv``, all
+    that cross-attention over cached encoder K/V needs."""
+    B, S, _ = x.shape
+    q = nn.linear_apply(p["q"], x, cfg.cdtype).reshape(B, S, cfg.n_heads,
+                                                       cfg.head_dim)
+    if cfg.qk_norm:
+        q = nn.rmsnorm_apply(p["q_norm"], q, cfg.norm_eps)
+    return q
+
+
 def _project_qkv(p, x, x_kv, cfg: ModelConfig, q_positions, kv_positions,
                  *, rope: bool):
     """Return q [B,S,Hq,D], k/v [B,Skv,Hkv,D]."""
-    B, S, _ = x.shape
     Skv = x_kv.shape[1]
+    B = x.shape[0]
     cd = cfg.cdtype
-    q = nn.linear_apply(p["q"], x, cd).reshape(B, S, cfg.n_heads,
-                                               cfg.head_dim)
+    q = project_q(p, x, cfg)
     k = nn.linear_apply(p["k"], x_kv, cd).reshape(B, Skv, cfg.n_kv_heads,
                                                   cfg.head_dim)
     v = nn.linear_apply(p["v"], x_kv, cd).reshape(B, Skv, cfg.n_kv_heads,
                                                   cfg.head_dim)
     if cfg.qk_norm:
-        q = nn.rmsnorm_apply(p["q_norm"], q, cfg.norm_eps)
         k = nn.rmsnorm_apply(p["k_norm"], k, cfg.norm_eps)
     if rope:
         q = nn.apply_rope(q, q_positions, cfg.rope_theta)
@@ -129,23 +140,28 @@ def full_attention(q, k, v, *, causal: bool, q_offset: int = 0,
 
 def attention_apply(p, x, cfg: ModelConfig, *, causal=True, positions=None,
                     x_kv=None, rope=True):
-    """Causal self-attention over a full sequence (the training forward).
+    """Self- (or, with ``x_kv``, cross-) attention over a full sequence.
 
-    Projects with ``_project_qkv`` and attends through
+    Causal self-attention (the decoder's training forward) goes through
     ``kernels.flash_attention.ops.flash_attention``: the hand-written CUDA
     kernel whenever the tensors are on the card, its plain version on the
-    CPU.
-    The reference takes the Pallas kernel here under
-    ``attention_impl="pallas"`` and equal jnp attention otherwise."""
-    if x_kv is not None or not causal:
-        raise NotImplementedError(
-            "cross- and non-causal attention are not ported yet: ROADMAP "
-            "Queue 1 item 9 (encoder-decoder and VLM)")
+    CPU.  Non-causal self-attention (the encoder) and cross-attention
+    (keys at positions ``0..Skv-1`` of ``x_kv``, never masked) run
+    ``full_attention`` in PyTorch ops, as the reference does: it sends
+    only causal self-attention to its Pallas kernel."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, x, x, cfg, positions, positions, rope=rope)
-    out = fa_ops.flash_attention(q, k, v)
+    if x_kv is None:
+        q, k, v = _project_qkv(p, x, x, cfg, positions, positions, rope=rope)
+    else:
+        kv_positions = torch.arange(x_kv.shape[1], device=x.device)[None, :]
+        q, k, v = _project_qkv(p, x, x_kv, cfg, positions, kv_positions,
+                               rope=rope)
+    if causal and x_kv is None:
+        out = fa_ops.flash_attention(q, k, v)
+    else:
+        out = full_attention(q, k, v, causal=False)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return nn.linear_apply(p["o"], out, cfg.cdtype)
 

@@ -319,10 +319,10 @@ def hybrid_prefill(p, batch, cfg: ModelConfig, *, max_len: int):
             x, st = mamba_block_apply(bp, x, cfg, return_state=True)
             states.append(st)
         ssm_states.append(_stack(states))
-        x, (k, v) = tfm.block_prefill(p["shared"], x, cfg, max_len=max_len,
-                                      positions=positions)
-        ks.append(k)
-        vs.append(v)
+        x, kv = tfm.block_prefill(p["shared"], x, cfg, max_len=max_len,
+                                  positions=positions)
+        ks.append(kv["k"])
+        vs.append(kv["v"])
     G = len(p["groups"])
     cache = {"ssm": _stack(ssm_states),
              "attn": {"k": torch.stack(ks), "v": torch.stack(vs),

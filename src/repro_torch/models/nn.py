@@ -15,6 +15,7 @@ from __future__ import annotations
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -152,7 +153,7 @@ def mlp_apply(p, x, *, activation="silu", compute_dtype=None):
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings
+# Position embeddings: rotary and sinusoidal
 # ---------------------------------------------------------------------------
 
 
@@ -173,3 +174,13 @@ def apply_rope(x, positions, theta=1e4):
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(n_pos: int, d: int, device="cpu"):
+    """[n_pos, d] float32 sin/cos table (Whisper's encoder), computed in
+    float64 numpy and then cast, in the reference's order."""
+    pos = np.arange(n_pos)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * dim / d)
+    out = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.from_numpy(out.astype(np.float32)).to(device)

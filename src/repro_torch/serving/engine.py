@@ -4,10 +4,12 @@ cache.
 The counterpart of the JAX package's ``InferenceEngine``.
 
 ``paged=False`` (the default, as in the reference) runs the slot pool
-(``CachePool``), the engine of every family: dense, ``ssm`` (rwkv6) and
-``hybrid`` (zamba2).  Each ``step()`` admits queued requests while a slot
-is free and the prefill-token budget allows (dense prompts right-padded
-into buckets; state-carrying families prefilled at the prompt's exact
+(``CachePool``), the engine of every family: dense, ``ssm`` (rwkv6),
+``hybrid`` (zamba2), and the encoder-decoder and vision-prefix families,
+whose prefill takes zero frames or patches from the stubbed frontends.
+Each ``step()`` admits queued requests while a slot is free and the
+prefill-token budget allows (transformer prompts right-padded into
+buckets; state-carrying families prefilled at the prompt's exact
 length, since their state depends on every token; over-long prompts keep
 their last ``max_len - 1`` tokens), then runs one batched decode over
 EVERY slot, free ones included, as the reference does.  Dense slots keep
@@ -105,6 +107,12 @@ class Request:
     @property
     def n_prompt(self) -> int:
         return len(self.prompt)
+
+
+# zero audio frames an encoder-decoder's prefill encodes (the reference
+# engine's stub; the slot's cross K/V is zero-padded to
+# ``kvcache.WHISPER_FRAMES``)
+ENC_STUB_FRAMES = 64
 
 
 def _bucket(n: int, buckets) -> int:
@@ -495,11 +503,21 @@ class InferenceEngine:
     # Internals (slot pool)
     # ------------------------------------------------------------------
     def _prefill(self, tokens: np.ndarray):
+        """Prefill one right-padded prompt.  An encoder-decoder encodes
+        ``ENC_STUB_FRAMES`` zero frames and a vision-prefix model takes
+        ``vision_tokens or 16`` zero patches (the frontends are stubs, as
+        in the reference's ``_admit``)."""
         kw = {"max_len": self.max_len}
         if not self._exact_prefill:
             kw["last_only"] = False
-        return self.api.prefill(self.params, {"tokens": self._tensor(tokens)},
-                                self.cfg, **kw)
+        batch = {"tokens": self._tensor(tokens)}
+        stub = {"encdec": ("frame_embeds", ENC_STUB_FRAMES),
+                "vlm": ("patch_embeds", self.cfg.vision_tokens or 16)}
+        if self.cfg.family in stub:
+            name, n = stub[self.cfg.family]
+            batch[name] = torch.zeros((1, n, self.cfg.d_model),
+                                      dtype=torch.float32, device=self.device)
+        return self.api.prefill(self.params, batch, self.cfg, **kw)
 
     def _admit(self):
         budget = self.max_num_batched_tokens

@@ -2,10 +2,12 @@
 
 ``CachePool`` is the counterpart of the JAX package's slot pool: one
 ``[..., max_seqs, ...]`` region per cache leaf, laid out by
-``cache_template`` for the dense, ``ssm`` (rwkv6) and ``hybrid`` (zamba2)
-families, allocated once on the engine's device and updated in place;
-admit/evict at whole-slot granularity, blank slots first.  It is the pool
-of every state-carrying family, which has no per-position KV to page.
+``cache_template`` for the transformer (with an encoder-decoder's cross
+K/V), ``ssm`` (rwkv6) and ``hybrid`` (zamba2) families, allocated once on
+the engine's device and updated in place; admit/evict at whole-slot
+granularity, blank slots first.  It is the pool of every state-carrying
+family, which has no per-position KV to page, and of the encoder-decoder
+and vision-prefix families.
 
 The block-paged pool is the counterpart of the JAX package's
 ``PagedCachePool`` and its helpers: each of the K and V stores is allocated once as ``[L, num_blocks,
@@ -40,6 +42,12 @@ from repro_torch.models.mamba2 import ssm_dims
 # Slot pool
 # ---------------------------------------------------------------------------
 
+# an encoder-decoder slot's cross K/V positions: Whisper's fixed audio
+# context (the reference's ``launch/specs.py`` ``WHISPER_FRAMES``).  A
+# shorter prefill's frames are zero-padded to it, and decode attends all of
+# them, as the reference does
+WHISPER_FRAMES = 1500
+
 
 def cache_template(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     """The slot cache's leaves as nested dicts of ``(shape, dtype)``: the
@@ -68,14 +76,20 @@ def cache_template(cfg: ModelConfig, batch: int, max_len: int) -> dict:
                     "wkv": ((L, batch, d // hd, hd, hd), f32)},
             "ffn": {"shift": ((L, batch, d), cd)},
         }
-    kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": (kv, cd), "v": (kv, cd), "len": ((batch,), i32)}
+    L = cfg.dec_layers or cfg.n_layers
+    kv = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    out = {"k": (kv, cd), "v": (kv, cd), "len": ((batch,), i32)}
+    if cfg.family == "encdec":
+        cross = (L, batch, WHISPER_FRAMES, cfg.n_kv_heads, cfg.head_dim)
+        out["cross_k"] = (cross, cd)
+        out["cross_v"] = (cross, cd)
+    return out
 
 
 def batch_dim_for(keys, rank: int) -> int:
     """The slot (batch) dim of a cache leaf, from its name and rank."""
     name = keys[-1]
-    if name in ("k", "v", "wkv", "ssm"):
+    if name in ("k", "v", "cross_k", "cross_v", "wkv", "ssm"):
         return rank - 4
     if name == "len":
         return rank - 1

@@ -7,14 +7,15 @@ nested dicts and lists of tensors; ``adamw_update`` updates them in place
 under ``torch.no_grad()``, which takes the place of the reference's
 donated functional update.
 
-The reference stacks every block leaf to ``[L, ...]`` (a hybrid model's
+The reference stacks every block leaf to ``[L, ...]`` (an
+encoder-decoder's encoder blocks under ``enc_blocks``, a hybrid model's
 Mamba2 blocks to ``[G, K, ...]`` under ``groups``) and decays the leaves
 with ``ndim >= 2``, so every block leaf is decayed (norm scales, biases,
 ``A_log``, ``D`` and ``dt_bias`` included).  The port keeps the blocks as
 lists of per-layer dicts, so it decides by the reference's rank: every
-leaf under ``blocks`` or ``groups`` is decayed, and any other leaf (a
-hybrid's unstacked ``shared`` block among them) is decayed if it is at
-least 2-D.  An MoE model's first dense layers are the exception: the
+leaf under ``blocks``, ``enc_blocks`` or ``groups`` is decayed, and any
+other leaf (a hybrid's unstacked ``shared`` block and a learned position
+table among them) is decayed if it is at least 2-D.  An MoE model's first dense layers are the exception: the
 reference keeps them unstacked under ``pre``, so their leaves are decayed
 by their own rank.  The quantized moments block the last dimension, so per-layer codes and scales
 equal the stacked ones row by row.  The schedule, the clip factor and the
@@ -101,7 +102,7 @@ def decays(path, p, unstacked=frozenset()) -> bool:
     """Whether AdamW decays the leaf at ``path`` (see the module doc);
     ``unstacked`` is ``unstacked_blocks(params)``."""
     return (path[0] == "blocks" and path[1] not in unstacked) \
-        or path[0] == "groups" or p.dim() >= 2
+        or path[0] in ("enc_blocks", "groups") or p.dim() >= 2
 
 
 # ---------------------------------------------------------------------------

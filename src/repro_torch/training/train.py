@@ -53,7 +53,9 @@ def init_state(gen, api: ModelApi, cfg: ModelConfig, opt_cfg: OptimizerConfig,
 
 def make_train_step(api: ModelApi, cfg: ModelConfig, tcfg: TrainConfig):
     """Returns ``train_step(state, batch) -> (state, metrics)``; the state
-    is updated in place and returned."""
+    is updated in place and returned.  Every tensor of ``batch`` (the
+    stubbed ``frame_embeds``/``patch_embeds`` too) goes to the loss, split
+    on its batch dim into the microbatches."""
     opt_cfg = tcfg.optimizer
     n_micro = tcfg.microbatches
 

@@ -1,8 +1,11 @@
 """Shared set-up for the PyTorch port's parity tests: one reference config,
-its JAX weights, and the same weights carried into the port through numpy."""
+its JAX weights, and the same weights carried into the port through numpy;
+batches in both packages' tensors; reference trees compared with the
+port's per-layer ones."""
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 from repro.configs import get_config, get_smoke_config
@@ -29,3 +32,60 @@ def build(cfg=None, arch=None, seed=0):
     tcfg = ModelConfig(**dataclasses.asdict(cfg))
     tparams = params_from_numpy(jax.tree.map(np.asarray, params), tcfg, "cpu")
     return cfg, api, params, tcfg, tparams
+
+
+def to_jax(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def to_torch(batch):
+    import torch
+
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in batch.items()}
+
+
+def fresh(tparams):
+    """A copy of the port's parameters that takes gradients."""
+    from repro_torch.training import optim
+
+    return optim.tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                          tparams)
+
+
+def per_layer(tree, dtype=np.float32):
+    """Reference tree -> {port path: ndarray}: a ``blocks`` or
+    ``enc_blocks`` leaf [L, ...] split into L per-layer leaves, a ``groups``
+    leaf [G, K, ...] into G x K (``dtype=None`` keeps each leaf's dtype)."""
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+            return
+        a = np.asarray(t) if dtype is None else np.asarray(t, dtype)
+        if path[0] in ("blocks", "enc_blocks"):
+            for i in range(a.shape[0]):
+                out[(path[0], i) + path[1:]] = a[i]
+        elif path[0] == "groups":
+            for g in range(a.shape[0]):
+                for k in range(a.shape[1]):
+                    out[("groups", g, k) + path[1:]] = a[g, k]
+        else:
+            out[path] = a
+
+    walk(tree, ())
+    return out
+
+
+def assert_tree_close(ref_tree, tparams, rtol, atol):
+    """Every leaf of the port's tree against the reference's, per layer."""
+    from repro_torch.training import optim
+
+    want = per_layer(ref_tree)
+    got = dict(optim.named_leaves(tparams))
+    assert set(got) == set(want)
+    for path, t in got.items():
+        np.testing.assert_allclose(t.detach().float().numpy(), want[path],
+                                   rtol=rtol, atol=atol, err_msg=str(path))

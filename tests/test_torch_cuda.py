@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain versions, on the card,
-the scans' autograd Functions among them; one training step (dense, rwkv6
-and zamba2), the slot engine, the MoE paged engine in both decode modes, a
+the scans' autograd Functions among them; one training step (dense, rwkv6,
+zamba2, whisper-small and internvl2-1b, the last two with their logits
+through prefill and decode), the slot engine, the MoE paged engine in both decode modes, a
 speculative-decoding session, the prefill->decode handoff, a preempted
 sequence's resume and the simulation payloads on the card against the
 same work on the CPU, the plain target engine or a unified engine.
@@ -61,7 +62,8 @@ def _paged(seed, B, num_blocks, bs, mb, Hkv, G, D, lens, dtype):
     ("bfloat16", 8, 3, 128, 4e-3, 2.0 ** -7),
     ("float32", 2, 3, 8, 2e-5, 2e-5), ("bfloat16", 2, 3, 8, 4e-3, 2.0 ** -7),
     ("float32", 2, 2, 16, 2e-5, 2e-5),
-    ("bfloat16", 2, 2, 16, 4e-3, 2.0 ** -7)])
+    ("bfloat16", 2, 2, 16, 4e-3, 2.0 ** -7),
+    ("float32", 1, 7, 8, 2e-5, 2e-5), ("bfloat16", 2, 7, 64, 4e-3, 2.0 ** -7)])
 def test_cuda_kernel_matches_plain(cuda, dtype, Hkv, G, D, atol, rtol):
     """The paged decode kernel vs its plain version at the shapes of
     rhapsody-demo (f32), llama3.2-3b (f32 and bf16) and the smoke configs
@@ -120,7 +122,9 @@ def _qkv(seed, B, S, Hq, Hkv, D, dtype):
     ("float32", 6, 2, 8, 2e-5, 2e-5, 1e-4),
     ("bfloat16", 6, 2, 8, 4e-3, 2.0 ** -7, 2e-2),
     ("float32", 4, 2, 16, 2e-5, 2e-5, 1e-4),
-    ("bfloat16", 4, 2, 16, 4e-3, 2.0 ** -7, 2e-2)])
+    ("bfloat16", 4, 2, 16, 4e-3, 2.0 ** -7, 2e-2),
+    ("float32", 14, 2, 64, 2e-5, 2e-5, 1e-4),
+    ("bfloat16", 14, 2, 64, 4e-3, 2.0 ** -7, 2e-2)])
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 129, 200, 2048])
 def test_cuda_flash_kernel_matches_plain(cuda, dtype, Hq, Hkv, D, atol, rtol,
                                          gtol, S):
@@ -220,12 +224,15 @@ def _close(got, want, tol):
 @pytest.mark.parametrize("dtype,Hkv,G,D", [
     ("float32", 4, 2, 32), ("float32", 8, 3, 128), ("float32", 32, 1, 80),
     ("bfloat16", 8, 3, 128), ("bfloat16", 32, 1, 80), ("float32", 2, 3, 8),
-    ("bfloat16", 2, 3, 8), ("float32", 2, 2, 16), ("bfloat16", 2, 2, 16)])
+    ("bfloat16", 2, 3, 8), ("float32", 2, 2, 16), ("bfloat16", 2, 2, 16),
+    ("float32", 1, 7, 8), ("bfloat16", 1, 7, 8), ("float32", 2, 7, 64),
+    ("bfloat16", 2, 7, 64)])
 def test_cuda_contiguous_decode_matches_plain(cuda, dtype, Hkv, G, D):
     """The contiguous flash-decode kernel vs ``ref.decode_ref`` on slot
     caches [B, S, Hkv, D] of an S that is no multiple of the tile, ragged
     lengths, and idle rows whose length is past S (the kernel clamps it,
-    the plain version's mask admits every position)."""
+    the plain version's mask admits every position); group 7 is
+    internvl2-1b's (its smoke config at D 8, the full one at D 64)."""
     S = 77
     lens = [1, 31, 32, 33, S - 1, S, S + 1, S + 500]
     rng = np.random.RandomState(5)
@@ -244,6 +251,29 @@ def test_cuda_contiguous_decode_matches_plain(cuda, dtype, Hkv, G, D):
     _close(out, plain.reshape(out.shape),
            (2e-5, 2e-5) if dtype == "float32" else BF16_TOL)
     assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_cross_decode_at_whisper_frames(cuda, dtype):
+    """whisper-small's cross-attention decode: B 8, 12 kv heads of one
+    query head each, D 64, over all 1500 cached frames (every row's length
+    is S), as ``transformer.block_decode`` calls it."""
+    B, Hkv, G, D, S = 8, 12, 1, 64, 1500
+    rng = np.random.RandomState(9)
+    dt = getattr(torch, dtype)
+    q, kc, vc = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                 .cuda().to(dt) for shape in ((B, 1, Hkv * G, D),
+                                              (B, S, Hkv, D),
+                                              (B, S, Hkv, D)))
+    ln = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    before = ops.contiguous_launches
+    out = ops.decode_attention(q, kc, vc, ln)
+    torch.cuda.synchronize()
+    assert ops.contiguous_launches == before + 1
+    plain = ref.decode_ref(q.reshape(B, Hkv, G, D), kc, vc, ln)
+    _close(out, plain.reshape(out.shape),
+           (2e-5, 2e-5) if dtype == "float32" else BF16_TOL)
 
 
 def _scan_inputs(seed, shapes, dtypes):
@@ -1001,3 +1031,68 @@ def test_cuda_payloads_and_backend_match_cpu(cuda):
     assert backend.device.type == "cuda"
     exact = float((x.double() ** 2).sum())
     assert abs(float(res) - exact) <= 1e-3 * exact
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
+def test_cuda_encdec_vlm_logits_and_step_match_cpu(cuda, arch):
+    """The smoke config in float32, card vs CPU on the same weights and
+    inputs (frontend embeddings included): ``prefill`` and three
+    ``decode_step``s within 1e-4 (the contiguous decode kernel n_layers
+    times a step, twice for whisper: self and cross attention), then
+    every gradient leaf of ``loss`` within 1e-4 and one AdamW step (eps
+    1e-3) within rtol 2e-3, atol 2e-5 (the flash kernel 2 x n_layers
+    times a pass: the decoder's causal self-attention under remat)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model, make_batch
+    from repro_torch.training import optim
+    from repro_torch.training.train import TrainConfig, init_state, \
+        make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    api = get_model(cfg)
+    opt = optim.OptimizerConfig(lr=1e-3, eps=1e-3, warmup_steps=1,
+                                decay_steps=10)
+    cpu = init_state(torch.Generator().manual_seed(0), api, cfg, opt,
+                     device="cpu")
+    gpu = {"params": optim.tree_map(
+        lambda t: t.detach().cuda().requires_grad_(), cpu["params"])}
+    gpu["opt"] = optim.adamw_init(gpu["params"], opt)
+    batch = make_batch(cfg, 2, 16, torch.Generator().manual_seed(1),
+                       device="cpu")
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    per_step = cfg.n_layers * (2 if cfg.family == "encdec" else 1)
+    logits = []
+    for params, b in ((cpu["params"], batch), (gpu["params"], gbatch)):
+        with torch.no_grad():
+            inputs = {k: v for k, v in b.items()
+                      if k not in ("targets", "loss_mask")}
+            cache, out = api.prefill(params, inputs, cfg, max_len=64)
+            seq = [out]
+            before = ops.contiguous_launches
+            for _ in range(3):
+                cache, out = api.decode(params, cache, out.argmax(-1), cfg)
+                seq.append(out)
+            launched = ops.contiguous_launches - before
+        logits.append(torch.stack(seq).cpu())
+    assert launched == 3 * per_step
+    torch.testing.assert_close(logits[1], logits[0], rtol=1e-4, atol=1e-4)
+    g_cpu = torch.autograd.grad(api.loss(cpu["params"], batch, cfg)[0],
+                                optim.tree_leaves(cpu["params"]))
+    before = fa_ops.launches
+    g_gpu = torch.autograd.grad(api.loss(gpu["params"], gbatch, cfg)[0],
+                                optim.tree_leaves(gpu["params"]))
+    torch.cuda.synchronize()
+    assert fa_ops.launches - before == 2 * cfg.n_layers
+    for a, b in zip(g_gpu, g_cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    step = make_train_step(api, cfg, TrainConfig(optimizer=opt))
+    _, m_cpu = step(cpu, batch)
+    _, m_gpu = step(gpu, gbatch)
+    assert abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) <= \
+        1e-5 * abs(float(m_cpu["loss"]))
+    for a, b in zip(optim.tree_leaves(gpu["params"]),
+                    optim.tree_leaves(cpu["params"])):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=2e-3,
+                                   atol=2e-5)

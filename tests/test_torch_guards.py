@@ -40,7 +40,7 @@ def _imported_modules(path):
     [*PORT.rglob("*.py"), ROOT / "chip_smoke.py", ROOT / "bench_flash.py",
      ROOT / "bench_decode.py", ROOT / "bench_ssd.py",
      ROOT / "profile_engine.py",
-     ROOT / "profile_train.py",
+     ROOT / "profile_train.py", ROOT / "repeat_state_serving.py",
      *(ROOT / "benchmarks_torch").glob("*.py"),
      *(ROOT / "examples_torch").glob("*.py")]),
     ids=lambda p: str(p.relative_to(ROOT)))
@@ -84,23 +84,17 @@ def test_middleware_copy_equals_original(rel):
 def _launched_configs():
     """(label, config) for what the two launchers pick by default (every
     arch's smoke config but rhapsody-demo's full one) and the full configs
-    ``chip_smoke.py`` runs, limited to the families ``get_model`` serves
-    today."""
+    ``chip_smoke.py`` runs; ``get_model`` serves every family."""
     from repro_torch.configs import get_config, get_smoke_config, list_archs
     from repro_torch.models import get_model
 
     picked = [(f"{a}-smoke", get_smoke_config(a)) for a in list_archs()]
     picked += [(f"{a}-full", get_config(a)) for a in
                ("rhapsody-demo", "llama3.2-3b", "rwkv6-1.6b", "zamba2-2.7b",
-                "deepseek-moe-16b")]
-    served = []
-    for label, cfg in picked:
-        try:
-            get_model(cfg)
-        except NotImplementedError:
-            continue
-        served.append((label, cfg))
-    return served
+                "deepseek-moe-16b", "whisper-small", "internvl2-1b")]
+    for _, cfg in picked:
+        get_model(cfg)
+    return picked
 
 
 SERVED = _launched_configs()

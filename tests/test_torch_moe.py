@@ -249,8 +249,10 @@ def test_get_model_serves_the_moe_family(lm):
 
 
 def test_bridge_names_the_item_of_groups_it_does_not_take():
-    """The bridge takes the families of ``_TOP_LEVEL``; an encoder-decoder
-    tree's extra groups raise, naming the ROADMAP item that ports them."""
+    """The bridge takes every family's groups; an encoder-decoder's tree
+    (``enc_blocks``, ``enc_ln_f``, ``pos_embed`` and the decoder blocks'
+    ``ln_cross``/``cross`` beside the dense groups) converts leaf by leaf,
+    stacked layers unstacked.  A group no family has still raises."""
     from repro.configs import get_smoke_config
     from repro.models import get_model as jax_get_model
     from repro_torch.models.convert import params_from_numpy
@@ -258,9 +260,23 @@ def test_bridge_names_the_item_of_groups_it_does_not_take():
     cfg = get_smoke_config("whisper-small")
     tree = jax.tree.map(np.asarray, jnn.split(jax_get_model(cfg).init(
         jax.random.PRNGKey(0), cfg))[0])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        params_from_numpy(tree, ModelConfig(**dataclasses.asdict(cfg)),
-                          "cpu")
+    tcfg = ModelConfig(**dataclasses.asdict(cfg))
+    got = dict(toptim.named_leaves(params_from_numpy(tree, tcfg, "cpu")))
+    want = {}
+    for path, a in toptim.named_leaves(tree):
+        if path[0] in ("blocks", "enc_blocks"):
+            want.update({(path[0], i) + path[1:]: a[i]
+                         for i in range(a.shape[0])})
+        else:
+            want[path] = a
+    assert set(got) == set(want)
+    assert {("enc_ln_f", "scale"), ("pos_embed", "table"),
+            ("blocks", 1, "cross", "o", "w"),
+            ("enc_blocks", 1, "attn", "q", "w")} <= set(got)
+    for path, t in got.items():
+        np.testing.assert_array_equal(t.numpy(), want[path], str(path))
+    with pytest.raises(ValueError, match="not part of"):
+        params_from_numpy(dict(tree, extra={}), tcfg, "cpu")
 
 
 def test_forward_matches_reference(lm):

@@ -18,7 +18,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_parity import build  # noqa: E402
+from _torch_parity import (assert_tree_close as _assert_tree_close,  # noqa: E402,E501
+                           build, fresh as _fresh, per_layer as _per_layer,
+                           to_jax as _jax, to_torch as _torch)
 from repro.training import optim as joptim  # noqa: E402
 from repro.training import train as jtrain  # noqa: E402
 from repro_torch.kernels.mamba2 import ops as ssd_ops  # noqa: E402
@@ -46,55 +48,6 @@ def _batch(vocab, B, S, seed):
     tokens = tokens.astype(np.int32)
     return {"tokens": tokens[:, :-1], "targets": tokens[:, 1:],
             "loss_mask": np.ones((B, S), np.float32)}
-
-
-def _jax(batch):
-    return {k: jnp.asarray(v) for k, v in batch.items()}
-
-
-def _torch(batch):
-    return {k: torch.from_numpy(np.ascontiguousarray(v))
-            for k, v in batch.items()}
-
-
-def _fresh(tparams):
-    return toptim.tree_map(lambda t: t.detach().clone().requires_grad_(True),
-                           tparams)
-
-
-def _per_layer(tree, dtype=np.float32):
-    """Reference tree -> {port path: ndarray}: a ``blocks`` leaf [L, ...]
-    split into L per-layer leaves, a ``groups`` leaf [G, K, ...] into G x K
-    (``dtype=None`` keeps each leaf's dtype)."""
-    out = {}
-
-    def walk(t, path):
-        if isinstance(t, dict):
-            for k, v in t.items():
-                walk(v, path + (k,))
-            return
-        a = np.asarray(t) if dtype is None else np.asarray(t, dtype)
-        if path[0] == "blocks":
-            for i in range(a.shape[0]):
-                out[("blocks", i) + path[1:]] = a[i]
-        elif path[0] == "groups":
-            for g in range(a.shape[0]):
-                for k in range(a.shape[1]):
-                    out[("groups", g, k) + path[1:]] = a[g, k]
-        else:
-            out[path] = a
-
-    walk(tree, ())
-    return out
-
-
-def _assert_tree_close(ref_tree, tparams, rtol, atol):
-    want = _per_layer(ref_tree)
-    got = dict(toptim.named_leaves(tparams))
-    assert set(got) == set(want)
-    for path, t in got.items():
-        np.testing.assert_allclose(t.detach().float().numpy(), want[path],
-                                   rtol=rtol, atol=atol, err_msg=str(path))
 
 
 def _assert_q8_close(jparams, moments_before, tparams):

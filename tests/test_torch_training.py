@@ -344,10 +344,27 @@ def test_launcher_trains_moe_on_cpu(capsys):
 
 
 def test_attention_apply_raises_for_unported_modes(lm):
+    """Non-causal self-attention and cross-attention (keys from ``x_kv``,
+    with and without rope) through ``attention_apply``, against the
+    reference on the same weights and inputs: PyTorch ops on both sides
+    (the reference sends only causal self-attention to its kernel)."""
+    from repro.models import attention as jattention
     from repro_torch.models import attention
 
-    _, _, _, tcfg, tp = lm
-    x = torch.zeros(1, 4, tcfg.d_model)
-    for kw in ({"causal": False}, {"x_kv": x}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            attention.attention_apply(tp["blocks"][0]["attn"], x, tcfg, **kw)
+    cfg, _, params, tcfg, tp = lm
+    rng = np.random.RandomState(8)
+    x = rng.randn(2, 6, cfg.d_model).astype(np.float32)
+    x_kv = rng.randn(2, 11, cfg.d_model).astype(np.float32)
+    jp = jax.tree.map(lambda a: a[0], params["blocks"]["attn"])
+    for kw in ({"causal": False}, {"causal": False, "x_kv": x_kv},
+               {"causal": True, "x_kv": x_kv, "rope": False}):
+        tkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+               for k, v in kw.items()}
+        want = jattention.attention_apply(
+            jp, jnp.asarray(x), cfg,
+            **{k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+               for k, v in kw.items()})
+        got = attention.attention_apply(tp["blocks"][0]["attn"],
+                                        torch.from_numpy(x), tcfg, **tkw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=TOL, atol=TOL, err_msg=str(kw))
