@@ -9,11 +9,19 @@ Prints ``name,us_per_call,derived`` CSV rows and writes
 
   exp1_scaling        Fig. 3  scaling of no-op task dispatch (weak/strong)
   exp2_heterogeneity  Fig. 4  heterogeneity width
+  exp3_inference      Fig. 5a,b inference-at-scale throughput/utilization
+  exp4_routing        Fig. 5c,d batching sensitivity + routing policies
   exp5_coupling       Fig. 6  coupled AI-HPC data exchange
   exp6_agentic        Fig. 7  agent decision rate vs ARR
+  kernels             the hand-written kernels at the reference's shapes
+                      (on the CPU: their plain versions, ``..._plain``)
 
-Payloads and the LLM service run on ``--device``: the CUDA card unless the
-caller asks for the CPU.
+The reference's ``roofline`` suite reads the TPU launch tooling's dry-run
+output (``launch.dryrun``); it waits for that tooling's port (ROADMAP
+Queue 1 item 13).
+
+Payloads, engines and kernels run on ``--device``: the CUDA card unless
+the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -22,14 +30,19 @@ import sys
 
 from repro_torch.device import resolve_device
 
-from . import bench_agentic, bench_coupling, bench_heterogeneity, bench_scaling
+from . import (bench_agentic, bench_coupling, bench_heterogeneity,
+               bench_inference_scaling, bench_kernels, bench_routing,
+               bench_scaling)
 from .common import Reporter
 
 SUITES = {  # (reporter, device) -> the suite's JSON payload
     "exp1_scaling": lambda rep, device: bench_scaling.main(rep),  # no-ops
     "exp2_heterogeneity": bench_heterogeneity.main,
+    "exp3_inference": bench_inference_scaling.main,
+    "exp4_routing": bench_routing.main,
     "exp5_coupling": bench_coupling.main,
     "exp6_agentic": bench_agentic.main,
+    "kernels": bench_kernels.main,
 }
 
 
@@ -57,8 +70,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", nargs="*", default=None,
                     help="subset of suites to run")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the payloads and the LLM service "
-                         "(cuda | cpu)")
+                    help="torch device of the payloads, the LLM services "
+                         "and the kernels (cuda | cpu)")
     args = ap.parse_args(argv)
     rep = Reporter()
     print("name,us_per_call,derived")

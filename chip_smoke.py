@@ -199,6 +199,25 @@ Phases, each printing one JSON line:
    bf16, remat full, AdamW, 3 steps: internvl2-1b at 2 x 2048 text tokens
    after 256 stubbed patches, whisper-small at 2 x 448 tokens over 1500
    stubbed frames; step time, tok/s, peak memory.
+30. exp3 (``benchmarks_torch.bench_inference_scaling.run_config``) with
+   llama3.2-3b at full width, bf16, one weight set every replica serves,
+   phase 8's engine: 1, 2 and 4 replicas with 2 clients each, every client
+   8 requests of one 64-token prompt with 32 new tokens; tokens/s (prompt
+   plus generated, and generated alone), seconds, utilization,
+   per-replica requests, the scaling efficiency tps(n) / (n tps(1)) and
+   peak memory of each config.
+31. ``--paged``'s three engines (slot pool, paged ``gather``, paged
+   ``direct``) with llama3.2-3b at full width in float32 over one weight
+   set, the reference's traffic and pool: transcripts equal (a flip only
+   under a 1e-5 top-two gap of the kernel-free oracle), the paged rows'
+   sharing, copy-on-write and block gauges, both decode kernels launched.
+32. the reference's CI bench smokes that touch the card, on the port, as
+   subprocesses with ``--device cuda`` (``--paged``, ``--speculative``,
+   ``--disagg``, ``bench_routing --affinity`` and ``--replicas 1 2 4``,
+   ``bench_agentic --qos``, and the ``kernels`` suite), each JSON judged by
+   the reference's ``benchmarks/check_bench_json.py`` as a subprocess; a
+   failed gate that compares two timings is printed with its ratio, any
+   other failure fails the phase.
 
 Every phase that drives a path sets all five kernels' launch counts to 0
 just before it runs and checks every count just after: the paged serving
@@ -218,9 +237,13 @@ zamba2 SSD 2 x n_layers and flash 2 x n_layers / attn_every x steps (the
 scans' backward runs the plain version and launches nothing), zamba2's
 forward SSD n_layers and flash n_layers / attn_every times; the agent
 population the paged decode kernel n_layers x decode steps; the payloads
-and benchmark suites none; every other kernel never.  Any failure
-exits non-zero.  The last lines are the five kernels' JSON record (the
-decode pair's, the flash kernel's and the scans' rows also carry
+and benchmark suites none; exp3 the paged kernel n_layers x the
+replicas' decode steps; the f32 paged comparison the paged kernel for the
+direct engine and the contiguous one for the slot pool and the gather
+engine; every other kernel never.  Any failure
+exits non-zero.  Each phase's line carries ``elapsed_s``, the script's
+seconds up to its end.  The last lines are the five kernels' JSON record
+(the decode pair's, the flash kernel's and the scans' rows also carry
 ``graph_ms``, and the attention kernels' ``library_graph_ms``; every row
 ``launches_by_path``, its launches on each full-width path), the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without a
@@ -324,7 +347,14 @@ def main_path_prompt_lens(rng, n):
     return np.clip(np.exp(rng.normal(3.0, 0.7, n)), 4, hi).astype(int)
 
 
+START = time.perf_counter()  # the script's start (each phase's elapsed_s)
+
+
 def emit(obj):
+    """Print ``obj`` as one JSON line; a phase's line also carries
+    ``elapsed_s``, the script's seconds up to its end."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1399,10 +1429,10 @@ def oracle_logits(torch, get_model, cfg, params, tokens):
 
 
 def teacher_forced(torch, get_model, cfg, params, prompts, outs, where,
-                   memo=None):
+                   memo=None, gap_tol=MODEL_GAP_TOL):
     """Every token of each transcript against the kernel-free oracle's
     argmax on the transcript so far (``oracle_logits``): a token may
-    differ only where the oracle's top-two gap is under MODEL_GAP_TOL.
+    differ only where the oracle's top-two gap is under ``gap_tol``.
     Checks that the oracle launched no kernel; -> the flips.  ``memo``
     keeps the oracle's logits between calls on one model."""
     memo = {} if memo is None else memo
@@ -1418,7 +1448,7 @@ def teacher_forced(torch, get_model, cfg, params, prompts, outs, where,
             best = int(logits.argmax())
             if tok != best:
                 gap = float(logits[best] - logits[tok])
-                check(gap < MODEL_GAP_TOL,
+                check(gap < gap_tol,
                       f"{where}: engine token {tok} != oracle {best} at "
                       f"step {i} of a {len(p)}-token prompt, gap {gap}")
                 flips.append({"prompt_len": len(p), "step": i, "gap": gap})
@@ -3340,6 +3370,292 @@ def phase_encdec_vlm_train(torch, configs, get_model, optim, train,
     return cut_steps, records
 
 
+# ---------------------------------------------------------------------------
+# The paper's serving experiments on the port (phases 30-32)
+# ---------------------------------------------------------------------------
+
+# exp3 at full width (phase 30): the reference's configs (replicas, clients
+# a replica), each client 8 requests of one homogeneous 64-token prompt, 32
+# new tokens each
+EXP3_CONFIGS = ((1, 2), (2, 2), (4, 2))
+EXP3_TRAFFIC = dict(reqs_per_client=8, prompt_len=64, new_tokens=32)
+# phase 31: a token of the three f32 engines may differ only where the
+# kernel-free oracle's top-two gap is under this
+PAGED_GAP_TOL = 1e-5
+
+
+def phase_exp3(torch, configs, get_model, exp3):
+    """Phase 30: ``benchmarks_torch.bench_inference_scaling.run_config`` with
+    llama3.2-3b at its full config (bf16, random weights from seed 0, one
+    weight set every replica serves) and phase 8's engine, at exp3's
+    configs and traffic shape.  Each config: every request back with its
+    32 tokens, every replica served, the per-replica counts summing to the
+    requests, the paged kernel launched n_layers x the replicas' decode
+    steps and no other kernel.  The scaling efficiency tps(n) / (n tps(1))
+    is measured, not gated."""
+    cfg = configs.get_config(MAIN_PATH_ARCH)
+    params = get_model(cfg).init(torch.Generator(device=DEVICE).manual_seed(0),
+                                 cfg, device=DEVICE)
+    # one untimed request first, so no config pays a first call
+    exp3.run_config(1, 1, reqs_per_client=1, prompt_len=EXP3_TRAFFIC[
+        "prompt_len"], new_tokens=2, device=DEVICE, cfg=cfg, params=params,
+        **MAIN_PATH_ENGINE)
+    rows = []
+    for n, cpc in EXP3_CONFIGS:
+        where = f"exp3 x{n}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        r = exp3.run_config(n, cpc, **EXP3_TRAFFIC, device=DEVICE, cfg=cfg,
+                            params=params, **MAIN_PATH_ENGINE)
+        launches = check_launches(
+            where, paged_decode_attention=cfg.n_layers * r["decode_steps"])[
+            "paged_decode_attention"]
+        want = n * cpc * EXP3_TRAFFIC["reqs_per_client"]
+        per = r["per_replica_requests"]
+        check(r["requests"] == want and sum(per) == want and len(per) == n,
+              f"{where}: {r['requests']} requests, per replica {per}, "
+              f"expected {want} over {n}")
+        check(min(per) >= 1, f"{where}: a replica served nothing: {per}")
+        check(r["generated_tokens"] == want * EXP3_TRAFFIC["new_tokens"],
+              f"{where}: a request came back short "
+              f"({r['generated_tokens']} tokens)")
+        check(launches > 0, f"{where}: no decode step ran")
+        r.update(paged_launches=launches,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        rows.append(r)
+        gc.collect()
+        torch.cuda.empty_cache()
+    one = rows[0]
+    for r in rows:
+        r["scaling_efficiency"] = r["tokens_per_s"] / (
+            r["replicas"] * one["tokens_per_s"])
+        r["generated_scaling_efficiency"] = r["generated_tokens_per_s"] / (
+            r["replicas"] * one["generated_tokens_per_s"])
+    del params
+    return {"config": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "dtype": cfg.compute_dtype,
+            "shared_params": True, "engine": {
+                k: list(v) if isinstance(v, tuple) else v
+                for k, v in MAIN_PATH_ENGINE.items()},
+            **EXP3_TRAFFIC, "rows": rows,
+            "launches": sum(r["paged_launches"] for r in rows)}
+
+
+def phase_paged_full(torch, configs, get_model, exp3):
+    """Phase 31: ``paged_compare`` (``--paged``'s engines) with llama3.2-3b
+    at its full config in float32 (one 12.8 GB weight set the three
+    engines share) and the reference's traffic and pool (4 slots, max_len
+    64, block 8, 12 branches off a 12-token stem, 6 new tokens, a 32-token
+    warm burst).  The transcripts must be equal (a token may differ only
+    where the kernel-free oracle's top-two gap is under PAGED_GAP_TOL,
+    each such flip recorded with its gap); both paged rows show what
+    ``check_paged`` demands; the paged kernel ran n_layers x the direct
+    engine's decode steps, the contiguous kernel n_layers x the slot pool's
+    and the gather engine's."""
+    cfg = configs.get_config(MAIN_PATH_ARCH).scaled(
+        param_dtype="float32", compute_dtype="float32")
+    params = get_model(cfg).init(torch.Generator(device=DEVICE).manual_seed(0),
+                                 cfg, device=DEVICE)
+    zero_launches()
+    rows, runs = exp3.paged_compare(device=DEVICE, cfg=cfg, params=params)
+    steps = {name: run["engine"].stats.decode_steps
+             for name, run in runs.items()}
+    launches = check_launches(
+        "paged compare", paged_decode_attention=cfg.n_layers * steps["paged"],
+        decode_attention=cfg.n_layers * (steps["monolithic"]
+                                         + steps["paged_gather"]))
+    check(all(v > 0 for v in steps.values()),
+          f"paged compare: decode steps {steps}")
+    by = {r["engine"]: r for r in rows}
+    check(by["paged_gather"]["decode_mode"] == "gather"
+          and by["paged"]["decode_mode"] == "direct",
+          "paged compare: rows mislabel their decode mode")
+    for name in ("paged_gather", "paged"):
+        r = by[name]
+        check(r["peak_concurrent"] > r["max_num_seqs"]
+              and r["shared_block_peak"] > 0 and r["cow_copies"] > 0
+              and r["reserved_blocks"] == 0
+              and 0 <= r["free_blocks"] <= r["num_blocks"],
+              f"paged compare {name}: {r}")
+    flips = {}
+    if not rows[0]["tokens_match"]:
+        memo = {}
+        for name, run in runs.items():
+            flips[name] = teacher_forced(
+                torch, get_model, cfg, params, run["prompts"], run["outs"],
+                f"paged compare {name}", memo, gap_tol=PAGED_GAP_TOL)
+    out = {"config": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": "float32", "shared_params": True,
+           "rows": rows, "decode_steps": steps,
+           "launches": {k: v for k, v in launches.items() if v},
+           "tokens_match": rows[0]["tokens_match"], "flips": flips,
+           "direct_decode_tokens_per_s": by["paged"]["decode_tokens_per_s"],
+           "gather_decode_tokens_per_s":
+           by["paged_gather"]["decode_tokens_per_s"]}
+    del runs, params
+    return out
+
+
+# the reference's CI bench smokes (.github/workflows/ci.yml) that touch the
+# card, on the port, as (label, module and arguments, checker mode or
+# None); each runs with --device cuda
+CI_SMOKES = (
+    ("paged", ("benchmarks_torch.bench_inference_scaling", "--paged",
+               "--json"), "paged"),
+    ("specdecode", ("benchmarks_torch.bench_inference_scaling",
+                    "--speculative", "--json"), "specdecode"),
+    ("disagg", ("benchmarks_torch.bench_inference_scaling", "--disagg",
+                "--json"), "disagg"),
+    ("affinity", ("benchmarks_torch.bench_routing", "--affinity",
+                  "--replicas", "4", "--sessions", "6", "--turns", "6",
+                  "--requests", "32", "--repeats", "1", "--json"),
+     "affinity"),
+    ("replica_sweep", ("benchmarks_torch.bench_routing", "--replicas", "1",
+                       "2", "4", "--requests", "48"), None),
+    ("qos", ("benchmarks_torch.bench_agentic", "--qos", "--json"), "qos"),
+    ("kernels_suite", ("benchmarks_torch.run", "--only", "kernels"), None),
+)
+# the checker's gates that compare two timings (benchmarks/
+# check_bench_json.py): a failure of one of these is a finding on the card,
+# reported with its ratio, not a failure of the phase
+TIMING_GATES = (
+    "SLO step p95 blew the target",
+    "direct paged decode slower than the gather round-trip",
+    "disaggregation did not improve TTFT p95 by >= 1.2x",
+    "disaggregation did not improve ITL p95 by >= 1.2x",
+    "speculative decode did not pay for its draft",
+    "disabled speculation degraded below vanilla",
+    "QoS failed to isolate the high class",
+    "QoS starved the low class",
+)
+
+
+def timing_ratios(mode, rows):
+    """Each timing gate of ``mode``'s rows: (gate, measured ratio, the
+    checker's threshold, 'min' or 'max')."""
+    if mode == "paged":
+        by = {r.get("engine"): r for r in rows}
+        return [("direct / gather decode tokens/s",
+                 by["paged"]["decode_tokens_per_s"]
+                 / by["paged_gather"]["decode_tokens_per_s"], 0.9, "min")]
+    if mode == "disagg":
+        dis = next(r for r in rows if r.get("mode") == "disagg")
+        return [("TTFT p95 speedup", dis["ttft_speedup"], 1.2, "min"),
+                ("ITL p95 speedup", dis["itl_speedup"], 1.2, "min")]
+    if mode == "specdecode":
+        by = {r["stream"]: r for r in rows}
+        return [("high-acceptance speedup",
+                 by["high_acceptance"]["speedup_vs_vanilla"], 1.3, "min"),
+                ("low-acceptance speedup",
+                 by["low_acceptance"]["speedup_vs_vanilla"], 0.9, "min")]
+    if mode == "qos":
+        by = {r["phase"]: r for r in rows}
+        return [("high p95 QoS / baseline",
+                 by["qos"]["high_p95_s"] / by["baseline_high"]["high_p95_s"],
+                 1.3, "max"),
+                ("low throughput QoS / no QoS",
+                 by["qos"]["low_throughput_per_s"]
+                 / by["no_qos"]["low_throughput_per_s"], 0.8, "min")]
+    return []
+
+
+def unreached_checks(mode, rows):
+    """The invariants the checker tests after a timing gate, which it never
+    reaches when that gate fails: disagg's fallback row, spec-decode's
+    disabled low-acceptance stream, the QoS counters and the paged
+    service's telemetry.  -> the violated ones."""
+    bad = []
+    if mode == "disagg":
+        fb = [r for r in rows if r.get("scenario") == "disagg_fallback"]
+        if not (len(fb) == 1 and fb[0]["recomputes"] >= 1
+                and fb[0]["completed"] == fb[0]["exports"] + 1
+                and fb[0]["tokens_match"] is True):
+            bad.append(f"disagg_fallback row {fb}")
+    if mode == "specdecode":
+        lo = [r for r in rows if r["stream"] == "low_acceptance"]
+        if lo[0]["enabled"] is not False:
+            bad.append(f"low_acceptance stream still enabled: {lo[0]}")
+    if mode == "qos":
+        qc = next(r for r in rows if r["phase"] == "qos")["qos_counters"]
+        if not (isinstance(qc, dict) and qc.get("reporting_replicas", 0) >= 1
+                and qc.get("engine_preemptions", 0)
+                == qc.get("engine_preempt_resumes", 0)):
+            bad.append(f"QoS counters {qc}")
+    if mode == "paged":
+        for r in rows:
+            tel = r.get("block_telemetry")
+            if r.get("scenario") == "paged_service" and not (
+                    isinstance(tel, dict)
+                    and 0 <= tel["free_blocks"] <= tel["total_blocks"]
+                    and tel.get("reporting_replicas", 0) >= 1):
+                bad.append(f"paged service telemetry {tel}")
+    return bad
+
+
+def phase_ci_smokes(out_dir):
+    """Phase 32: each of ``CI_SMOKES`` as a subprocess on the card, its JSON
+    checked by the reference's checker, unmodified, as a subprocess
+    (``python benchmarks/check_bench_json.py <mode> <file>``).  The phase
+    fails on a smoke that exits non-zero, on any checker failure but one
+    of ``TIMING_GATES``, on any row with ``tokens_match`` false, and, when
+    a timing gate stopped the checker, on an invariant it never reached
+    (``unreached_checks``).  Every mode's timing ratios are printed beside
+    their thresholds."""
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT]))
+    results = {}
+    for label, args, mode in CI_SMOKES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args, "--device",
+                               DEVICE], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"smoke {label} exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        res = {"args": list(args), "seconds": seconds}
+        if mode is None:
+            res["stdout_tail"] = proc.stdout.strip().splitlines()[-12:]
+            results[label] = res
+            print(f"[smoke] {label}: exit 0 in {seconds:.1f} s", flush=True)
+            continue
+        path = os.path.join(out_dir, f"{label}.json")
+        with open(path, "w") as f:
+            f.write(proc.stdout)
+        rows = json.loads(proc.stdout)
+        chk = subprocess.run(
+            [sys.executable, os.path.join("benchmarks", "check_bench_json.py"),
+             mode, path], cwd=ROOT, capture_output=True, text=True,
+            timeout=120)
+        message = (chk.stdout + chk.stderr).strip()
+        gate = next((g for g in TIMING_GATES if g in message), None)
+        ratios = [{"gate": g, "ratio": x, "threshold": t, "kind": k,
+                   "ok": x >= t if k == "min" else x <= t}
+                  for g, x, t, k in timing_ratios(mode, rows)]
+        verdict = ("ok" if chk.returncode == 0 else
+                   "timing gate" if gate is not None else "FAIL")
+        print(f"[check-bench-json] {label}: {verdict}", flush=True)
+        if chk.returncode:
+            print(message, flush=True)
+        for r in ratios:
+            print(f"[timing] {label}: {r['gate']} {r['ratio']:.4f} "
+                  f"({r['kind']} {r['threshold']})", flush=True)
+        check(chk.returncode == 0 or gate is not None,
+              f"smoke {label}: the checker failed: {message}")
+        unreached = unreached_checks(mode, rows) if gate is not None else []
+        check(not unreached, f"smoke {label}: {unreached}")
+        mismatched = [r for r in rows if r.get("tokens_match") is False]
+        check(not mismatched, f"smoke {label}: tokens_match false in "
+                              f"{mismatched}")
+        res.update(mode=mode, checker_rc=chk.returncode,
+                   checker=message, timing_gate=gate, ratios=ratios,
+                   rows=len(rows))
+        results[label] = res
+    return results
+
+
 def main():
     import torch
 
@@ -3368,6 +3684,7 @@ def main():
     from repro_torch.backends import local, torchrt
     from repro_torch.substrate import simulation
     from benchmarks_torch import bench_agentic
+    from benchmarks_torch import bench_inference_scaling as bench_exp3
     from benchmarks_torch import common as bench_common
     from benchmarks_torch import run as bench_run
 
@@ -3584,6 +3901,22 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 30. exp3 at full width: 1, 2 and 4 replicas of llama3.2-3b
+    exp3_path = phase_exp3(torch, configs, get_model, bench_exp3)
+    emit({"phase": "exp3", **exp3_path})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 31. --paged's three engines at full width, f32
+    paged_full = phase_paged_full(torch, configs, get_model, bench_exp3)
+    emit({"phase": "paged_full", **paged_full})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 32. the reference's CI smokes on the port, judged by its checker
+    emit({"phase": "ci_smokes", "smokes": phase_ci_smokes(
+        os.path.join(ROOT, "build", "ci_smokes"))})
+
     decode_src = ("src/repro_torch/kernels/decode_attention/csrc/"
                   "decode_attention.cu")
     rwkv, zamba = (state_paths[arch] for arch in STATE_ARCHS)
@@ -3593,10 +3926,14 @@ def main():
     whisper_train, internvl_train = encdec_vlm_train
     agents = workflows["agents"]["launches"]
     by_path = {  # launches on each path this script drives at full width
-        "paged_decode_attention": {"main_path": main_path["launches"],
-                                   "agent_population": agents},
+        "paged_decode_attention": {
+            "main_path": main_path["launches"], "agent_population": agents,
+            "exp3": exp3_path["launches"],
+            "paged_compare_f32":
+            paged_full["launches"]["paged_decode_attention"]},
         "decode_attention": {
             "zamba2_serving": zamba["launches"]["decode_attention"],
+            "paged_compare_f32": paged_full["launches"]["decode_attention"],
             "whisper_serving": whisper["launches"]["decode_attention"],
             "internvl_serving": internvl["launches"]["decode_attention"]},
         "flash_attention": {"train_main_path": train_path["launches"],

@@ -183,23 +183,42 @@ def attention_prefill(p, x, cfg: ModelConfig, *, positions=None):
     return nn.linear_apply(p["o"], out, cfg.cdtype), (k, v)
 
 
+def _write_rows(cache, pos, new):
+    """``cache[b, pos[b, t]] = new[b, t]`` in place for the consecutive
+    positions ``pos`` [B, T], dropping every position >= Smax.  The
+    writes go through positions clamped to Smax - 1, and that row is then
+    set to what it must hold: the chunk's own entry for it, or its value
+    before the call (so the dropped writes, which collide there, leave no
+    trace, with no host sync)."""
+    B, T = pos.shape
+    last = cache.shape[1] - 1
+    bidx = torch.arange(B, device=pos.device)
+    before = cache[:, last].clone()
+    cache[bidx[:, None], pos.clamp(max=last)] = new.to(cache.dtype)
+    t = last - pos[:, 0]  # the chunk entry that belongs at row Smax - 1
+    own = ((t >= 0) & (t < T)).reshape((B,) + (1,) * (cache.dim() - 2))
+    cache[:, last] = torch.where(
+        own, new[bidx, t.clamp(0, T - 1)].to(cache.dtype), before)
+
+
 def attention_extend(p, x, cache_k, cache_v, kv_length, cfg: ModelConfig):
     """Multi-token cache extension (chunked prefill).
 
     x: [B,T,d] new tokens appended at positions kv_length..kv_length+T-1;
-    cache_k/v: [B,Smax,Hkv,D], written IN PLACE at those positions;
-    kv_length: [B] valid entries *before* this chunk.  Returns
-    (out [B,T,d], cache_k, cache_v, new_len).  Each chunk query attends to
-    the cache prefix plus the chunk's own causal triangle, with the score
-    math of ``full_attention``."""
+    cache_k/v: [B,Smax,Hkv,D], written IN PLACE at those positions (a
+    position past the cache, as a padded chunk's tail can reach, is
+    dropped, as the reference's ``.at[].set`` drops it); kv_length: [B]
+    valid entries *before* this chunk.  Returns (out [B,T,d], cache_k,
+    cache_v, new_len).  Each chunk query attends to the cache prefix plus
+    the chunk's own causal triangle, with the score math of
+    ``full_attention``."""
     B, T, _ = x.shape
     Smax = cache_k.shape[1]
     pos = kv_length[:, None] + torch.arange(T, device=x.device)[None, :]
     q, k_new, v_new = _project_qkv(p, x, x, cfg, pos, pos,
                                    rope=cfg.positions == "rope")
-    bidx = torch.arange(B, device=x.device)[:, None]
-    cache_k[bidx, pos] = k_new.to(cache_k.dtype)
-    cache_v[bidx, pos] = v_new.to(cache_v.dtype)
+    _write_rows(cache_k, pos, k_new)
+    _write_rows(cache_v, pos, v_new)
     Hq = q.shape[2]
     k = _repeat_kv(cache_k, Hq)
     v = _repeat_kv(cache_v, Hq)

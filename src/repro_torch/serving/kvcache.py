@@ -323,11 +323,14 @@ def gather_block_view(store, block_tables, lens):
 def scatter_block_writes(store, view, write_phys, write_off, write_pos):
     """Write the view rows at ``write_pos[b, t]`` into store cells
     ``(write_phys[b, t], write_off[b, t])``, in place.  Padded (b, t)
-    entries are redirected to the null block by the caller (phys 0)."""
+    entries are redirected to the null block by the caller (phys 0); a
+    padded position past the view reads its last row, as the reference's
+    gather clamps it."""
     B = write_pos.shape[0]
     bidx = torch.arange(B, device=write_pos.device)[:, None]
     for name in ("k", "v"):
-        written = view[name][:, bidx, write_pos.long()]  # [L, B, T, ...]
+        rows = write_pos.long().clamp(max=view[name].shape[2] - 1)
+        written = view[name][:, bidx, rows]  # [L, B, T, ...]
         store[name][:, write_phys.long(), write_off.long()] = written.to(
             store[name].dtype)
     return store

@@ -303,9 +303,10 @@ def test_runner_writes_its_own_results_file(tmp_path, monkeypatch,
     assert not (tmp_path / "benchmarks.json").exists()
     assert "exp5_memory_n32" in capsys.readouterr().out
     assert set(run.SUITES) == {"exp1_scaling", "exp2_heterogeneity",
-                               "exp5_coupling", "exp6_agentic"}
+                               "exp3_inference", "exp4_routing",
+                               "exp5_coupling", "exp6_agentic", "kernels"}
     with pytest.raises(ValueError, match="unknown suites"):
-        run.run_suites(common.Reporter(), ["exp3_inference"], CPU)
+        run.run_suites(common.Reporter(), ["roofline"], CPU)
     monkeypatch.setitem(run.SUITES, "exp1_scaling",
                         lambda rep, device: 1 / 0)
     _, failures = run.run_suites(common.Reporter(), ["exp1_scaling"], CPU)
