@@ -15,10 +15,9 @@ Prints ``name,us_per_call,derived`` CSV rows and writes
   exp6_agentic        Fig. 7  agent decision rate vs ARR
   kernels             the hand-written kernels at the reference's shapes
                       (on the CPU: their plain versions, ``..._plain``)
-
-The reference's ``roofline`` suite reads the TPU launch tooling's dry-run
-output (``launch.dryrun``); it waits for that tooling's port (ROADMAP
-Queue 1 item 13).
+  roofline            one H100's roofline per arch x shape, read from
+                      the dry-run's records (``results/dryrun_torch.json``,
+                      written by ``repro_torch.launch.dryrun``)
 
 Payloads, engines and kernels run on ``--device``: the CUDA card unless
 the caller asks for the CPU.
@@ -31,8 +30,8 @@ import sys
 from repro_torch.device import resolve_device
 
 from . import (bench_agentic, bench_coupling, bench_heterogeneity,
-               bench_inference_scaling, bench_kernels, bench_routing,
-               bench_scaling)
+               bench_inference_scaling, bench_kernels, bench_roofline,
+               bench_routing, bench_scaling)
 from .common import Reporter
 
 SUITES = {  # (reporter, device) -> the suite's JSON payload
@@ -43,6 +42,7 @@ SUITES = {  # (reporter, device) -> the suite's JSON payload
     "exp5_coupling": bench_coupling.main,
     "exp6_agentic": bench_agentic.main,
     "kernels": bench_kernels.main,
+    "roofline": bench_roofline.main,  # reads records counted on meta
 }
 
 

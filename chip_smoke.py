@@ -218,6 +218,26 @@ Phases, each printing one JSON line:
    the reference's ``benchmarks/check_bench_json.py`` as a subprocess; a
    failed gate that compares two timings is printed with its ratio, any
    other failure fails the phase.
+33. the dry-run against the card: ``repro_torch.launch.dryrun`` counts, on
+   ``meta`` in a CPU process of its own started after the build
+   (``--dryrun-worker``; the card hidden from it), llama3.2-3b's four
+   ``SHAPES`` cells (``run_cell``: ok, long_500k skipped) and each training
+   step that phases 16, 25 and 29 time, at their shapes (llama3.2-3b,
+   rwkv6-1.6b, zamba2-2.7b, internvl2-1b at 2 x 2048, whisper-small at 2 x
+   448).  For each step: its bound max(t_compute, t_memory) at most the
+   fastest warm step the card timed (else the counter counts work twice
+   or charges a kernel wrongly), the share bound / measured and the
+   model-FLOP share 6 N D / (measured x 989 TFLOP/s), the parameters' and
+   AdamW state's bytes equal to what the card holds for them, the
+   estimated peak beside ``max_memory_allocated``.
+34. remat "dots" against "full": llama3.2-3b at full width, bf16, one
+   loss-and-gradient step at 2 x 2048 on the same weights and batch under
+   each: the losses equal, every gradient leaf within the bf16 gradient
+   tolerance, the flash kernel launched 2 x n_layers under both (its
+   forward recomputed under dots too); each one's warm time and peak
+   memory; then the counter's FLOPs (the worker's, on meta): dots below
+   full by exactly full's recomputed mm/addmm FLOPs, and dots's mm FLOPs
+   those of remat none.
 
 Every phase that drives a path sets all five kernels' launch counts to 0
 just before it runs and checks every count just after: the paged serving
@@ -249,9 +269,11 @@ seconds up to its end.  The last lines are the five kernels' JSON record
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without a
 CUDA card it exits 2 and prints no result.
 """
+import atexit
 import concurrent.futures
 import contextlib
 import gc
+import importlib.util
 import json
 import math
 import os
@@ -265,8 +287,24 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
+
+def _own_module(rel):
+    """A module of this checkout loaded by path, outside the
+    ``repro_torch`` package: the bench scripts import this file and then
+    time another tree's kernels (``--src``), which the package must then
+    come from."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_" + os.path.basename(rel)[:-3], os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# each kernel's work (bytes, operations), the formula the dry-run charges
+# it, and the H100 data sheet's HBM3 rate and dense bf16 tensor-core peak,
+# the dry-run's constants
+kernel_cost = _own_module("src/repro_torch/kernels/cost.py")
+H100_BYTES_PER_S, H100_BF16_FLOPS = kernel_cost.HBM_BW, kernel_cost.PEAK_FLOPS
 DEVICE = "cuda"
 # kernel vs plain, (atol, rtol): f32 differs only in summation order; bf16
 # outputs are rounded to bf16 on both sides, so allow 4e-3 plus one bf16
@@ -655,12 +693,8 @@ def paged_timing(torch, ops, ref, kernel, rng):
         lambda layer: ref.paged_decode_ref(qg, ks[layer], vs[layer], bt, ln),
         lambda layer: sdpa(qs, kc[layer], vc[layer], attn_mask=mask,
                            enable_gqa=True))
-    itemsize = 2
-    tot = sum(lens)
-    bytes_moved = (tot * Hkv * D * 2 * itemsize  # K and V rows attended
-                   + 2 * B * Hkv * G * D * itemsize  # q in, out
-                   + bt.numel() * 4 + B * 4)  # tables, lengths
-    flops = 4 * tot * Hkv * G * D  # q.k and p.v, multiply-add each
+    flops, bytes_moved = kernel_cost.paged_decode_attention(
+        q, ks[0], bt, sum(lens))  # the K and V rows attended
     bms, by = bound_ms(bytes_moved, flops, H100_BF16_FLOPS)
     shape = getattr(kernel, "launch_shape", None)  # older trees lack it
     timing = {"config": "llama3.2-3b", "layers": L, "B": B, "lens": lens,
@@ -972,10 +1006,8 @@ def decode_timing(torch, ops, ref, kernel, name, L, B, Hkv, G, D, S, lens):
         lambda layer: ref.decode_ref(qg, kc[layer], vc[layer], ln),
         lambda layer: sdpa(qs, kt[layer], vt[layer], attn_mask=mask,
                            enable_gqa=True))
-    attended = sum(min(n, S) for n in lens)
-    bytes_moved = (attended * Hkv * D * 2 * 2  # K and V rows, bf16
-                   + 2 * B * Hkv * G * D * 2 + B * 4)  # q, out; lengths
-    flops = 4 * attended * Hkv * G * D
+    flops, bytes_moved = kernel_cost.decode_attention(
+        q, kc[0], sum(min(n, S) for n in lens))  # the K and V rows attended
     bms, by = bound_ms(bytes_moved, flops, H100_BF16_FLOPS)
     shape = getattr(kernel, "launch_shape", None)  # older trees lack it
     del kc, vc, kt, vt
@@ -1231,10 +1263,7 @@ def wkv_timing(torch, ops, ref, kernel, gen, shape=WKV_SHAPE):
         torch, n_l, run_kernel,
         lambda i: ops.wkv(*ins[i], u, chunk=L, s0=s0),
         lambda i: ref.wkv_chunked_ref(*ins[i], u, L, s0))
-    n = B * T * H * hd
-    bytes_moved = (3 * n * 2 + n * 4 + H * hd * 4  # r/k/v bf16, lw, u
-                   + 2 * B * H * hd * hd * 4 + n * 2)  # s0, s; y bf16
-    ops_count = B * T * H * (7 * L * hd + 4 * hd * hd)
+    ops_count, bytes_moved = kernel_cost.wkv(r[0], L, has_s0=True)
     bms, by = bound_ms(bytes_moved, ops_count, H100_BF16_FLOPS)
     del r, k, v, lw, y, s, ins, outs
     torch.cuda.empty_cache()
@@ -1303,11 +1332,7 @@ def ssd_timing(torch, ops, ref, kernel, gen, shape):
     times = scan_times(torch, n_l, run_kernel,
                        lambda i: ops.ssd(*ins[i], chunk=L),
                        lambda i: ref.ssd_chunked_ref(*ins[i], L))
-    bytes_moved = (2 * B * T * H * P * 2  # x in, y out (bf16)
-                   + B * T * H * 4 + H * 4  # dt, A
-                   + 2 * B * T * N * 2  # B, C (bf16)
-                   + B * H * N * P * 4)  # final state
-    ops_count = 2 * B * T * H * (L * N + L * P + 2 * N * P)
+    ops_count, bytes_moved = kernel_cost.ssd(x[0], Bm[0], L, has_h0=False)
     bms, by = bound_ms(bytes_moved, ops_count, H100_BF16_FLOPS)
     del x, dt, Bm, Cm, y, h, ins, outs
     torch.cuda.empty_cache()
@@ -1760,9 +1785,7 @@ def flash_times(torch, fa_kernel, fa_ref, q, k, v, out, lse):
     graph = graph_ms(torch, run_kernel, 20)
     library_graph = graph_ms(torch, run_library, 20)
     kernel_ms_2 = cuda_ms(run_kernel, 20)
-    bytes_moved = ((2 * B * S * Hq * D + 2 * B * S * Hkv * D)
-                   * q.element_size() + B * Hq * S * 4)  # q, k, v, out; lse
-    flops = 4 * B * Hq * D * S * (S + 1) // 2  # causal q.k and p.v
+    flops, bytes_moved = kernel_cost.flash_attention(q, k, v)
     bms, by = bound_ms(bytes_moved, flops, H100_BF16_FLOPS)
     return {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
             "dtype": str(q.dtype).split(".")[-1], "kernel_ms": kernel_ms,
@@ -1933,10 +1956,7 @@ def train_main_path():
 
     cfg = configs.get_config(MAIN_PATH_ARCH)
     api = get_model(cfg)
-    tcfg = train.TrainConfig(
-        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-        optimizer=optim.OptimizerConfig(lr=3e-4, warmup_steps=1,
-                                        decay_steps=100))
+    tcfg = train_tcfg(TRAIN_SEQ)
     pipe = data.DataPipeline(data.DataConfig(
         vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH),
         device=DEVICE)
@@ -1951,6 +1971,7 @@ def phase_train_main_path(torch, optim):
     t_up = time.perf_counter()
     cfg, _, _, pipe, state, step = train_main_path()
     n_params = sum(p.numel() for p in optim.tree_leaves(state["params"]))
+    state_bytes = tree_bytes(state)  # parameters and AdamW
     watch = [state["params"]["blocks"][0]["attn"]["q"]["w"],
              state["params"]["blocks"][-1]["mlp"]["down"]["w"],
              state["params"]["unembed"]["w"]]
@@ -1989,7 +2010,8 @@ def phase_train_main_path(torch, optim):
             "step_median_s": median,
             "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / median,
             "losses": losses, "grad_norms": norms, "launches": launches,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "state_bytes": state_bytes}
 
 
 # ---------------------------------------------------------------------------
@@ -2844,10 +2866,7 @@ def phase_state_train_full(torch, configs, get_model, optim, train, data,
     t_up = time.perf_counter()
     cfg = configs.get_config(arch)
     api = get_model(cfg)
-    tcfg = train.TrainConfig(
-        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-        optimizer=optim.OptimizerConfig(lr=3e-4, warmup_steps=1,
-                                        decay_steps=100))
+    tcfg = train_tcfg(TRAIN_SEQ)
     pipe = data.DataPipeline(data.DataConfig(
         vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH),
         device=DEVICE)
@@ -2855,6 +2874,7 @@ def phase_state_train_full(torch, configs, get_model, optim, train, data,
                              api, cfg, tcfg.optimizer, device=DEVICE)
     step = train.make_train_step(api, cfg, tcfg)
     n_params = sum(p.numel() for p in optim.tree_leaves(state["params"]))
+    state_bytes = tree_bytes(state)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_up
     torch.cuda.reset_peak_memory_stats()
@@ -2915,7 +2935,7 @@ def phase_state_train_full(torch, configs, get_model, optim, train, data,
             "step_median_s": median,
             "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / median,
             "losses": losses, "grad_norms": norms, "launches": launches,
-            "peak_mem_gb": peak,
+            "peak_mem_gb": peak, "state_bytes": state_bytes,
             "profiled_step": {
                 "seconds": window, "span": span,
                 "span_calls": max(e.count for e in rec),
@@ -3321,15 +3341,13 @@ def phase_encdec_vlm_train(torch, configs, get_model, optim, train,
         t_up = time.perf_counter()
         cfg = configs.get_config(arch)
         api = get_model(cfg)
-        tcfg = train.TrainConfig(
-            global_batch=TRAIN_BATCH, seq_len=seq,
-            optimizer=optim.OptimizerConfig(lr=3e-4, warmup_steps=1,
-                                            decay_steps=100))
+        tcfg = train_tcfg(seq)
         state = train.init_state(
             torch.Generator(device=DEVICE).manual_seed(0), api, cfg,
             tcfg.optimizer, device=DEVICE)
         step = train.make_train_step(api, cfg, tcfg)
         n_params = sum(p.numel() for p in optim.tree_leaves(state["params"]))
+        state_bytes = tree_bytes(state)
         gen = torch.Generator(device=DEVICE).manual_seed(29)
         batches = [make_batch(cfg, TRAIN_BATCH, seq, gen, device=DEVICE,
                               frontend_len=front)
@@ -3363,7 +3381,8 @@ def phase_encdec_vlm_train(torch, configs, get_model, optim, train,
             "seq": seq, "frontend": front, "setup_seconds": setup_s,
             "step_seconds": times, "step_median_s": median,
             "tok_per_s": TRAIN_BATCH * seq / median, "losses": losses,
-            "grad_norms": norms, "launches": launches, "peak_mem_gb": peak})
+            "grad_norms": norms, "launches": launches, "peak_mem_gb": peak,
+            "state_bytes": state_bytes})
         del state, step, batches
         gc.collect()
         torch.cuda.empty_cache()
@@ -3656,6 +3675,248 @@ def phase_ci_smokes(out_dir):
     return results
 
 
+# ---------------------------------------------------------------------------
+# The launch tooling against the card (phases 33-34)
+# ---------------------------------------------------------------------------
+
+# the training steps that phases 16, 25 and 29 time, (arch, seq) at batch
+# TRAIN_BATCH (internvl2-1b's 256 patches and whisper-small's 1500 frames
+# are the configs' and the dry-run's own)
+DRYRUN_STEPS = (("llama3.2-3b", TRAIN_SEQ), ("rwkv6-1.6b", TRAIN_SEQ),
+                ("zamba2-2.7b", TRAIN_SEQ), ("internvl2-1b", TRAIN_SEQ),
+                ("whisper-small", WHISPER_TEXT_CTX))
+DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun_chip.json")
+
+
+def tree_bytes(state):
+    """Bytes of the card's storages of a train state (the optimizer's step
+    counter lies on the CPU), as the dry-run's ``specs.tree_bytes``."""
+    from repro_torch.launch import specs
+
+    return specs.tree_bytes(state, DEVICE)
+
+
+def train_tcfg(seq):
+    """The train config of phases 16, 25, 29 and 33 at ``seq``."""
+    from repro_torch.training import optim, train
+
+    return train.TrainConfig(
+        global_batch=TRAIN_BATCH, seq_len=seq,
+        optimizer=optim.OptimizerConfig(lr=3e-4, warmup_steps=1,
+                                        decay_steps=100))
+
+
+def loss_and_grads(api, cfg, params, batch):
+    """The loss (detached) and every parameter's gradient."""
+    import torch
+    from repro_torch.training import optim
+
+    loss, _ = api.loss(params, batch, cfg)
+    return loss.detach(), torch.autograd.grad(loss,
+                                              optim.tree_leaves(params))
+
+
+def dryrun_worker(path):
+    """Phases 33-34's counting on ``meta``, in a process of its own (main()
+    starts it after the build with the card hidden, so it runs on the CPU
+    beside the card's phases): llama3.2-3b's four ``SHAPES`` cells through
+    ``dryrun.run_cell``; each training step that phases 16, 25 and 29 time,
+    at their shapes; and llama3.2-3b's loss and gradient at TRAIN_BATCH x
+    TRAIN_SEQ under remat none, full and dots (phase 34) -> JSON at
+    ``path``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import cost, dryrun, specs
+    from repro_torch.models import get_model
+
+    torch.set_num_threads(1)
+    t_all = time.perf_counter()
+    out = {"cells": [], "steps": {}, "remat": {}}
+    for shape in specs.SHAPES:
+        t0 = time.perf_counter()
+        try:
+            rec = dryrun.run_cell(MAIN_PATH_ARCH, shape)
+        except Exception as e:  # noqa: BLE001 — phase 33 reports it
+            rec = {"arch": MAIN_PATH_ARCH, "shape": shape, "status": "error",
+                   "error": f"{type(e).__name__}: {e}"}
+        rec["seconds"] = time.perf_counter() - t0
+        out["cells"].append(rec)
+    for arch, seq in DRYRUN_STEPS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        fn, args = dryrun.build_train(get_model(cfg), cfg, train_tcfg(seq))
+        counted = cost.analyze(fn, *args)
+        out["steps"][arch] = {
+            "seq": seq, "memory": dryrun.memory_summary(args, counted),
+            "roofline": dryrun.roofline_from(
+                counted, cfg, tokens=TRAIN_BATCH * seq, kind="train",
+                seq=seq),
+            "kernels": counted["kernels"],
+            "seconds": time.perf_counter() - t0}
+    for remat in ("none", "full", "dots"):
+        cfg = get_config(MAIN_PATH_ARCH, remat=remat)
+        api = get_model(cfg)
+        counter = cost.run(
+            lambda p, b: loss_and_grads(api, cfg, p, b),
+            specs.abstract_params(api, cfg),
+            specs.train_batch_specs(cfg, TRAIN_BATCH, TRAIN_SEQ))[1]
+        out["remat"][remat] = {
+            "flops": counter.flops, "bytes": counter.bytes,
+            "mm_flops": sum(counter.by_op[op][1]
+                            for op in ("aten.mm", "aten.addmm")),
+            "peak_bytes": counter.peak,
+            "flash_calls": counter.kernels["flash_attention"][0]}
+    out["seconds"] = time.perf_counter() - t_all
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def start_dryrun_worker():
+    """``chip_smoke.py --dryrun-worker`` as a child process at low priority,
+    CUDA hidden; killed at exit if it is still running."""
+    os.makedirs(os.path.dirname(DRYRUN_OUT), exist_ok=True)
+    if os.path.exists(DRYRUN_OUT):
+        os.remove(DRYRUN_OUT)
+    log = open(DRYRUN_OUT + ".log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dryrun-worker",
+         DRYRUN_OUT], stdout=log, stderr=subprocess.STDOUT,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+        preexec_fn=lambda: os.nice(10))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def phase_dryrun(torch, worker, measured):
+    """Phase 33: the dry-run's records (the worker's) against the card.
+    llama3.2-3b's four cells: ok, long_500k skipped, whether each fits
+    this card.  Each training step of ``measured`` (arch -> its phase's
+    record): the bound max(t_compute, t_memory) at most the fastest warm
+    step, its share (bound / measured) and model-FLOP share (6 N D /
+    (measured x peak)); the parameters' and AdamW state's bytes equal to
+    what the card holds for them; the estimated peak beside the card's."""
+    code = worker.wait(timeout=900)
+    with open(DRYRUN_OUT + ".log") as f:
+        tail = f.read()[-2000:]
+    check(code == 0, f"dry-run worker exited {code}: {tail}")
+    with open(DRYRUN_OUT) as f:
+        data = json.load(f)
+    cap = torch.cuda.mem_get_info()[1]
+    cells = []
+    for rec in data["cells"]:
+        want = "skipped" if rec["shape"] == "long_500k" else "ok"
+        check(rec["status"] == want, f"dry-run {MAIN_PATH_ARCH} x "
+                                     f"{rec['shape']}: {rec}")
+        row = {"shape": rec["shape"], "status": rec["status"],
+               "seconds": rec["seconds"]}
+        if want == "ok":
+            rl, mem = rec["roofline"], rec["memory"]
+            row.update({k: rl[k] for k in (
+                "t_compute_s", "t_memory_s", "bottleneck",
+                "flops_per_device", "bytes_per_device",
+                "useful_flops_ratio")},
+                argument_bytes=mem["argument_size_in_bytes"],
+                est_live_bytes=mem["est_live_bytes"],
+                fits_card=mem["est_live_bytes"] <= cap,
+                kernels=rec["kernels"])
+        cells.append(row)
+    steps = []
+    for arch, seq in DRYRUN_STEPS:
+        d, m = data["steps"][arch], measured[arch]
+        rl, mem = d["roofline"], d["memory"]
+        warm = min(m["step_seconds"][1:])
+        bound = max(rl["t_compute_s"], rl["t_memory_s"])
+        check(bound <= warm, f"{arch} step: dry-run bound {bound} s > the "
+                             f"measured {warm} s (work counted twice?)")
+        state = mem["params_bytes"] + mem["opt_bytes"]
+        check(state == m["state_bytes"],
+              f"{arch}: dry-run parameters + AdamW state {state} B != "
+              f"{m['state_bytes']} B on the card")
+        steps.append({
+            "config": arch, "batch": TRAIN_BATCH, "seq": seq,
+            "measured_s": warm, "median_s": m["step_median_s"],
+            "bound_s": bound, "bound_by": rl["bottleneck"],
+            "t_compute_s": rl["t_compute_s"], "t_memory_s": rl["t_memory_s"],
+            "share": bound / warm,
+            "model_flops": rl["model_flops_total"],
+            "model_flop_share": rl["model_flops_total"]
+            / (warm * H100_BF16_FLOPS),
+            "flops": rl["flops_per_device"], "bytes": rl["bytes_per_device"],
+            "state_bytes": state, "est_live_gb": mem["est_live_bytes"] / 1e9,
+            "peak_mem_gb": m["peak_mem_gb"], "kernels": d["kernels"],
+            "count_seconds": d["seconds"]})
+    return {"cells": cells, "steps": steps, "device_bytes": cap,
+            "worker_seconds": data["seconds"]}, data["remat"]
+
+
+def phase_remat_dots(torch, configs, get_model, make_batch, optim, counts):
+    """Phase 34: llama3.2-3b at full width (bf16), one loss-and-gradient
+    step at TRAIN_BATCH x TRAIN_SEQ on the same weights and batch under
+    remat "full" and "dots": the losses equal, every gradient leaf within
+    BF16_GRAD_TOL, the flash kernel launched twice a layer under both (its
+    forward is recomputed, not saved); each one's time (warm) and peak
+    memory above what was allocated before it.  Then the worker's counts
+    (``counts``, on meta): dots below full by exactly full's recomputed
+    mm FLOPs, and dots's mm FLOPs those of remat none (no mm recomputed)."""
+    cfg = configs.get_config(MAIN_PATH_ARCH)
+    api = get_model(cfg)
+    params = api.init(torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                      device=DEVICE)
+    for p in optim.tree_leaves(params):
+        p.requires_grad_(True)
+    batch = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                       torch.Generator(device=DEVICE).manual_seed(34),
+                       device=DEVICE)
+    runs, rec = {}, {"config": cfg.name, "batch": TRAIN_BATCH,
+                     "seq": TRAIN_SEQ, "dtype": cfg.compute_dtype}
+    for remat in ("full", "dots"):
+        c = cfg.scaled(remat=remat)
+        loss_and_grads(api, c, params, batch)  # warm
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        runs[remat] = loss_and_grads(api, c, params, batch)
+        torch.cuda.synchronize()
+        rec[remat] = {
+            "seconds": time.perf_counter() - t0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "step_peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "launches": check_launches(
+                f"remat {remat}",
+                flash_attention=2 * cfg.n_layers)["flash_attention"],
+            "loss": float(runs[remat][0])}
+    check(torch.equal(runs["full"][0], runs["dots"][0]),
+          f"remat dots loss {rec['dots']['loss']} != full "
+          f"{rec['full']['loss']}")
+    worst = 0.0
+    for g_dots, g_full in zip(runs["dots"][1], runs["full"][1]):
+        err, ok = within(g_dots, g_full, (BF16_GRAD_TOL, BF16_GRAD_TOL))
+        worst = max(worst, err)
+        check(ok, f"remat dots gradient error {err}")
+    rec["max_grad_err"] = worst
+    none, full, dots = (counts[k] for k in ("none", "full", "dots"))
+    check(dots["flops"] < full["flops"],
+          f"counted FLOPs: dots {dots['flops']} not below full "
+          f"{full['flops']}")
+    check(full["flops"] - dots["flops"] == full["mm_flops"] - none["mm_flops"]
+          and dots["mm_flops"] == none["mm_flops"],
+          f"counted FLOPs: full - dots = {full['flops'] - dots['flops']}, "
+          f"full's recomputed mm {full['mm_flops'] - none['mm_flops']}, "
+          f"dots's mm {dots['mm_flops']} vs none's {none['mm_flops']}")
+    check(full["flash_calls"] == dots["flash_calls"]
+          == 2 * none["flash_calls"],
+          f"counted flash calls {[c['flash_calls'] for c in counts.values()]}")
+    rec["counted"] = counts
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     import torch
 
@@ -3726,6 +3987,8 @@ def main():
               for name, log in build.build_log.items()},
           "flash_sass": flash_sass, "wkv_sass": wkv_sass,
           "ssd_sass": ssd_sass})
+    # phases 33-34's counting on meta: a CPU process beside the card's
+    worker = start_dryrun_worker()
 
     # 2. paged decode kernel vs plain
     cases, edges, timing, worst = phase_kernel(torch, ops, ref, kernel)
@@ -3917,13 +4180,23 @@ def main():
     emit({"phase": "ci_smokes", "smokes": phase_ci_smokes(
         os.path.join(ROOT, "build", "ci_smokes"))})
 
+    # 33. the dry-run's bounds against the training steps the card timed
+    whisper_train, internvl_train = encdec_vlm_train
+    dry, remat_counts = phase_dryrun(torch, worker, {
+        MAIN_PATH_ARCH: train_path, **state_train,
+        "whisper-small": whisper_train, "internvl2-1b": internvl_train})
+    emit({"phase": "dryrun", **dry})
+
+    # 34. remat "dots" against "full" at llama3.2-3b's full width
+    emit({"phase": "remat_dots", **phase_remat_dots(
+        torch, configs, get_model, make_batch, optim, remat_counts)})
+
     decode_src = ("src/repro_torch/kernels/decode_attention/csrc/"
                   "decode_attention.cu")
     rwkv, zamba = (state_paths[arch] for arch in STATE_ARCHS)
 
     rwkv_train, zamba_train = (state_train[a] for a in STATE_TRAIN_ARCHS)
     whisper, internvl = (encdec_vlm_paths[a] for a in ENCDEC_VLM_ARCHS)
-    whisper_train, internvl_train = encdec_vlm_train
     agents = workflows["agents"]["launches"]
     by_path = {  # launches on each path this script drives at full width
         "paged_decode_attention": {
@@ -3992,4 +4265,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-worker"]:
+        sys.exit(dryrun_worker(sys.argv[2]))
     sys.exit(main())

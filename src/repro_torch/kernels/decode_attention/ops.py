@@ -11,7 +11,10 @@ through block tables (replacing the TPU kernel
 the kernel or raises; a CPU tensor runs ``ref.paged_decode_ref`` /
 ``ref.decode_ref``.  There is no fallback from one to the other.
 ``launches`` and ``contiguous_launches`` count kernel launches, so a run
-can show that its decode went through the kernel.
+can show that its decode went through the kernel.  A ``meta`` tensor
+launches nothing: the wrapper returns an empty output and charges the
+kernel's work over every cached position (``kernels/cost.py``) to the
+active cost counter.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import threading
 
 import torch
 
+from .. import cost
 from . import ref
 from .kernel import decode_attention_grouped, paged_decode_attention_grouped
 
@@ -109,6 +113,10 @@ def paged_decode_attention(q, k_store, v_store, block_tables, kv_length):
     if block_tables.dtype != torch.int32:
         raise TypeError(f"block_tables must be int32, got "
                         f"{block_tables.dtype}")
+    if q.device.type == "meta":
+        cost.charge("paged_decode_attention",
+                    *cost.paged_decode_attention(q, k_store, block_tables))
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         qg = q.reshape(B, k_store.shape[2], Hq // k_store.shape[2], D)
         out = ref.paged_decode_ref(qg, k_store, v_store, block_tables,
@@ -135,6 +143,9 @@ def decode_attention(q, k_cache, v_cache, kv_length):
     if k_cache.shape[0] != B:
         raise ValueError(f"caches must be [{B}, S, Hkv, D], got "
                          f"{tuple(k_cache.shape)}")
+    if q.device.type == "meta":
+        cost.charge("decode_attention", *cost.decode_attention(q, k_cache))
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         qg = q.reshape(B, k_cache.shape[2], Hq // k_cache.shape[2], D)
         return ref.decode_ref(qg, k_cache, v_cache,

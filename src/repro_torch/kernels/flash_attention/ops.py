@@ -10,6 +10,9 @@ PyTorch ops on both: the TPU kernel has no backward, and the JAX step
 takes its gradient from the jnp attention, outside any kernel.
 ``launches`` counts kernel launches, so a run can show that its forward
 went through the kernel (a block recomputed under remat launches again).
+On a ``meta`` tensor the forward launches nothing: it returns empty
+outputs of the kernel's shapes and charges the kernel's work
+(``kernels/cost.py``) to the active cost counter.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import threading
 
 import torch
 
+from .. import cost
 from . import ref
 from .kernel import flash_attention_fwd
 
@@ -90,6 +94,11 @@ class FlashAttention(torch.autograd.Function):
             out, lse = ref.attention_fwd_ref(q, k, v)
         elif q.device.type == "cuda":
             out, lse = _launch(q, k, v)
+        elif q.device.type == "meta":
+            out = torch.empty_like(q, memory_format=torch.contiguous_format)
+            lse = torch.empty(q.shape[0], q.shape[2], q.shape[1],
+                              dtype=torch.float32, device=q.device)
+            cost.charge("flash_attention", *cost.flash_attention(q, k, v))
         else:
             raise ValueError(f"no flash_attention for device {q.device}")
         ctx.save_for_backward(q, k, v, out, lse)

@@ -10,7 +10,9 @@ There is no fallback from one to the other.  Its backward recomputes
 TPU kernel has no backward, and the JAX package takes the gradient through
 its jnp ``ssd_chunked``.  ``launches`` counts kernel launches, so a run can
 show that its prefill or training forward went through the kernel (a block
-recomputed under remat launches again).
+recomputed under remat launches again).  A ``meta`` tensor launches
+nothing: the forward returns empty outputs of the kernel's shapes and
+charges its work (``kernels/cost.py``) to the active cost counter.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import threading
 
 import torch
 
+from .. import cost
 from ..recompute import recompute_grads
 from . import ref
 from .kernel import MAX_CHUNK, check_bf16_shape, ssd_forward
@@ -86,6 +89,11 @@ def _forward(x, dt, A, Bm, Cm, h0, chunk):
     global launches
     if x.device.type == "cpu":
         return ref.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk, h0)
+    if x.device.type == "meta":
+        B, _, H, P = x.shape
+        cost.charge("ssd", *cost.ssd(x, Bm, chunk, h0 is not None))
+        return torch.empty_like(x), torch.empty(
+            (B, H, Bm.shape[-1], P), dtype=torch.float32, device=x.device)
     y, h = _launch(x, dt, A, Bm, Cm, h0, chunk)
     with _count_lock:
         launches += 1

@@ -10,7 +10,9 @@ There is no fallback from one to the other.  Its backward recomputes
 TPU kernel has no backward, and the JAX package takes the gradient through
 its jnp ``wkv_chunked``.  ``launches`` counts kernel launches, so a run can
 show that its prefill or training forward went through the kernel (a block
-recomputed under remat launches again).
+recomputed under remat launches again).  A ``meta`` tensor launches
+nothing: the forward returns empty outputs of the kernel's shapes and
+charges its work (``kernels/cost.py``) to the active cost counter.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from .. import cost
 from ..recompute import recompute_grads
 from . import ref
 from .kernel import check_bf16_shape, check_f32_shape, wkv6_forward
@@ -81,6 +84,11 @@ def _forward(r, k, v, lw, u, s0, chunk):
     global launches
     if r.device.type == "cpu":
         return ref.wkv_chunked_ref(r, k, v, lw, u, chunk, s0)
+    if r.device.type == "meta":
+        B, _, H, hd = r.shape
+        cost.charge("wkv6", *cost.wkv(r, chunk, s0 is not None))
+        return torch.empty_like(r), torch.empty(
+            (B, H, hd, hd), dtype=torch.float32, device=r.device)
     y, s = _launch(r, k, v, lw, u, s0, chunk)
     with _count_lock:
         launches += 1

@@ -6,7 +6,10 @@ with: the full-sequence training forward (``attention_apply``, causal
 through the flash-attention kernel; the encoder's non-causal and the
 decoder's cross attention in PyTorch ops), prefill, chunked extend,
 contiguous decode (through the contiguous flash-decode kernel) and paged
-decode.  Scores
+decode.  Prefill picks its algorithm as the reference's ``_pick_impl``
+does: above 2048 positions the block-wise ``chunked_causal_attention``,
+whose live memory is one query block's scores, else ``full_attention``.
+Scores
 are float32 and masked with ``NEG_INF = -1e30`` (never ``-inf``; the
 kernels skip masked positions, which adds the same zeros): masked columns
 then underflow to exact zeros in the softmax, which keeps chunked extend
@@ -133,6 +136,49 @@ def full_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
+def chunked_causal_attention(q, k, v, *, block_q: int, block_k: int):
+    """Block-wise causal attention: a Python loop over query blocks.
+
+    Query block i attends only to keys [0, (i+1)*block_q), so the FLOPs
+    are those of causal attention (half of dense) and the live memory is
+    one block's float32 scores [B, Hq, block_q, (i+1)*block_q].  The
+    diagonal block alone is masked (``NEG_INF``); the probabilities are
+    cast to v's dtype, as the reference's.  ``block_k`` is the
+    reference's argument, unused there too."""
+    B, S, Hq, D = q.shape
+    if S % block_q != 0:
+        raise ValueError(f"seq {S} not divisible by block_q {block_q}")
+    k = _repeat_kv(k, Hq)
+    v = _repeat_kv(v, Hq)
+    scale = 1.0 / math.sqrt(D)
+    outs = []
+    for i in range(S // block_q):
+        kv_len = (i + 1) * block_q
+        logits = torch.einsum(
+            "bqhd,bkhd->bhqk", q[:, i * block_q:kv_len].float(),
+            k[:, :kv_len].float()) * scale
+        qpos = i * block_q + torch.arange(block_q, device=q.device)
+        kpos = torch.arange(kv_len, device=q.device)
+        mask = qpos[:, None] >= kpos[None, :]
+        logits = torch.where(mask[None, None], logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype),
+                                 v[:, :kv_len]))
+    return torch.cat(outs, dim=1)
+
+
+def _pick_impl(cfg: ModelConfig, seq: int) -> str:
+    """The reference's choice of attention algorithm for ``seq``
+    positions: ``cfg.attention_impl`` unless it is "auto"; then "pallas"
+    with ``use_pallas``, else "chunked" above 2048 positions, "full" up to
+    them."""
+    if cfg.attention_impl != "auto":
+        return cfg.attention_impl
+    if cfg.use_pallas:
+        return "pallas"
+    return "chunked" if seq > 2048 else "full"
+
+
 # ---------------------------------------------------------------------------
 # Training forward
 # ---------------------------------------------------------------------------
@@ -172,13 +218,20 @@ def attention_apply(p, x, cfg: ModelConfig, *, causal=True, positions=None,
 
 
 def attention_prefill(p, x, cfg: ModelConfig, *, positions=None):
-    """Prefill: forward + return (output, (k_cache_entries, v_cache_entries))."""
+    """Prefill: forward + return (output, (k_cache_entries, v_cache_entries)).
+    The algorithm is the reference's: ``chunked_causal_attention`` where
+    ``_pick_impl`` says "chunked" and the blocks divide S, else
+    ``full_attention``."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, x, cfg, positions, positions,
                            rope=cfg.positions == "rope")
-    out = full_attention(q, k, v, causal=True)
+    if _pick_impl(cfg, S) == "chunked" and S % cfg.attn_chunk_q == 0:
+        out = chunked_causal_attention(q, k, v, block_q=cfg.attn_chunk_q,
+                                       block_k=cfg.attn_chunk_k)
+    else:
+        out = full_attention(q, k, v, causal=True)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return nn.linear_apply(p["o"], out, cfg.cdtype), (k, v)
 

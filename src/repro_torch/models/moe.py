@@ -12,7 +12,7 @@ kernel, so they are ``torch.bmm`` here.
 
 Shared experts (deepseek: 2) are a dense MLP with ``ff = n_shared * d_ff``.
 The expert-parallel branch of the reference (``shard_map`` over a mesh)
-needs more than one device and is not ported (ROADMAP Queue 1 item 13).
+needs more than one device and is not ported (ROADMAP Queue 1 item 15).
 
 Where a line-by-line translation would depart from the reference:
 

@@ -12,7 +12,8 @@ returns the router's aux loss, which the forward sums.  A decoder block of
 an encoder-decoder also carries ``ln_cross``/``cross``: attention from
 the text to the encoder's output.  ``cfg.remat == "full"`` wraps each
 block in ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``),
-so the backward runs each block's forward again.
+so the backward runs each block's forward again; ``"dots"`` keeps the
+linears' outputs and reruns the rest (``remat_wrap``).
 
 Positions: rope inside attention, or a learned table ``pos_embed`` added
 to the embeddings (read at the cache length while decoding), or the
@@ -39,7 +40,8 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention import ops as da_ops
@@ -238,16 +240,31 @@ def lm_init(gen, cfg: ModelConfig, *, device=None):
 # ---------------------------------------------------------------------------
 
 
+# the matrix products with no batch dimension: the linears and the
+# unembedding (what ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_
+# dims`` saves; ``bmm`` -- the attention einsums, the MoE experts -- is not)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def remat_wrap(fn, cfg: ModelConfig):
     """``fn`` as it is (``remat="none"``), or under
-    ``torch.utils.checkpoint`` (``"full"``: the backward runs its forward
-    again), as the reference's ``remat_wrap``."""
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported yet: ROADMAP Queue 1 item 13 "
-            f"(launch tooling)")
+    ``torch.utils.checkpoint``, as the reference's ``remat_wrap``:
+    ``"dots"`` saves the outputs of ``mm``/``addmm`` and recomputes the
+    rest in the backward (the hand-written kernels' forwards too); any
+    other value (``"full"``) saves only the block's inputs and runs its
+    forward again."""
     if cfg.remat == "none":
         return fn
+    if cfg.remat == "dots":
+        return lambda *args: checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(
+                _save_dots))
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 

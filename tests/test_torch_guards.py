@@ -51,6 +51,7 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 LAUNCHERS = {"serve": "repro_torch.launch.serve",
              "train": "repro_torch.launch.train",
+             "dryrun": "repro_torch.launch.dryrun",
              "benchmarks": "benchmarks_torch.run"}
 
 

@@ -2,7 +2,8 @@
 the weight bridge, then ``prefill`` / ``extend_step`` / ``decode_step`` /
 ``paged_decode_step`` logits at atol = rtol = 1e-4 in float32 (matmul sums
 taken in another order) with identical greedy tokens, on the rhapsody-demo
-and llama3.2-3b smoke configs.  Inputs are made with numpy from a seed."""
+and llama3.2-3b smoke configs; a 4096-token prefill on the chunked path
+that the reference takes above 2048 positions.  Inputs are made with numpy from a seed."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -113,6 +114,50 @@ def test_prefill_decode_extend_match_reference(lm):
                                np.asarray(jc["scan"]["k"]), rtol=TOL,
                                atol=TOL)
     assert tc["len"].tolist() == np.asarray(jc["scan"]["len"][0]).tolist()
+
+
+def test_long_prefill_takes_the_chunked_path():
+    """Above 2048 positions the reference's ``_pick_impl`` prefills with
+    block-wise chunked attention: at S 4096 the port's prefill equals the
+    reference's (logits and cache), ``attention_impl="full"`` and
+    ``"chunked"`` are honored and agree, and on meta the largest score
+    tensor of the default path is one query block's [B, H, block_q,
+    kv_len], never the whole [B, H, S, S]."""
+    from repro_torch.launch import cost, specs
+
+    cfg, api, params, tcfg, tp = build(arch="llama3.2-3b")
+    tapi = get_model(tcfg)
+    S, bq = 4096, tcfg.attn_chunk_q
+    toks = np.random.RandomState(6).randint(0, cfg.vocab, size=(1, S))
+    toks = toks.astype(np.int32)
+    jc, jl = jax.jit(lambda p, t: api.prefill(p, {"tokens": t}, cfg,
+                                               max_len=S))(
+        params, jnp.asarray(toks))
+    outs = {}
+    for impl in ("auto", "full", "chunked"):
+        c = tcfg.scaled(attention_impl=impl)
+        with torch.no_grad():
+            outs[impl] = tapi.prefill(tp, {"tokens": _t(toks)}, c, max_len=S)
+    tc, tl = outs["auto"]
+    _close(jl, tl)
+    np.testing.assert_allclose(tc["k"].numpy(), np.asarray(jc["scan"]["k"]),
+                               rtol=TOL, atol=TOL)
+    _close(outs["full"][1].numpy(), outs["chunked"][1])
+
+    def largest(impl):
+        c = tcfg.scaled(attention_impl=impl)
+        b = specs.prefill_batch_specs(c, 1, S)
+        with torch.no_grad():
+            counter = cost.run(lambda p, b: tapi.prefill(p, b, c, max_len=S),
+                               specs.abstract_params(tapi, c), b)[1]
+        return counter.largest
+
+    H = tcfg.n_heads  # the einsum's bmm folds B and H: [B*H, q, k]
+    for impl in ("auto", "chunked"):
+        nbytes, shape, dtype, _ = largest(impl)
+        assert (nbytes, shape[-2:], dtype) == (
+            H * bq * S * 4, (bq, S), "torch.float32"), shape
+    assert largest("full")[:2] == (H * S * S * 4, (H, S, S))
 
 
 def _paged_inputs(cfg, seed):

@@ -123,7 +123,8 @@ def _good():
     "non_contiguous", "mixed_device", "meta_device"])
 def test_wrapper_rejects_bad_inputs(bad):
     """The wrapper checks shapes, dtypes, contiguity and devices before it
-    computes anything, on either path."""
+    computes anything, on either path; on ``meta`` tensors (the dry-run)
+    it returns an empty output and launches nothing."""
     q, ks, vs, bt, lens = _good()
     err = ValueError
     if bad == "q_rank":
@@ -149,13 +150,19 @@ def test_wrapper_rejects_bad_inputs(bad):
         vs = ks
     elif bad == "mixed_device":
         q = torch.empty(q.shape, device="meta")
-    elif bad == "meta_device":
+    elif bad == "meta_device":  # accepted: shapes only, for the dry-run
         q, ks, vs, bt, lens = (torch.empty(t.shape, dtype=t.dtype,
                                            device="meta")
                                for t in (q, ks, vs, bt, lens))
+        err = None
     before = ops.launches
-    with pytest.raises(err):
-        ops.paged_decode_attention(q, ks, vs, bt, lens)
+    if err is None:
+        out = ops.paged_decode_attention(q, ks, vs, bt, lens)
+        assert (out.device.type, out.shape, out.dtype) == (
+            "meta", q.shape, q.dtype)
+    else:
+        with pytest.raises(err):
+            ops.paged_decode_attention(q, ks, vs, bt, lens)
     assert ops.launches == before
 
 

@@ -158,13 +158,19 @@ def test_ssd_wrapper_rejects_bad_inputs(bad):
         Bm, err = Bm.double(), TypeError
     elif bad == "h0_shape":
         h0 = h0[:, :1]
-    elif bad == "meta_device":
+    elif bad == "meta_device":  # accepted: shapes only, for the dry-run
         x, dt, A, Bm, Cm, h0 = (torch.empty(t.shape, dtype=t.dtype,
                                             device="meta")
                                 for t in (x, dt, A, Bm, Cm, h0))
+        err = None
     before = ssd_ops.launches
-    with pytest.raises(err):
-        ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=8, h0=h0)
+    if err is None:
+        y, h = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=8, h0=h0)
+        assert (y.device.type, y.shape, h.shape, h.dtype) == (
+            "meta", x.shape, h0.shape, torch.float32)
+    else:
+        with pytest.raises(err):
+            ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=8, h0=h0)
     assert ssd_ops.launches == before
 
 

@@ -6,7 +6,9 @@ per-layer ones; atol = rtol = 1e-4, the dense path's limit); 1 and 3
 ``make_train_step`` steps, plain and with 8-bit moments, with 1 and 4
 microbatches, at the dense path's step tolerances (with 8-bit moments,
 steps 2 and 3 start from the reference's state, as
-``tests/test_torch_training.py`` explains); remat full equal to none; the
+``tests/test_torch_training.py`` explains); remat full and dots equal to
+none, and dots against the reference's dots (the loss 1e-5 relative, the
+leaves 1e-4); the
 ``wkv`` and ``ssd`` autograd Functions' gradients equal to autograd
 straight through their plain versions; AdamW's decay of a hybrid's
 stacked 1-D leaves; and the trainer launcher on the CPU.  Inputs are made
@@ -21,6 +23,7 @@ torch = pytest.importorskip("torch")
 from _torch_parity import (assert_tree_close as _assert_tree_close,  # noqa: E402,E501
                            build, fresh as _fresh, per_layer as _per_layer,
                            to_jax as _jax, to_torch as _torch)
+from repro.models import get_model as jax_get_model  # noqa: E402
 from repro.training import optim as joptim  # noqa: E402
 from repro.training import train as jtrain  # noqa: E402
 from repro_torch.kernels.mamba2 import ops as ssd_ops  # noqa: E402
@@ -174,8 +177,31 @@ def test_remat_full_equals_none(lm):
     for a, b in zip(out["full"][1], out["none"][1]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
     dots = ModelConfig(**{**vars(tcfg), "remat": "dots"})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        get_model(dots).loss(tp, batch, dots)
+    p = _fresh(tp)
+    loss, _ = get_model(dots).loss(p, batch, dots)
+    torch.testing.assert_close(loss, out["none"][0], rtol=0, atol=0)
+    for a, b in zip(torch.autograd.grad(loss, toptim.tree_leaves(p)),
+                    out["none"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_remat_dots_matches_reference(lm):
+    """``remat="dots"`` (the linears' outputs saved, the rest recomputed)
+    against the reference's ``checkpoint_dots_with_no_batch_dims``: the
+    loss and every gradient leaf."""
+    cfg, api, params, tcfg, tp = lm
+    jcfg = cfg.scaled(remat="dots")
+    c = ModelConfig(**{**vars(tcfg), "remat": "dots"})
+    batch = _batch(cfg.vocab, 2, 32, seed=3)
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jax_get_model(jcfg).loss(p, _jax(batch), jcfg),
+        has_aux=True))(params)
+    tp = _fresh(tp)
+    tloss, _ = get_model(c).loss(tp, _torch(batch), c)
+    grads = torch.autograd.grad(tloss, toptim.tree_leaves(tp))
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss),
+                               rtol=1e-5)
+    _assert_tree_close(jgrads, toptim.tree_unflatten(tp, grads), TOL, TOL)
 
 
 def _scan_inputs(kind, s0_set, dtype=torch.float32, seed=0):

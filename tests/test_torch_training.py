@@ -11,8 +11,9 @@ the ``m`` code is not, the update is ``m / sqrt(g^2 / 20)``-like and
 amplifies float32 gradient differences by orders of magnitude, so there
 at most 0.1 % of the elements may differ (see ``_assert_q8_close``).
 Then the optimizer's decay rule and schedule, the data pipeline,
-checkpoints, remat and the launcher on the CPU.  Inputs are made with
-numpy from a seed."""
+checkpoints, remat (full and dots equal to none; dots against the
+reference's dots, 1e-4) and the launcher on the CPU.  Inputs are made
+with numpy from a seed."""
 import os
 
 import jax
@@ -302,8 +303,31 @@ def test_remat_full_equals_none(lm):
     for a, b in zip(out["full"][1], out["none"][1]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
     dots = ModelConfig(**{**vars(tcfg), "remat": "dots"})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        get_model(dots).loss(tp, batch, dots)
+    p = _fresh(tp)
+    loss, _ = get_model(dots).loss(p, batch, dots)
+    torch.testing.assert_close(loss, out["none"][0], rtol=0, atol=0)
+    for a, b in zip(torch.autograd.grad(loss, toptim.tree_leaves(p)),
+                    out["none"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_remat_dots_matches_reference(lm):
+    """``remat="dots"`` (the linears' outputs saved, the rest recomputed)
+    against the reference's ``checkpoint_dots_with_no_batch_dims``: the
+    loss and every gradient leaf."""
+    cfg, api, params, tcfg, tp = lm
+    jcfg = cfg.scaled(remat="dots")
+    c = ModelConfig(**{**vars(tcfg), "remat": "dots"})
+    batch = _batch(cfg.vocab, 2, 32, seed=3)
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jax_get_model(jcfg).loss(p, _jax(batch), jcfg),
+        has_aux=True))(params)
+    tp = _fresh(tp)
+    tloss, _ = get_model(c).loss(tp, _torch(batch), c)
+    grads = torch.autograd.grad(tloss, toptim.tree_leaves(tp))
+    _rel(tloss.detach(), jloss)
+    _assert_tree_close(jgrads, toptim.tree_unflatten(tp, grads),
+                       cfg.n_layers, TOL, TOL)
 
 
 def test_make_batch_and_train_loop_on_cpu(lm):

@@ -304,9 +304,10 @@ def test_runner_writes_its_own_results_file(tmp_path, monkeypatch,
     assert "exp5_memory_n32" in capsys.readouterr().out
     assert set(run.SUITES) == {"exp1_scaling", "exp2_heterogeneity",
                                "exp3_inference", "exp4_routing",
-                               "exp5_coupling", "exp6_agentic", "kernels"}
+                               "exp5_coupling", "exp6_agentic", "kernels",
+                               "roofline"}
     with pytest.raises(ValueError, match="unknown suites"):
-        run.run_suites(common.Reporter(), ["roofline"], CPU)
+        run.run_suites(common.Reporter(), ["no_such_suite"], CPU)
     monkeypatch.setitem(run.SUITES, "exp1_scaling",
                         lambda rep, device: 1 / 0)
     _, failures = run.run_suites(common.Reporter(), ["exp1_scaling"], CPU)
