@@ -18,8 +18,8 @@ SWEEP = "dryrun_torch.json"
 
 
 def main(rep: Reporter, device=None) -> dict:
-    """The ``roofline_<arch>_<shape>`` rows (µs of the larger term) and a
-    summary row; ``device`` is unused: the records were counted on
+    """The ``roofline_<arch>_<shape>`` rows (µs of the larger term; a mesh
+    record's name ends ``_16x16`` or ``_2x16x16``) and a summary row; ``device`` is unused: the records were counted on
     ``meta``."""
     path = os.path.join(common.RESULTS_DIR, SWEEP)
     if not os.path.exists(path):
@@ -37,8 +37,10 @@ def main(rep: Reporter, device=None) -> dict:
         rl = r["roofline"]
         dom = max(rl["t_compute_s"], rl["t_memory_s"], rl["t_collective_s"])
         frac = rl["t_compute_s"] / max(1e-12, dom)
+        mesh = {None: "", False: "_16x16", True: "_2x16x16"}[
+            r.get("multi_pod")]
         rep.add(
-            f"roofline_{r['arch']}_{r['shape']}",
+            f"roofline_{r['arch']}_{r['shape']}{mesh}",
             dom * 1e6,
             f"bn={rl['bottleneck']} comp={rl['t_compute_s']:.3e}s "
             f"mem={rl['t_memory_s']:.3e}s coll={rl['t_collective_s']:.3e}s "
@@ -48,7 +50,8 @@ def main(rep: Reporter, device=None) -> dict:
     n_skip = sum(1 for r in records if r["status"] == "skipped")
     rep.add("roofline_summary", 0.0,
             f"cells_ok={ok} errors={n_err} skipped={n_skip} "
-            f"(skips = long_500k on full-attention archs)")
+            f"(skips = long_500k on full-attention archs; on a mesh, "
+            f"serving cells)")
     return {"records": ok}
 
 

@@ -168,10 +168,12 @@ Phases, each printing one JSON line:
    (``STATE_GRAD_TOL``), then one AdamW step at phase 14's tolerances.
 25. training at full width: rwkv6-1.6b (bf16, 24 layers) and zamba2-2.7b
    (bf16, 54 layers), remat full, as phase 16: global batch 2, seq 2048,
-   AdamW, 3 steps; step time, tok/s, peak memory; then one layer's scan
-   backward at the step's shape, timed (x n_layers: its share of a step)
-   and under ``torch.profiler`` (its ``wkv6/backward`` / ``ssd/backward``
-   span, the device's busy share inside it).
+   AdamW, 3 steps; step time, tok/s, peak memory; then one more step
+   under ``torch.profiler`` (its ``wkv6/backward`` / ``ssd/backward`` span,
+   the device's busy share inside it); the profiled steps run their full
+   width cut to ``PROFILED_LAYERS`` (rwkv6 4 layers, zamba2 12: two
+   groups; the profiler's post-processing of every layer took ~2-3 min
+   each of the script's 1200 s).
 26. workflows: ``heat_stencil``, ``lj_step`` and ``surrogate_eval`` on the
    card against the CPU from one seed, then timed at a 4096^2 heat grid
    over 100 steps and 4096 LJ particles over 10 steps; ``TorchBackend``
@@ -229,7 +231,11 @@ Phases, each printing one JSON line:
    or charges a kernel wrongly), the share bound / measured and the
    model-FLOP share 6 N D / (measured x 989 TFLOP/s), the parameters' and
    AdamW state's bytes equal to what the card holds for them, the
-   estimated peak beside ``max_memory_allocated``.
+   estimated peak beside ``max_memory_allocated``.  Then llama3.2-3b's
+   and nemotron-4-340b's train_4k cells on the 16 x 16 and 2 x 16 x 16
+   production meshes (this worker rank 0 of a ``fake`` process group of
+   256 / 512, DTensors on ``meta``): ok, per-device FLOPs, bytes and
+   collective bytes, the roofline at the H100 data sheet's rates.
 34. remat "dots" against "full": llama3.2-3b at full width, bf16, one
    loss-and-gradient step at 2 x 2048 on the same weights and batch under
    each: the losses equal, every gradient leaf within the bf16 gradient
@@ -238,6 +244,33 @@ Phases, each printing one JSON line:
    memory; then the counter's FLOPs (the worker's, on meta): dots below
    full by exactly full's recomputed mm/addmm FLOPs, and dots's mm FLOPs
    those of remat none.
+35. training under a mesh on one card: llama3.2-3b at full width (bf16,
+   remat full) with ``explicit_tp``, ``fsdp_params`` and
+   ``seq_shard_activations``, 2 x 2048, on a 1 x 1 ``("data", "model")``
+   mesh of this card (NCCL, one rank; every collective a size-1 group's):
+   the loss and every gradient leaf of the step's own
+   ``train.microbatch_grads`` against the unsharded step's on the same
+   weights and batch (loss within 1e-4 relative: the vocab-sharded
+   log-likelihood sums in another order; each leaf within a relative norm
+   of 5e-2 and 1e-4 elementwise, ``MESH_GRAD_REL_NORM``), the flash kernel
+   launched as often (2 x n_layers); then two sharded AdamW steps, timed.
+36. four ranks on one card: four gloo processes share this card in a 2 x
+   2 mesh (NCCL refuses two ranks on one device; gloo's all-gather of CUDA
+   tensors crashes, so it is staged through host memory by
+   ``launch/mesh.stage_all_gather_through_host``, counted and printed;
+   every other collective runs on the card's tensors), smoke widths in
+   f32 (``MESH_CASES``): rhapsody-demo with explicit TP, FSDP and SP,
+   deepseek-moe-16b expert-parallel (capacity n_experts / top_k: no
+   drops), zamba2-2.7b and rwkv6-1.6b.  Each one sharded AdamW step
+   against the one-rank step on the card from the same weights and batch
+   (loss within 1e-5 relative, every parameter within atol 2e-5, rtol
+   2e-3, Adam eps 1e-3 as phase 14); each rank's flash / SSD / WKV6
+   launches, on its local shards, equal to the one-rank step's.  Then one
+   case at full width, depth cut: llama3.2-3b's first 2 layers with TP,
+   FSDP and SP in bf16 at 2 x 2048, its sharded loss and gradient against
+   the one-rank ones on rank 0 (phase 35's limits), each rank's flash
+   launches equal to them and its flash inputs the local shard's (batch
+   1, 12 of 24 heads after the K/V repeat: G 1, D 128, S 2048).
 
 Every phase that drives a path sets all five kernels' launch counts to 0
 just before it runs and checks every count just after: the paged serving
@@ -377,6 +410,27 @@ MOE_ARCH = "deepseek-moe-16b"
 MOE_OVERFLOW_T = 512
 MOE_CPU_TOL = 1e-4
 SPEC_K = 3  # proposals a speculative round (phases 18 and 20)
+# phase 25: the profiled steps at their full width cut to these depths
+# (the profiler's post-processing of every layer took ~2-3 min each)
+PROFILED_LAYERS = {"rwkv6-1.6b": 4, "zamba2-2.7b": 12}
+# phase 36: four gloo ranks sharing the card in a 2 x 2 mesh, smoke widths
+MESH_WORLD = 4
+MESH_TP = dict(explicit_tp=True, fsdp_params=True, seq_shard_activations=True)
+MESH_CASES = (("rhapsody-demo", MESH_TP), ("deepseek-moe-16b", "nodrop"),
+              ("zamba2-2.7b", {}), ("rwkv6-1.6b", {}))
+MESH_BATCH, MESH_SEQ = 4, 64
+# and one case at full width, depth cut: llama3.2-3b's 2 layers with TP,
+# FSDP and SP in bf16 at TRAIN_BATCH x TRAIN_SEQ, so the flash kernel runs
+# on each rank's local shard at the production shapes (batch 1, 12 of 24
+# heads after the K/V repeat: G 1, D 128, S 2048)
+MESH_FULL_LAYERS = 2
+# phases 35-36: a sharded bf16 gradient leaf against the unsharded one by
+# its relative norm |g1 - g0| / |g0| and elementwise, the loss relatively.
+# Read on the H100: relative norms up to 1.64e-2 on 1 x 1 (28 layers: the
+# two paths round bf16 in another order and the backward carries it down
+# the layers) and 1.17e-2 on 2 x 2 (2 layers), elements within 4.2e-5;
+# a zeroed leaf reads 1, a sign-flipped or doubled one 2 or 1
+MESH_GRAD_REL_NORM, MESH_GRAD_ATOL, MESH_LOSS_TOL = 5e-2, 1e-4, 1e-4
 
 
 def main_path_prompt_lens(rng, n):
@@ -1847,8 +1901,8 @@ def phase_train_step(torch, configs, get_model, optim, train, data):
     opt = optim.OptimizerConfig(lr=1e-3, eps=1e-3, warmup_steps=1,
                                 decay_steps=10)
     tcfg = train.TrainConfig(optimizer=opt)
-    cpu = train.init_state(torch.Generator().manual_seed(0), api, cfg, opt,
-                           device="cpu")
+    cpu, _ = train.init_state(torch.Generator().manual_seed(0), api, cfg, opt,
+                              device="cpu")
     card = {"params": optim.tree_map(
         lambda t: t.detach().to(DEVICE, copy=True).requires_grad_(),
         cpu["params"])}
@@ -1885,8 +1939,8 @@ def phase_train_step(torch, configs, get_model, optim, train, data):
                                device=DEVICE)
     unseen.restore({"step": 500, "seed": 0})
     held = unseen.next_batch()
-    state = train.init_state(torch.Generator(device=DEVICE).manual_seed(0),
-                             api, cfg, tcfg.optimizer, device=DEVICE)
+    state, _ = train.init_state(torch.Generator(device=DEVICE).manual_seed(0),
+                                api, cfg, tcfg.optimizer, device=DEVICE)
     with torch.no_grad():
         held_before = float(api.loss(state["params"], held, cfg)[0])
     zero_launches()
@@ -1960,8 +2014,8 @@ def train_main_path():
     pipe = data.DataPipeline(data.DataConfig(
         vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH),
         device=DEVICE)
-    state = train.init_state(torch.Generator(device=DEVICE).manual_seed(0),
-                             api, cfg, tcfg.optimizer, device=DEVICE)
+    state, _ = train.init_state(torch.Generator(device=DEVICE).manual_seed(0),
+                                api, cfg, tcfg.optimizer, device=DEVICE)
     return cfg, api, tcfg, pipe, state, train.make_train_step(api, cfg, tcfg)
 
 
@@ -2779,8 +2833,8 @@ def phase_state_train_step(torch, configs, get_model, optim, train):
         api = get_model(cfg)
         opt = optim.OptimizerConfig(lr=1e-3, eps=1e-3, warmup_steps=1,
                                     decay_steps=10)
-        cpu = train.init_state(torch.Generator().manual_seed(0), api, cfg,
-                               opt, device="cpu")
+        cpu, _ = train.init_state(torch.Generator().manual_seed(0), api, cfg,
+                                  opt, device="cpu")
         card = {"params": optim.tree_map(
             lambda t: t.detach().to(DEVICE, copy=True).requires_grad_(),
             cpu["params"])}
@@ -2870,8 +2924,8 @@ def phase_state_train_full(torch, configs, get_model, optim, train, data,
     pipe = data.DataPipeline(data.DataConfig(
         vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH),
         device=DEVICE)
-    state = train.init_state(torch.Generator(device=DEVICE).manual_seed(0),
-                             api, cfg, tcfg.optimizer, device=DEVICE)
+    state, _ = train.init_state(torch.Generator(device=DEVICE).manual_seed(0),
+                                api, cfg, tcfg.optimizer, device=DEVICE)
     step = train.make_train_step(api, cfg, tcfg)
     n_params = sum(p.numel() for p in optim.tree_leaves(state["params"]))
     state_bytes = tree_bytes(state)
@@ -2901,6 +2955,17 @@ def phase_state_train_full(torch, configs, get_model, optim, train, data,
     span = "wkv6/backward" if cfg.family == "ssm" else "ssd/backward"
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    pcfg = cfg
+    if arch in PROFILED_LAYERS:  # the profiled step at its width, cut
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        pcfg = cfg.scaled(n_layers=PROFILED_LAYERS[arch])
+        state, _ = train.init_state(
+            torch.Generator(device=DEVICE).manual_seed(0), api, pcfg,
+            tcfg.optimizer, device=DEVICE)
+        step = train.make_train_step(api, pcfg, tcfg)
+        state, _ = step(state, pipe.next_batch())  # warm, as the 3 above
     batch = pipe.next_batch()
     zero_launches()
     with torch.profiler.profile(activities=acts) as prof:
@@ -2908,7 +2973,7 @@ def phase_state_train_full(torch, configs, get_model, optim, train, data,
         state, m = step(state, batch)
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
-    check_launches(f"{arch} profiled step", **expected_train_launches(cfg))
+    check_launches(f"{arch} profiled step", **expected_train_launches(pcfg))
     check(math.isfinite(float(m["loss"])), f"{arch} profiled step: loss "
                                            f"{float(m['loss'])}")
     ka = prof.key_averages()
@@ -2937,7 +3002,7 @@ def phase_state_train_full(torch, configs, get_model, optim, train, data,
             "losses": losses, "grad_norms": norms, "launches": launches,
             "peak_mem_gb": peak, "state_bytes": state_bytes,
             "profiled_step": {
-                "seconds": window, "span": span,
+                "layers": pcfg.n_layers, "seconds": window, "span": span,
                 "span_calls": max(e.count for e in rec),
                 "span_host_ms": max(e.cpu_time_total for e in rec) / 1e3,
                 "span_device_ms": span_device_ms,
@@ -3300,8 +3365,8 @@ def phase_encdec_vlm_train(torch, configs, get_model, optim, train,
         api = get_model(cfg)
         opt = optim.OptimizerConfig(lr=1e-3, eps=1e-3, warmup_steps=1,
                                     decay_steps=10)
-        cpu = train.init_state(torch.Generator().manual_seed(0), api, cfg,
-                               opt, device="cpu")
+        cpu, _ = train.init_state(torch.Generator().manual_seed(0), api, cfg,
+                                  opt, device="cpu")
         card = {"params": optim.tree_map(
             lambda t: t.detach().to(DEVICE, copy=True).requires_grad_(),
             cpu["params"])}
@@ -3342,7 +3407,7 @@ def phase_encdec_vlm_train(torch, configs, get_model, optim, train,
         cfg = configs.get_config(arch)
         api = get_model(cfg)
         tcfg = train_tcfg(seq)
-        state = train.init_state(
+        state, _ = train.init_state(
             torch.Generator(device=DEVICE).manual_seed(0), api, cfg,
             tcfg.optimizer, device=DEVICE)
         step = train.make_train_step(api, cfg, tcfg)
@@ -3686,6 +3751,8 @@ DRYRUN_STEPS = (("llama3.2-3b", TRAIN_SEQ), ("rwkv6-1.6b", TRAIN_SEQ),
                 ("zamba2-2.7b", TRAIN_SEQ), ("internvl2-1b", TRAIN_SEQ),
                 ("whisper-small", WHISPER_TEXT_CTX))
 DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun_chip.json")
+# the train cells the worker also counts on both production meshes
+DRYRUN_MESH_ARCHS = ("llama3.2-3b", "nemotron-4-340b")
 
 
 def tree_bytes(state):
@@ -3753,12 +3820,24 @@ def dryrun_worker(path):
                 seq=seq),
             "kernels": counted["kernels"],
             "seconds": time.perf_counter() - t0}
+    out["mesh_cells"] = []
+    for arch in DRYRUN_MESH_ARCHS:
+        for multi_pod in (False, True):
+            t0 = time.perf_counter()
+            try:
+                rec = dryrun.run_cell(arch, "train_4k", multi_pod=multi_pod)
+            except Exception as e:  # noqa: BLE001 — phase 33 reports it
+                rec = {"arch": arch, "shape": "train_4k",
+                       "multi_pod": multi_pod, "status": "error",
+                       "error": f"{type(e).__name__}: {e}"}
+            rec["seconds"] = time.perf_counter() - t0
+            out["mesh_cells"].append(rec)
     for remat in ("none", "full", "dots"):
         cfg = get_config(MAIN_PATH_ARCH, remat=remat)
         api = get_model(cfg)
         counter = cost.run(
             lambda p, b: loss_and_grads(api, cfg, p, b),
-            specs.abstract_params(api, cfg),
+            specs.abstract_params(api, cfg)[0],
             specs.train_batch_specs(cfg, TRAIN_BATCH, TRAIN_SEQ))[1]
         out["remat"][remat] = {
             "flops": counter.flops, "bytes": counter.bytes,
@@ -3846,8 +3925,30 @@ def phase_dryrun(torch, worker, measured):
             "state_bytes": state, "est_live_gb": mem["est_live_bytes"] / 1e9,
             "peak_mem_gb": m["peak_mem_gb"], "kernels": d["kernels"],
             "count_seconds": d["seconds"]})
-    return {"cells": cells, "steps": steps, "device_bytes": cap,
-            "worker_seconds": data["seconds"]}, data["remat"]
+    mesh_cells = []
+    for rec in data["mesh_cells"]:
+        n = 512 if rec["multi_pod"] else 256
+        where = (f"dry-run {rec['arch']} x train_4k x "
+                 f"{'2x16x16' if rec['multi_pod'] else '16x16'}")
+        check(rec["status"] == "ok", f"{where}: {rec}")
+        rl = rec["roofline"]
+        check(rec["n_chips"] == n and rl["collective_bytes_per_device"] > 0,
+              f"{where}: n_chips {rec['n_chips']}, collective bytes "
+              f"{rl['collective_bytes_per_device']}")
+        mesh_cells.append({
+            "arch": rec["arch"], "mesh": rec["mesh"], "n_chips": n,
+            "microbatches": rec["microbatches"],
+            **{k: rl[k] for k in (
+                "flops_per_device", "bytes_per_device",
+                "collective_bytes_per_device", "t_compute_s", "t_memory_s",
+                "t_collective_s", "bottleneck", "useful_flops_ratio")},
+            "collective_detail": rl["collective_detail"],
+            "est_live_bytes_per_device":
+            rec["memory"]["est_live_bytes_per_device"],
+            "seconds": rec["seconds"]})
+    return {"cells": cells, "steps": steps, "mesh_cells": mesh_cells,
+            "device_bytes": cap, "worker_seconds": data["seconds"]}, \
+        data["remat"]
 
 
 def phase_remat_dots(torch, configs, get_model, make_batch, optim, counts):
@@ -3915,6 +4016,393 @@ def phase_remat_dots(torch, configs, get_model, make_batch, optim, counts):
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Training under a mesh (phases 35-36)
+# ---------------------------------------------------------------------------
+
+
+def grad_errors(got, want):
+    """(max |got - want|, |got - want| / |want|) of one gradient leaf, in
+    float32 (0 for a leaf whose gradients are both 0)."""
+    d = got.float() - want.float()
+    norm, dn = float(want.float().norm()), float(d.norm())
+    if not norm:
+        return float(d.abs().max()), math.inf if dn else 0.0
+    return float(d.abs().max()), dn / norm
+
+
+def phase_mesh_one_card(torch, configs, get_model, make_batch, optim, train):
+    """Phase 35: llama3.2-3b at full width with explicit TP, FSDP and SP on
+    a 1 x 1 NCCL mesh of this card against the unsharded step (see the
+    module doc)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import nn
+
+    t_up = time.perf_counter()
+    cfg = configs.get_config(MAIN_PATH_ARCH).scaled(**MESH_TP)
+    api = get_model(cfg)
+    tcfg = train_tcfg(TRAIN_SEQ)
+    rdv = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    mesh_lib.init_ranks(0, 1, mesh_lib.rendezvous_file(rdv), backend="nccl")
+    try:
+        mesh = mesh_lib.make_local_mesh(1, 1, device=DEVICE)
+        params, axes = api.init(torch.Generator(device=DEVICE).manual_seed(0),
+                                cfg, device=DEVICE, with_axes=True)
+        for p in optim.tree_leaves(params):
+            p.requires_grad_(True)
+        batch = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                           torch.Generator(device=DEVICE).manual_seed(35),
+                           device=DEVICE)
+        zero_launches()
+        loss0, grads0 = loss_and_grads(api, cfg, params, batch)
+        want = 2 * cfg.n_layers
+        launches0 = check_launches("unsharded step",
+                                   flash_attention=want)["flash_attention"]
+        state_sh = train.state_shardings(axes, tcfg.optimizer, mesh, cfg=cfg)
+        batch_sh = train.batch_shardings(cfg, mesh)
+        placed = train._place_tree(params, state_sh["params"])
+        for p in optim.tree_leaves(placed):
+            p.requires_grad_(True)
+        pbatch = train._place_tree(batch, batch_sh)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t_up
+        zero_launches()
+        t0 = time.perf_counter()
+        with nn.mesh_context(mesh):  # the step's own loss and gradient
+            loss1, _, grads1 = train.microbatch_grads(api, cfg, placed,
+                                                      pbatch, mesh)
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t0
+        launches1 = check_launches("sharded step (1 x 1)",
+                                   flash_attention=want)["flash_attention"]
+        loss_err = abs(float(loss1) - float(loss0)) / abs(float(loss0))
+        check(loss_err <= MESH_LOSS_TOL, f"sharded loss {float(loss1)} vs "
+                                         f"{float(loss0)}")
+        errs = {str(path): grad_errors(g1.full_tensor(), g0)
+                for (path, _), g0, g1 in zip(optim.named_leaves(params),
+                                             grads0, grads1)}
+        worst = max(e[0] for e in errs.values())
+        worst_rel = max(e[1] for e in errs.values())
+        bad = {k: e for k, e in errs.items()
+               if e[0] > MESH_GRAD_ATOL or e[1] > MESH_GRAD_REL_NORM}
+        check(not bad, f"sharded gradients (max abs, relative norm) past "
+                       f"({MESH_GRAD_ATOL}, {MESH_GRAD_REL_NORM}): {bad}")
+        del grads0, grads1, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = train.place_state(
+            {"params": placed, "opt": optim.adamw_init(placed,
+                                                       tcfg.optimizer)},
+            state_sh)
+        step = train.place_train_step(
+            train.make_train_step(api, cfg, tcfg, mesh), state_sh, batch_sh)
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        zero_launches()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        check_launches("sharded steps (1 x 1)", flash_attention=2 * want)
+        check(all(math.isfinite(x) for x in losses),
+              f"sharded steps: losses {losses}")
+        rec = {"config": cfg.name, "mesh": {"data": 1, "model": 1},
+               "backend": "nccl", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+               "flags": sorted(MESH_TP), "setup_seconds": setup_s,
+               "loss_unsharded": float(loss0), "loss_sharded": float(loss1),
+               "loss_rel_err": loss_err, "max_grad_err": worst,
+               "max_grad_rel_norm": worst_rel,
+               "launches_unsharded": launches0, "launches": launches1,
+               "grad_seconds": grad_s, "step_seconds": times,
+               "step_losses": losses,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del state, step, placed
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_full_width(torch, rank, mesh, zero, counts):
+    """Phase 36's full-width case on one rank: llama3.2-3b cut to
+    ``MESH_FULL_LAYERS`` layers with TP, FSDP and SP, bf16, TRAIN_BATCH x
+    TRAIN_SEQ, the sharded loss and gradient (``train.microbatch_grads``,
+    the step's own).  Rank 0 first runs the one-rank loss and gradient on
+    the same weights and batch and holds each gathered gradient leaf to
+    it.  The flash kernel's input shapes are recorded as it launches."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import get_model, make_batch, nn
+    from repro_torch.training import optim, train
+
+    cfg = configs.get_config(MAIN_PATH_ARCH).scaled(
+        n_layers=MESH_FULL_LAYERS, **MESH_TP)
+    api = get_model(cfg)
+    params, axes = api.init(torch.Generator(device=DEVICE).manual_seed(0),
+                            cfg, device=DEVICE, with_axes=True)
+    batch = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                       torch.Generator(device=DEVICE).manual_seed(36),
+                       device=DEVICE)
+    rec = {"config": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "head_dim": cfg.head_dim, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "dtype": cfg.param_dtype, "flags": sorted(MESH_TP)}
+    grads0 = None
+    if rank == 0:
+        one = optim.tree_map(
+            lambda t: t.detach().clone().requires_grad_(True), params)
+        zero()
+        loss0, _, grads0 = train.microbatch_grads(api, cfg, one, batch)
+        torch.cuda.synchronize()
+        rec["launches_one_rank"] = counts()
+        rec["loss_one_rank"] = float(loss0)
+        del one
+    state_sh = train.state_shardings(axes, optim.OptimizerConfig(), mesh,
+                                     cfg=cfg)
+    placed = train._place_tree(params, state_sh["params"])
+    for p in optim.tree_leaves(placed):
+        p.requires_grad_(True)
+    pbatch = train._place_tree(batch, train.batch_shardings(cfg, mesh))
+    del params
+    shapes = set()
+    launch = fa._launch
+
+    def spy(q, k, v):
+        shapes.add((tuple(q.shape), tuple(k.shape)))
+        return launch(q, k, v)
+
+    dist.barrier()
+    fa._launch = spy
+    try:
+        zero()
+        t0 = time.perf_counter()
+        with nn.mesh_context(mesh):
+            loss1, _, grads1 = train.microbatch_grads(api, cfg, placed,
+                                                      pbatch, mesh)
+        torch.cuda.synchronize()
+        rec["grad_seconds"] = time.perf_counter() - t0
+        rec["launches"] = counts()
+    finally:
+        fa._launch = launch
+    rec["flash_shapes"] = sorted(shapes)
+    rec["loss"] = float(loss1)
+    rec["local_device"] = str(optim.tree_leaves(placed)[0].to_local().device)
+    errs = {}
+    for i, ((path, _), g) in enumerate(zip(optim.named_leaves(placed),
+                                           grads1)):
+        full = g.full_tensor()
+        if grads0 is not None:
+            errs[str(path)] = grad_errors(full, grads0[i])
+        del full
+    if errs:
+        rec["max_grad_err"] = max(e[0] for e in errs.values())
+        rec["max_grad_rel_norm"] = max(e[1] for e in errs.values())
+        rec["grad_errors"] = errs
+    return rec
+
+
+def mesh_rank(rank, rdv, out_dir):
+    """One of phase 36's ranks (``torch.multiprocessing`` spawns it): every
+    case of ``MESH_CASES`` on the 2 x 2 mesh, each against the one-rank
+    step it also runs; its records to ``out_dir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import get_model, make_batch
+    from repro_torch.training import optim, train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    counters = {"flash_attention": (fa, "launches"),
+                "ssd": (ssd_ops, "launches"), "wkv6": (wkv_ops, "launches")}
+
+    def zero():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def counts():
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+    out = {"rank": rank, "cases": []}
+    mesh_lib.init_ranks(rank, MESH_WORLD, mesh_lib.rendezvous_file(rdv),
+                        backend="gloo")
+    mesh_lib.stage_all_gather_through_host()
+    try:
+        mesh = mesh_lib.make_local_mesh(2, 2, device=DEVICE)
+        for arch, over in MESH_CASES:
+            rec = {"config": arch}
+            try:
+                cfg = configs.get_smoke_config(arch)
+                if over == "nodrop":
+                    cfg = cfg.scaled(capacity_factor=cfg.n_experts
+                                     / cfg.top_k)
+                else:
+                    cfg = cfg.scaled(**over)
+                api = get_model(cfg)
+                opt = optim.OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                            decay_steps=10, eps=1e-3)
+                tcfg = train.TrainConfig(global_batch=MESH_BATCH,
+                                         seq_len=MESH_SEQ, optimizer=opt)
+                params, axes = api.init(
+                    torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                    device=DEVICE, with_axes=True)
+                batch = make_batch(cfg, MESH_BATCH, MESH_SEQ,
+                                   torch.Generator(device=DEVICE
+                                                   ).manual_seed(36),
+                                   device=DEVICE)
+                one = optim.tree_map(
+                    lambda t: t.detach().clone().requires_grad_(True),
+                    params)
+                one_state = {"params": one, "opt": optim.adamw_init(one, opt)}
+                zero()
+                one_state, m0 = train.make_train_step(api, cfg, tcfg)(
+                    one_state, batch)
+                torch.cuda.synchronize()
+                want = counts()
+                state_sh = train.state_shardings(axes, opt, mesh, cfg=cfg)
+                state = train.place_state(
+                    {"params": params, "opt": optim.adamw_init(params, opt)},
+                    state_sh)
+                step = train.place_train_step(
+                    train.make_train_step(api, cfg, tcfg, mesh), state_sh,
+                    train.batch_shardings(cfg, mesh))
+                mesh_lib.STAGED.clear()
+                zero()
+                t0 = time.perf_counter()
+                state, m1 = step(state, batch)
+                torch.cuda.synchronize()
+                rec["step_seconds"] = time.perf_counter() - t0
+                rec["launches"], rec["launches_one_rank"] = counts(), want
+                rec["staged"] = dict(mesh_lib.STAGED)
+                rec["loss_one_rank"] = float(m0["loss"])
+                rec["loss"] = float(m1["loss"])
+                worst = 0.0
+                for (path, a), (_, b) in zip(
+                        optim.named_leaves(state["params"]),
+                        optim.named_leaves(one_state["params"])):
+                    err, ok = within(a.full_tensor().detach(), b.detach(),
+                                     (2e-5, 2e-3))
+                    worst = max(worst, err)
+                    if not ok:
+                        rec.setdefault("param_mismatch", []).append(
+                            [str(path), err])
+                rec["max_param_err"] = worst
+                rec["local_device"] = str(
+                    optim.tree_leaves(state["params"])[0].to_local().device)
+            except Exception:  # noqa: BLE001 — the parent fails the phase
+                rec["error"] = traceback.format_exc()[-3000:]
+            out["cases"].append(rec)
+        try:
+            out["full_width"] = mesh_full_width(torch, rank, mesh, zero,
+                                                counts)
+        except Exception:  # noqa: BLE001 — the parent fails the phase
+            out["full_width"] = {"error": traceback.format_exc()[-3000:]}
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def phase_mesh_four_ranks(torch):
+    """Phase 36: four gloo ranks sharing this card in a 2 x 2 mesh (see the
+    module doc) -> each rank's records, checked."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    d = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    t0 = time.perf_counter()
+    mp.spawn(mesh_rank, args=(d, d), nprocs=MESH_WORLD, join=True)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    cases = []
+    for i, (arch, _) in enumerate(MESH_CASES):
+        per = [rk["cases"][i] for rk in ranks]
+        for r, rec in enumerate(per):
+            where = f"{arch} rank {r} (2 x 2, four ranks on one card)"
+            check("error" not in rec, f"{where}: {rec.get('error')}")
+            check(rec["local_device"].startswith("cuda"),
+                  f"{where}: shards on {rec['local_device']}")
+            err = abs(rec["loss"] - rec["loss_one_rank"]) / abs(
+                rec["loss_one_rank"])
+            check(err <= 1e-5, f"{where}: loss {rec['loss']} vs one rank "
+                               f"{rec['loss_one_rank']}")
+            check("param_mismatch" not in rec,
+                  f"{where}: parameters after the step "
+                  f"{rec.get('param_mismatch')}")
+            check(rec["launches"] == rec["launches_one_rank"]
+                  and sum(rec["launches"].values()) > 0,
+                  f"{where}: launches {rec['launches']} vs one rank "
+                  f"{rec['launches_one_rank']}")
+        cases.append({
+            "config": arch, "loss": per[0]["loss"],
+            "loss_one_rank": per[0]["loss_one_rank"],
+            "max_param_err": max(r["max_param_err"] for r in per),
+            "launches_by_rank": [r["launches"] for r in per],
+            "launches_one_rank": per[0]["launches_one_rank"],
+            "staged_by_rank": [r["staged"] for r in per],
+            "step_seconds_by_rank": [r["step_seconds"] for r in per]})
+    return {"mesh": {"data": 2, "model": 2}, "world": MESH_WORLD,
+            "backend": "gloo, all-gather staged through host memory",
+            "batch": MESH_BATCH, "seq": MESH_SEQ, "wall_seconds": wall,
+            "cases": cases, "full_width": mesh_full_width_check(
+                [rk["full_width"] for rk in ranks])}
+
+
+def mesh_full_width_check(per):
+    """Phase 36's full-width case, each rank's record checked -> the
+    case's record: the loss and every gathered gradient leaf against the
+    one-rank step's, each rank's launches equal to it, and the flash
+    kernel on the local shard (batch and heads halved, K/V repeated)."""
+    for r, rec in enumerate(per):
+        where = f"full-width llama3.2-3b rank {r} (2 x 2, four ranks)"
+        check("error" not in rec, f"{where}: {rec.get('error')}")
+    first = per[0]
+    want = first["launches_one_rank"]
+    local = (TRAIN_BATCH // 2, TRAIN_SEQ, first["n_heads"] // 2,
+             first["head_dim"])  # batch over "data", heads over "model"
+    for r, rec in enumerate(per):
+        where = f"full-width llama3.2-3b rank {r} (2 x 2, four ranks)"
+        check(rec["local_device"].startswith("cuda"),
+              f"{where}: shards on {rec['local_device']}")
+        err = abs(rec["loss"] - first["loss_one_rank"]) / abs(
+            first["loss_one_rank"])
+        check(err <= MESH_LOSS_TOL,
+              f"{where}: loss {rec['loss']} vs one rank "
+              f"{first['loss_one_rank']}")
+        check(rec["launches"] == want
+              and want["flash_attention"] == 2 * MESH_FULL_LAYERS,
+              f"{where}: launches {rec['launches']} vs one rank {want}")
+        check(rec["flash_shapes"] == [[list(local), list(local)]],
+              f"{where}: flash inputs {rec['flash_shapes']}, want q and k "
+              f"{local}")
+    bad = {k: e for k, e in first["grad_errors"].items()
+           if e[0] > MESH_GRAD_ATOL or e[1] > MESH_GRAD_REL_NORM}
+    check(not bad, f"full-width sharded gradients (max abs, relative norm) "
+                   f"past ({MESH_GRAD_ATOL}, {MESH_GRAD_REL_NORM}): {bad}")
+    out = {k: v for k, v in first.items()
+           if k not in ("grad_errors", "launches", "grad_seconds")}
+    out.update(launches_by_rank=[rec["launches"] for rec in per],
+               grad_seconds_by_rank=[rec["grad_seconds"] for rec in per],
+               loss_by_rank=[rec["loss"] for rec in per])
+    return out
 
 
 def main():
@@ -4191,6 +4679,16 @@ def main():
     emit({"phase": "remat_dots", **phase_remat_dots(
         torch, configs, get_model, make_batch, optim, remat_counts)})
 
+    # 35. the sharded step on a 1 x 1 mesh of this card, full width
+    mesh_one = phase_mesh_one_card(torch, configs, get_model, make_batch,
+                                   optim, train)
+    emit({"phase": "mesh_one_card", **mesh_one})
+
+    # 36. four gloo ranks sharing this card in a 2 x 2 mesh
+    mesh_four = phase_mesh_four_ranks(torch)
+    emit({"phase": "mesh_four_ranks", **mesh_four})
+    four = {c["config"]: c["launches_by_rank"] for c in mesh_four["cases"]}
+
     decode_src = ("src/repro_torch/kernels/decode_attention/csrc/"
                   "decode_attention.cu")
     rwkv, zamba = (state_paths[arch] for arch in STATE_ARCHS)
@@ -4210,6 +4708,13 @@ def main():
             "whisper_serving": whisper["launches"]["decode_attention"],
             "internvl_serving": internvl["launches"]["decode_attention"]},
         "flash_attention": {"train_main_path": train_path["launches"],
+                            "sharded_train_1x1": mesh_one["launches"],
+                            "sharded_train_2x2_by_rank": {
+                                a: [r["flash_attention"] for r in four[a]]
+                                for a in four},
+                            "sharded_train_2x2_full_width_by_rank": [
+                                r["flash_attention"] for r in
+                                mesh_four["full_width"]["launches_by_rank"]],
                             "zamba2_training":
                             zamba_train["launches"]["flash_attention"],
                             "whisper_training":
@@ -4217,9 +4722,13 @@ def main():
                             "internvl_training":
                             internvl_train["launches"]["flash_attention"]},
         "ssd": {"zamba2_serving": zamba["launches"]["ssd"],
-                "zamba2_training": zamba_train["launches"]["ssd"]},
+                "zamba2_training": zamba_train["launches"]["ssd"],
+                "sharded_train_2x2_by_rank": [
+                    r["ssd"] for r in four["zamba2-2.7b"]]},
         "wkv6": {"rwkv6_serving": rwkv["launches"]["wkv6"],
-                 "rwkv6_training": rwkv_train["launches"]["wkv6"]},
+                 "rwkv6_training": rwkv_train["launches"]["wkv6"],
+                 "sharded_train_2x2_by_rank": [
+                     r["wkv6"] for r in four["rwkv6-1.6b"]]},
     }
 
     def line(name, source, replaces, launches, err, t):

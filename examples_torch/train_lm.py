@@ -50,8 +50,8 @@ def main(argv=None) -> dict:
         checkpoint_every=args.ckpt_every)
     ck = Checkpointer(args.ckpt_dir, keep=2)
 
-    state = init_state(torch.Generator(device=device).manual_seed(0), api,
-                       cfg, tcfg.optimizer, device=device)
+    state, _ = init_state(torch.Generator(device=device).manual_seed(0), api,
+                          cfg, tcfg.optimizer, device=device)
     start = 0
     if args.resume:
         restored, start = ck.restore_latest(state)

@@ -27,6 +27,7 @@ from __future__ import annotations
 PEAK_FLOPS = 989e12  # dense bf16 FLOP/s
 HBM_BW = 3.35e12  # HBM3 bytes/s
 HBM_BYTES = 80e9  # device memory
+NVLINK_BW = 450e9  # NVLink 4 bytes/s, one direction (900 GB/s both)
 
 _counters: list = []  # the active cost counters, innermost last
 

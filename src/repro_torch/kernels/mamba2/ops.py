@@ -27,6 +27,12 @@ from .kernel import MAX_CHUNK, check_bf16_shape, ssd_forward
 
 launches = 0  # kernel launches (CPU calls do not count)
 _count_lock = threading.Lock()
+# held from the kernel's cudaFuncSetAttribute (its dynamic shared
+# memory, which depends on the chunk) to its launch: two replicas'
+# threads prefilling different lengths would otherwise lower the
+# limit between the other's set and launch, which then fails
+# (cudaErrorInvalidValue, read as a refused shape)
+_launch_lock = threading.Lock()
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_MAX_CHUNK = MAX_CHUNK
@@ -74,7 +80,8 @@ def _launch(x, dt, A, Bm, Cm, h0, chunk):
         check_bf16_shape(P, N, chunk)
     y = torch.empty_like(x)
     h = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
-    err = ssd_forward(x, dt, A, Bm, Cm, h0, y, h, chunk)
+    with _launch_lock:
+        err = ssd_forward(x, dt, A, Bm, Cm, h0, y, h, chunk)
     if err == _REFUSED:
         raise ValueError(
             f"the SSD kernel refused N {N}, P {P}, chunk {chunk} in "

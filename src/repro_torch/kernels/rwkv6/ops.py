@@ -28,6 +28,12 @@ from .kernel import check_bf16_shape, check_f32_shape, wkv6_forward
 
 launches = 0  # kernel launches (CPU calls do not count)
 _count_lock = threading.Lock()
+# held from the kernel's cudaFuncSetAttribute (its dynamic shared
+# memory, which depends on the chunk) to its launch: two replicas'
+# threads prefilling different lengths would otherwise lower the
+# limit between the other's set and launch, which then fails
+# (cudaErrorInvalidValue, read as a refused shape)
+_launch_lock = threading.Lock()
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _REFUSED = 1  # cudaErrorInvalidValue: the entry point refused the shapes
@@ -68,7 +74,8 @@ def _launch(r, k, v, lw, u, s0, chunk):
         check_f32_shape(hd, chunk)
     y = torch.empty_like(r)
     s = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
-    err = wkv6_forward(r, k, v, lw, u, s0, y, s, chunk)
+    with _launch_lock:
+        err = wkv6_forward(r, k, v, lw, u, s0, y, s, chunk)
     if err == _REFUSED:
         raise ValueError(
             f"the WKV6 kernel refused B {B}, head_dim {hd}, chunk {chunk} "

@@ -23,7 +23,14 @@ quantities, per device:
                        output's bytes) and a scatter in place reads and
                        writes the values it scatters, as ``hlo_cost`` counts
                        ``gather`` / ``scatter``.  A kernel counts its formula;
-  * collective bytes — 0.0: one device, no collectives;
+  * collective bytes — the output bytes of each ``_c10d_functional``
+                       collective this rank runs, all-gather /
+                       reduce-scatter / all-to-all x1 and all-reduce x2 (a
+                       ring all-reduce is a reduce-scatter and an
+                       all-gather), as the reference weighs the HLO's
+                       collectives; under a mesh the counter sees each
+                       DTensor op as the local ops and collectives it
+                       runs on this rank, so every count is per device;
   * peak_bytes       — the most tensor storage alive at once during the
                        run: the arguments' storages, then every storage an
                        op makes, released when Python frees it (activations
@@ -38,6 +45,7 @@ a step and charges it once for each microbatch.
 from __future__ import annotations
 
 import contextlib
+import sys
 import weakref
 from collections import defaultdict
 
@@ -108,6 +116,26 @@ def _tensors(tree, out=None):
 
 _COMPOSITE = torch._C.DispatchKey.CompositeImplicitAutograd
 
+# functional collectives -> (the reference's HLO name, its weight)
+_COLLECTIVES = {
+    "all_gather_into_tensor": ("all-gather", 1.0),
+    "all_gather_into_tensor_coalesced": ("all-gather", 1.0),
+    "reduce_scatter_tensor": ("reduce-scatter", 1.0),
+    "reduce_scatter_tensor_coalesced": ("reduce-scatter", 1.0),
+    "all_reduce": ("all-reduce", 2.0),
+    "all_reduce_coalesced": ("all-reduce", 2.0),
+    "all_to_all_single": ("all-to-all", 1.0),
+}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd")
+
+
+def _collective(func):
+    """(HLO name, weight) of a functional collective, None for any other
+    op (``wait_tensor`` and the autograd wrappers move nothing)."""
+    if func.namespace not in _COLLECTIVE_NAMESPACES:
+        return None
+    return _COLLECTIVES.get(func._schema.name.split("::")[-1], ("", 0.0))
+
 
 class _Plan:
     """What the counter needs to know of an op, found once per overload."""
@@ -135,6 +163,18 @@ class _Plan:
 _PLANS: dict = {}
 
 
+def _in_sharding_propagation(depth: int = 24) -> bool:
+    """Whether DTensor's sharding propagation is on the call stack."""
+    f = sys._getframe(2)
+    for _ in range(depth):
+        if f is None:
+            return False
+        if f.f_code.co_filename.endswith("_sharding_prop.py"):
+            return True
+        f = f.f_back
+    return False
+
+
 class CostCounter(TorchDispatchMode):
     """Counts the flops, bytes and peak storage of what runs inside it;
     ``by_op`` holds [calls, flops, bytes] an op, ``kernels`` the same a
@@ -150,13 +190,17 @@ class CostCounter(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self.largest = (0, None, None, None)
+        self.collective = defaultdict(lambda: [0, 0.0])  # name -> [n, bytes]
         self._scale = 1
         self._refs = {}  # id(storage) -> weakref to it
 
     # -- storage tracking --------------------------------------------------
     def track(self, tree):
-        """Count the storages of the tensors in ``tree`` as alive."""
+        """Count the storages of the tensors in ``tree`` as alive (a
+        DTensor's: its local shard's, this device's)."""
         for t in _tensors(tree):
+            if hasattr(t, "to_local"):
+                t = t.to_local()
             st = t.untyped_storage()
             key = id(st)
             ref = self._refs.get(key)
@@ -221,6 +265,25 @@ class CostCounter(TorchDispatchMode):
         kwargs = kwargs or {}
         if func in _QUERIES:
             return func(*args, **kwargs)
+        if any(t.__name__ == "DTensor" for t in types):
+            # DTensor dispatches it: its local ops and collectives come back
+            # here on this rank's shards
+            return NotImplemented
+        if any(t.__name__ == "FakeTensor" for t in types) or (
+                not types and _in_sharding_propagation()):
+            # DTensor's shape propagation: fake tensors of the global
+            # shapes, made by factory ops with no tensor argument
+            return func(*args, **kwargs)
+        coll = _collective(func)
+        if coll is not None:
+            out = func(*args, **kwargs)
+            name, weight = coll
+            if name:
+                rec = self.collective[name]
+                rec[0] += self._scale
+                rec[1] += weight * self._scale * sum(
+                    t.numel() * t.element_size() for t in _tensors(out))
+            return out
         plan = _PLANS.get(func)
         if plan is None:
             plan = _PLANS[func] = _Plan(func)
@@ -260,7 +323,14 @@ class CostCounter(TorchDispatchMode):
 
     def summary(self) -> dict:
         return {"flops": float(self.flops), "bytes": float(self.bytes),
-                "collective_bytes": 0.0, "collective_detail": {},
+                "collective_bytes": float(sum(
+                    b for _, b in self.collective.values())),
+                "collective_detail": {
+                    "per_op_bytes": {k: v[1] for k, v in
+                                     self.collective.items()},
+                    "counts": {k: v[0] for k, v in
+                               self.collective.items()}}
+                if self.collective else {},
                 "peak_bytes": int(self.peak),
                 "largest_output": list(self.largest),
                 "kernels": {k: {"calls": v[0], "flops": v[1], "bytes": v[2]}

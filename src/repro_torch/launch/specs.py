@@ -1,14 +1,15 @@
 """Abstract inputs of the dry-run: ``meta`` tensors in place of the
 reference's ``ShapeDtypeStruct``.
 
-The counterpart of the JAX package's ``launch/specs.py`` on one device.
-Every model input (train batch, prefill batch, decode token + cache), the
+The counterpart of the JAX package's ``launch/specs.py``.  Every model
+input (train batch, prefill batch, decode token + cache), the
 parameters and the optimizer state are made on the ``meta`` device: shapes
 and dtypes, nothing allocated.  The cache template mirrors the port's own
 prefill cache (stacked ``k``/``v``/``len`` for the transformer families,
 ``ssm``/``attn`` for zamba2, ``att``/``ffn`` for rwkv6), so the dry-run's
 decode cell feeds it straight into ``ModelApi.decode``.  The cache's
-partition specs (``cache_specs``) need a mesh and are not ported.
+partition specs (``cache_specs``) belong to serving under a mesh, which
+is not ported yet (ROADMAP Queue 1 item 15b).
 """
 from __future__ import annotations
 
@@ -62,12 +63,13 @@ def tree_bytes(tree, device=META) -> int:
 
 
 def abstract_params(api: ModelApi, cfg: ModelConfig):
-    """The parameter tree on ``meta``, requiring gradients as a train
-    state's do (the port keeps no logical axes: it shards nothing)."""
-    params = api.init(torch.Generator(), cfg, device=META)
+    """(the parameter tree on ``meta``, requiring gradients as a train
+    state's do; its logical axes in the reference's layout)."""
+    params, axes = api.init(torch.Generator(), cfg, device=META,
+                            with_axes=True)
     for p in tree_leaves(params):
         p.requires_grad_(True)
-    return params
+    return params, axes
 
 
 def abstract_opt_state(params, opt_cfg):

@@ -63,8 +63,8 @@ def main(argv=None) -> dict:
                                    global_batch=args.batch), device=device)
     ck = Checkpointer(args.ckpt_dir, keep=3) if args.ckpt_dir else None
 
-    state = init_state(torch.Generator(device=device).manual_seed(0), api,
-                       cfg, opt, device=device)
+    state, _ = init_state(torch.Generator(device=device).manual_seed(0), api,
+                          cfg, opt, device=device)
     start = 0
     if args.resume and ck is not None:
         restored, start = ck.restore_latest({"state": state,

@@ -3,7 +3,10 @@
 Every family of the JAX package is ported, and each serves and trains:
 the transformer families (``transformer.py``: dense, MoE with ``moe.py``
 as its FFN, the encoder-decoder ``encdec`` and the vision-prefix ``vlm``),
-rwkv6 (``ssm``) and zamba2 (``hybrid``).
+rwkv6 (``ssm``) and zamba2 (``hybrid``).  ``init(..., with_axes=True)``
+gives ``(params, axes)``, the axes tree equal to the reference's
+``nn.split(api.init(...))[1]``; ``loss`` and ``forward`` take the
+reference's ``mesh``.
 """
 from __future__ import annotations
 
@@ -23,9 +26,9 @@ from .config import ModelConfig
 class ModelApi:
     """Uniform model surface used by training and serving."""
 
-    init: Callable  # (generator, cfg, *, device) -> params
-    loss: Callable  # (params, batch, cfg) -> (loss, metrics)
-    forward: Callable  # (params, batch, cfg) -> (logits, aux)
+    init: Callable  # (generator, cfg, *, device, with_axes=False) -> params or (params, axes)
+    loss: Callable  # (params, batch, cfg, *, mesh=None) -> (loss, metrics)
+    forward: Callable  # (params, batch, cfg, *, mesh=None) -> (logits, aux)
     prefill: Callable  # (params, batch, cfg, *, max_len[, last_only: dense]) -> (cache, logits)
     decode: Callable  # (params, cache, tokens [B], cfg) -> (cache, logits [B,V])
     extend: Optional[Callable] = None  # (params, cache, tokens [B,T], cfg) -> (cache, logits [B,T,V])

@@ -41,27 +41,49 @@ NEG_INF = -1e30
 
 
 def attention_init(gen, cfg: ModelConfig, *, device="cpu"):
+    """q/k/v/o projections (and qk-norm scales).  With ``pad_heads_to``
+    (tensor-parallel head padding) q and o carry ``padded_heads`` heads,
+    laid out per kv group with the pads last; the pads' ``o`` rows are
+    zeroed, so their contribution is exactly 0."""
     d, hd = cfg.d_model, cfg.head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
-    if cfg.padded_heads != nh:
-        raise NotImplementedError(
-            "pad_heads_to is tensor-parallel padding; the port runs on one "
-            "device and does not pad heads")
+    nhp = cfg.padded_heads
     dt = cfg.pdtype
     p = {
-        "q": nn.linear_init(gen, d, nh * hd, dtype=dt, bias=cfg.qkv_bias,
+        "q": nn.linear_init(gen, d, nhp * hd, axes=("embed", "q_proj"),
+                            dtype=dt, bias=cfg.qkv_bias, bias_axis="q_proj",
                             device=device),
-        "k": nn.linear_init(gen, d, nkv * hd, dtype=dt, bias=cfg.qkv_bias,
+        "k": nn.linear_init(gen, d, nkv * hd, axes=("embed", "kv_proj"),
+                            dtype=dt, bias=cfg.qkv_bias, bias_axis="kv_proj",
                             device=device),
-        "v": nn.linear_init(gen, d, nkv * hd, dtype=dt, bias=cfg.qkv_bias,
+        "v": nn.linear_init(gen, d, nkv * hd, axes=("embed", "kv_proj"),
+                            dtype=dt, bias=cfg.qkv_bias, bias_axis="kv_proj",
                             device=device),
-        "o": nn.linear_init(gen, nh * hd, d, dtype=dt,
-                            stddev=1.0 / math.sqrt(nh * hd), device=device),
+        "o": nn.linear_init(gen, nhp * hd, d, axes=("q_proj", "embed"),
+                            dtype=dt, stddev=1.0 / math.sqrt(nh * hd),
+                            device=device),
     }
+    if nhp != nh:
+        mask = _pad_head_mask(cfg).to(device)  # [nhp] bool, True = real
+        o = p["o"]["w"].value.reshape(nhp, hd, d)
+        p["o"]["w"].value = (o * mask[:, None, None].to(o.dtype)).reshape(
+            nhp * hd, d)
     if cfg.qk_norm:
-        p["q_norm"] = nn.rmsnorm_init(hd, dtype=dt, device=device)
-        p["k_norm"] = nn.rmsnorm_init(hd, dtype=dt, device=device)
+        p["q_norm"] = nn.rmsnorm_init(hd, axis="head_dim", dtype=dt,
+                                      device=device)
+        p["k_norm"] = nn.rmsnorm_init(hd, axis="head_dim", dtype=dt,
+                                      device=device)
     return p
+
+
+def _pad_head_mask(cfg: ModelConfig):
+    """[padded_heads] bool mask; heads grouped per kv head with pads last."""
+    nkv = cfg.n_kv_heads
+    g_real = cfg.n_heads // nkv
+    g_pad = cfg.padded_heads // nkv
+    m = torch.zeros((nkv, g_pad), dtype=torch.bool)
+    m[:, :g_real] = True
+    return m.reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -69,28 +91,39 @@ def attention_init(gen, cfg: ModelConfig, *, device="cpu"):
 # ---------------------------------------------------------------------------
 
 
-def project_q(p, x, cfg: ModelConfig):
+def _tp_ok(cfg: ModelConfig, mesh) -> bool:
+    return (cfg.explicit_tp and mesh is not None
+            and "model" in nn.axis_names(mesh)
+            and cfg.padded_heads % nn.mesh_shape(mesh)["model"] == 0)
+
+
+def project_q(p, x, cfg: ModelConfig, mesh=None):
     """q [B,S,Hq,D] without rope: the query side of ``_project_qkv``, all
-    that cross-attention over cached encoder K/V needs."""
+    that cross-attention over cached encoder K/V needs (Hq is
+    ``padded_heads``)."""
     B, S, _ = x.shape
-    q = nn.linear_apply(p["q"], x, cfg.cdtype).reshape(B, S, cfg.n_heads,
-                                                       cfg.head_dim)
+    if _tp_ok(cfg, mesh):
+        q = nn.linear_apply_tp(p["q"], x, "column", mesh, cfg.cdtype,
+                               fsdp=cfg.fsdp_params)
+    else:
+        q = nn.linear_apply(p["q"], x, cfg.cdtype)
+    q = nn.reshape(q, B, S, cfg.padded_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = nn.rmsnorm_apply(p["q_norm"], q, cfg.norm_eps)
     return q
 
 
 def _project_qkv(p, x, x_kv, cfg: ModelConfig, q_positions, kv_positions,
-                 *, rope: bool):
+                 *, rope: bool, mesh=None):
     """Return q [B,S,Hq,D], k/v [B,Skv,Hkv,D]."""
     Skv = x_kv.shape[1]
     B = x.shape[0]
     cd = cfg.cdtype
-    q = project_q(p, x, cfg)
-    k = nn.linear_apply(p["k"], x_kv, cd).reshape(B, Skv, cfg.n_kv_heads,
-                                                  cfg.head_dim)
-    v = nn.linear_apply(p["v"], x_kv, cd).reshape(B, Skv, cfg.n_kv_heads,
-                                                  cfg.head_dim)
+    q = project_q(p, x, cfg, mesh)
+    k = nn.reshape(nn.linear_apply(p["k"], x_kv, cd), B, Skv,
+                   cfg.n_kv_heads, cfg.head_dim)
+    v = nn.reshape(nn.linear_apply(p["v"], x_kv, cd), B, Skv,
+                   cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         k = nn.rmsnorm_apply(p["k_norm"], k, cfg.norm_eps)
     if rope:
@@ -184,8 +217,41 @@ def _pick_impl(cfg: ModelConfig, seq: int) -> str:
 # ---------------------------------------------------------------------------
 
 
+def _head_spec(cfg: ModelConfig, mesh, batch: int):
+    """(batch, None, "model", None) when q-heads divide the model axis."""
+    if mesh is None or "model" not in nn.axis_names(mesh):
+        return None
+    if cfg.padded_heads % nn.mesh_shape(mesh)["model"]:
+        return None
+    return nn.batch_pspec(mesh, batch, extra_dims=1) + ("model", None)
+
+
+def _attend(q, k, v, cfg: ModelConfig, mesh, fn):
+    """``fn(q, k, v)`` ([B,S,H,D] tensors, no DTensor) on each rank's
+    shard: the reference's ``_constrain_heads`` and the attention after
+    it.  Where the q-heads divide the model axis, q is head-sharded and
+    K/V are repeated to ``padded_heads`` and sliced to the rank's heads
+    (the kv heads are replicated over model), so ``fn`` sees G 1; else
+    every model rank attends its batch shard over all heads."""
+    if mesh is None:
+        return fn(q, k, v)
+    spec = _head_spec(cfg, mesh, q.shape[0])
+    bspec = nn.batch_pspec(mesh, q.shape[0], extra_dims=3)
+    if spec is None:
+        return nn.local_map(fn, mesh, [bspec] * 3, [bspec], q, k, v)
+    hl = cfg.padded_heads // nn.mesh_shape(mesh)["model"]
+    j = mesh.get_local_rank("model")
+
+    def local(ql, kl, vl):
+        kl = _repeat_kv(kl, cfg.padded_heads)[:, :, j * hl:(j + 1) * hl]
+        vl = _repeat_kv(vl, cfg.padded_heads)[:, :, j * hl:(j + 1) * hl]
+        return fn(ql, kl, vl)
+
+    return nn.local_map(local, mesh, [spec, bspec, bspec], [spec], q, k, v)
+
+
 def attention_apply(p, x, cfg: ModelConfig, *, causal=True, positions=None,
-                    x_kv=None, rope=True):
+                    x_kv=None, rope=True, mesh=None, seq_shard=False):
     """Self- (or, with ``x_kv``, cross-) attention over a full sequence.
 
     Causal self-attention (the decoder's training forward) goes through
@@ -194,21 +260,28 @@ def attention_apply(p, x, cfg: ModelConfig, *, causal=True, positions=None,
     CPU.  Non-causal self-attention (the encoder) and cross-attention
     (keys at positions ``0..Skv-1`` of ``x_kv``, never masked) run
     ``full_attention`` in PyTorch ops, as the reference does: it sends
-    only causal self-attention to its Pallas kernel."""
+    only causal self-attention to its Pallas kernel.  Under a mesh both
+    run on each rank's local shard (``_attend``); with ``explicit_tp``
+    the q and o projections are the tensor-parallel linears."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     if x_kv is None:
-        q, k, v = _project_qkv(p, x, x, cfg, positions, positions, rope=rope)
+        q, k, v = _project_qkv(p, x, x, cfg, positions, positions, rope=rope,
+                               mesh=mesh)
     else:
         kv_positions = torch.arange(x_kv.shape[1], device=x.device)[None, :]
         q, k, v = _project_qkv(p, x, x_kv, cfg, positions, kv_positions,
-                               rope=rope)
+                               rope=rope, mesh=mesh)
     if causal and x_kv is None:
-        out = fa_ops.flash_attention(q, k, v)
+        out = _attend(q, k, v, cfg, mesh, fa_ops.flash_attention)
     else:
-        out = full_attention(q, k, v, causal=False)
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+        out = _attend(q, k, v, cfg, mesh,
+                      lambda q, k, v: full_attention(q, k, v, causal=False))
+    out = nn.reshape(out, B, S, cfg.padded_heads * cfg.head_dim)
+    if _tp_ok(cfg, mesh):
+        return nn.linear_apply_tp(p["o"], out, "row", mesh, cfg.cdtype,
+                                  fsdp=cfg.fsdp_params, seq_shard=seq_shard)
     return nn.linear_apply(p["o"], out, cfg.cdtype)
 
 
@@ -232,7 +305,7 @@ def attention_prefill(p, x, cfg: ModelConfig, *, positions=None):
                                        block_k=cfg.attn_chunk_k)
     else:
         out = full_attention(q, k, v, causal=True)
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    out = out.reshape(B, S, cfg.padded_heads * cfg.head_dim)
     return nn.linear_apply(p["o"], out, cfg.cdtype), (k, v)
 
 
@@ -283,7 +356,7 @@ def attention_extend(p, x, cache_k, cache_v, kv_length, cfg: ModelConfig):
     logits = torch.where(mask[:, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
-    out = out.reshape(B, T, cfg.n_heads * cfg.head_dim)
+    out = out.reshape(B, T, cfg.padded_heads * cfg.head_dim)
     return (nn.linear_apply(p["o"], out, cfg.cdtype), cache_k, cache_v,
             kv_length + T)
 
@@ -314,7 +387,7 @@ def attention_decode(p, x, cache_k, cache_v, kv_length, cfg: ModelConfig):
                                       cache_v[bidx, wpos])
     new_len = kv_length + 1
     out = da_ops.decode_attention(q, cache_k, cache_v, new_len)
-    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
+    out = out.reshape(B, 1, cfg.padded_heads * cfg.head_dim)
     return nn.linear_apply(p["o"], out, cfg.cdtype), cache_k, cache_v, new_len
 
 
@@ -341,5 +414,5 @@ def attention_decode_paged(p, x, k_store, v_store, block_tables, kv_length,
     v_store[write_phys, write_off] = v_new[:, 0].to(v_store.dtype)
     out = da_ops.paged_decode_attention(q, k_store, v_store, block_tables,
                                         kv_length + 1)
-    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
+    out = out.reshape(B, 1, cfg.padded_heads * cfg.head_dim)
     return nn.linear_apply(p["o"], out, cfg.cdtype), k_store, v_store

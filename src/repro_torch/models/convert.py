@@ -89,3 +89,35 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
         out["groups"] = [[_unstack(_unstack(groups, g), i) for i in range(K)]
                          for g in range(G)]
     return out
+
+
+def _drop_layers(axes, n: int = 1):
+    """A stacked axes tree's leaves without their ``n`` leading
+    ``"layers"`` entries."""
+    if isinstance(axes, dict):
+        return {k: _drop_layers(v, n) for k, v in axes.items()}
+    return tuple(axes[n:])
+
+
+def unstack_axes(axes, cfg: ModelConfig):
+    """The reference's axes tree (``api.init(..., with_axes=True)``) laid
+    out as the port's parameters, as ``params_from_numpy`` lays out the
+    values: every stacked leaf without its leading ``"layers"``, repeated
+    per layer (an MoE model's ``pre/layer_i`` first; zamba2's ``groups`` as
+    G lists of K)."""
+    out = {k: v for k, v in axes.items()
+           if k not in ("pre", "blocks", "enc_blocks", "groups")}
+    if "blocks" in axes or "pre" in axes:
+        pre = axes.get("pre", {})
+        n = (cfg.n_layers if cfg.family == "ssm"
+             else cfg.dec_layers or cfg.n_layers)
+        out["blocks"] = [pre[f"layer_{i}"] for i in range(len(pre))]
+        if "blocks" in axes:
+            out["blocks"] += [_drop_layers(axes["blocks"])] * (n - len(pre))
+    if "enc_blocks" in axes:
+        out["enc_blocks"] = [_drop_layers(axes["enc_blocks"])] * cfg.enc_layers
+    if "groups" in axes:
+        G, K = cfg.n_layers // cfg.attn_every, cfg.attn_every
+        out["groups"] = [[_drop_layers(axes["groups"], 2)] * K
+                         for _ in range(G)]
+    return out

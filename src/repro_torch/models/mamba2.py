@@ -12,7 +12,12 @@ by one *shared* transformer block (one weight copy reused at every
 application, the Zamba trick), which is the port's dense
 ``transformer.block_*``.  Where the reference stacks the group params
 ``[G, K, ...]`` and scans them, ``p["groups"]`` is a list of G lists of K
-block dicts walked by Python loops.  The serving cache keeps the
+block dicts walked by Python loops (their axes stacked ``[G, K, ...]`` as
+the reference's, ``hybrid_init(..., with_axes=True)``).  Under a mesh
+(``hybrid_forward`` / ``hybrid_loss``) the residual is pinned
+batch-parallel, the SSD runs on each rank's batch and head shard (heads
+on "model", as the "ssm_heads" rule puts them; B and C are replicated
+over it) and the logits stay vocab-sharded.  The serving cache keeps the
 reference's stacked layout, ``{"ssm": {"conv": {"x","B","C": [G,K,B,W-1,
 C]}, "ssm": [G,K,B,H,N,P]}, "attn": {"k","v": [G,B,Smax,Hkv,D], "len":
 [G,B]}}``, which ``hybrid_decode_step`` updates in place.
@@ -65,31 +70,41 @@ def mamba_block_init(gen, cfg: ModelConfig, *, device="cpu"):
     dt = cfg.pdtype
     f32 = torch.float32
 
-    def linear(d_out, d_in_=d):
-        return nn.linear_init(gen, d_in_, d_out, dtype=dt, device=device)
+    def linear(d_out, axes, d_in_=d):
+        return nn.linear_init(gen, d_in_, d_out, axes=axes, dtype=dt,
+                              device=device)
 
     dt0 = torch.exp(_uniform(gen, (H,), math.log(1e-3), math.log(1e-1),
                              device))
     dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
     conv_std = 1.0 / math.sqrt(W)
+    Px = nn.Px
     return {
         "ln": nn.rmsnorm_init(d, dtype=dt, device=device),
-        "in_z": linear(d_in),
-        "in_x": linear(d_in),
-        "in_B": linear(N),
-        "in_C": linear(N),
-        "in_dt": linear(H),
-        "conv_x": nn.normal_init(gen, (W, d_in), dt, conv_std, device),
-        "conv_x_b": torch.zeros((d_in,), dtype=dt, device=device),
-        "conv_B": nn.normal_init(gen, (W, N), dt, conv_std, device),
-        "conv_B_b": torch.zeros((N,), dtype=dt, device=device),
-        "conv_C": nn.normal_init(gen, (W, N), dt, conv_std, device),
-        "conv_C_b": torch.zeros((N,), dtype=dt, device=device),
-        "A_log": torch.log(_uniform(gen, (H,), 1.0, 16.0, device)),
-        "D": torch.ones((H,), dtype=f32, device=device),
-        "dt_bias": dt_bias,
-        "norm": nn.rmsnorm_init(d_in, dtype=dt, device=device),
-        "out_proj": linear(d, d_in),
+        "in_z": linear(d_in, ("embed", "ssm_inner")),
+        "in_x": linear(d_in, ("embed", "ssm_inner")),
+        "in_B": linear(N, ("embed", "ssm_state")),
+        "in_C": linear(N, ("embed", "ssm_state")),
+        "in_dt": linear(H, ("embed", "ssm_heads")),
+        "conv_x": Px(nn.normal_init(gen, (W, d_in), dt, conv_std, device),
+                     ("conv_w", "ssm_inner")),
+        "conv_x_b": Px(torch.zeros((d_in,), dtype=dt, device=device),
+                       ("ssm_inner",)),
+        "conv_B": Px(nn.normal_init(gen, (W, N), dt, conv_std, device),
+                     ("conv_w", "ssm_state")),
+        "conv_B_b": Px(torch.zeros((N,), dtype=dt, device=device),
+                       ("ssm_state",)),
+        "conv_C": Px(nn.normal_init(gen, (W, N), dt, conv_std, device),
+                     ("conv_w", "ssm_state")),
+        "conv_C_b": Px(torch.zeros((N,), dtype=dt, device=device),
+                       ("ssm_state",)),
+        "A_log": Px(torch.log(_uniform(gen, (H,), 1.0, 16.0, device)),
+                    ("ssm_heads",)),
+        "D": Px(torch.ones((H,), dtype=f32, device=device), ("ssm_heads",)),
+        "dt_bias": Px(dt_bias, ("ssm_heads",)),
+        "norm": nn.rmsnorm_init(d_in, axis="ssm_inner", dtype=dt,
+                                device=device),
+        "out_proj": linear(d, ("ssm_inner", "embed"), d_in),
     }
 
 
@@ -119,16 +134,28 @@ def causal_conv(x, w, b, *, tail=None):
 # ---------------------------------------------------------------------------
 
 
-def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None):
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None, mesh=None):
     """Chunked SSD.
 
     x [B,T,H,P]; dt [B,T,H]; A [H] (negative); Bm/Cm [B,T,N].
     Returns (y [B,T,H,P], h_final [B,H,N,P] float32).  T must be at most
     ``chunk`` or a multiple of it (``ValueError`` otherwise, as in the
-    reference)."""
-    return ssd_ops.ssd(x, dt.float(), A.float(), Bm.to(x.dtype),
-                       Cm.to(x.dtype), chunk=chunk,
-                       h0=None if h0 is None else h0.float())
+    reference).  Under a mesh the scan runs on each rank's batch shard
+    and, where H divides "model", its heads."""
+    def scan(x, dt, A, Bm, Cm, h0):
+        return ssd_ops.ssd(x, dt.float(), A.float(), Bm.to(x.dtype),
+                           Cm.to(x.dtype), chunk=chunk,
+                           h0=None if h0 is None else h0.float())
+
+    if mesh is None:
+        return scan(x, dt, A, Bm, Cm, h0)
+    b = nn.batch_pspec(mesh, x.shape[0], extra_dims=0)[0]
+    h = ("model" if "model" in nn.axis_names(mesh)
+         and x.shape[2] % nn.mesh_shape(mesh)["model"] == 0 else None)
+    x4, st, bc = (b, None, h, None), (b, h, None, None), (b, None, None)
+    return nn.local_map(scan, mesh,
+                        [x4, (b, None, h), (h,), bc, bc, st], [x4, st],
+                        x, dt, A, Bm, Cm, h0)
 
 
 def ssd_recurrent(x, dt, A, Bm, Cm, h0=None):
@@ -179,7 +206,8 @@ def _project_streams(p, u, cfg: ModelConfig, state):
 
 
 def mamba_block_apply(p, u, cfg: ModelConfig, *, state=None,
-                      return_state: bool = False, recurrent_oracle=False):
+                      return_state: bool = False, recurrent_oracle=False,
+                      mesh=None):
     """Full-sequence Mamba2 block. u [B,T,d].
 
     state (optional): {"conv": {x,B,C tails}, "ssm": [B,H,N,P]}.
@@ -190,18 +218,19 @@ def mamba_block_apply(p, u, cfg: ModelConfig, *, state=None,
     x_res = u
     u = nn.rmsnorm_apply(p["ln"], u, cfg.norm_eps)
     z, x, Bm, Cm, dt, new_tails = _project_streams(p, u, cfg, state)
-    x = x.reshape(B, T, H, P)
+    x = nn.reshape(x, B, T, H, P)
     dt = F.softplus(dt.float() + p["dt_bias"][None, None, :])
     A = -torch.exp(p["A_log"])
     h0 = state["ssm"] if state is not None else None
     if recurrent_oracle:
         y, h = ssd_recurrent(x, dt, A, Bm, Cm, h0=h0)
     else:
-        y, h = ssd_chunked(x, dt, A, Bm, Cm, cfg.ssm_chunk, h0=h0)
+        y, h = ssd_chunked(x, dt, A, Bm, Cm, cfg.ssm_chunk, h0=h0, mesh=mesh)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * x
-    y = y.reshape(B, T, d_in)
+    y = nn.reshape(y, B, T, d_in)
     y = nn.rmsnorm_apply(p["norm"], y * F.silu(z), cfg.norm_eps)
-    out = x_res + nn.linear_apply(p["out_proj"], y, cfg.cdtype)
+    out = x_res + nn.constrain(nn.linear_apply(p["out_proj"], y, cfg.cdtype),
+                               mesh, nn.batch_pspec(mesh, B))
     if return_state:
         return out, {"conv": new_tails, "ssm": h}
     return out
@@ -246,25 +275,32 @@ def init_ssm_state(cfg: ModelConfig, batch: int, *, device="cpu"):
 # ---------------------------------------------------------------------------
 
 
-def hybrid_init(gen, cfg: ModelConfig, *, device=None):
+def hybrid_init(gen, cfg: ModelConfig, *, device=None, with_axes=False):
     """Zamba2 params drawn from ``gen`` on ``device``; ``None`` is the CUDA
-    card (``resolve_device``)."""
+    card (``resolve_device``).  With ``with_axes`` -> (params, axes), the
+    axes in the reference's layout."""
     if cfg.attn_every <= 0 or cfg.n_layers % cfg.attn_every:
         raise ValueError("hybrid needs n_layers % attn_every == 0")
     device = resolve_device(device)
     G = cfg.n_layers // cfg.attn_every
     K = cfg.attn_every
     dt = cfg.pdtype
-    return {
-        "embed": nn.embedding_init(gen, cfg.vocab, cfg.d_model, dtype=dt,
-                                   device=device),
-        "groups": [[mamba_block_init(gen, cfg, device=device)
-                    for _ in range(K)] for _ in range(G)],
+    params, axes = nn.split({"embed": nn.embedding_init(
+        gen, cfg.vocab, cfg.d_model, dtype=dt, device=device)})
+    groups = [nn.stack_layers([mamba_block_init(gen, cfg, device=device)
+                               for _ in range(K)]) for _ in range(G)]
+    params["groups"] = [g for g, _ in groups]
+    axes["groups"] = nn.stack_axes(groups[0][1])  # [G, K, ...]
+    rest, rest_axes = nn.split({
         "shared": tfm.block_init(gen, cfg, device=device),
         "ln_f": nn.rmsnorm_init(cfg.d_model, dtype=dt, device=device),
-        "unembed": nn.linear_init(gen, cfg.d_model, cfg.vocab, dtype=dt,
+        "unembed": nn.linear_init(gen, cfg.d_model, cfg.vocab,
+                                  axes=("embed", "vocab"), dtype=dt,
                                   device=device),
-    }
+    })
+    params.update(rest)
+    axes.update(rest_axes)
+    return (params, axes) if with_axes else params
 
 
 def _readout(p, x, cfg: ModelConfig):
@@ -272,31 +308,40 @@ def _readout(p, x, cfg: ModelConfig):
     return nn.linear_apply(p["unembed"], x, torch.float32)
 
 
-def hybrid_forward(p, batch, cfg: ModelConfig):
+def hybrid_forward(p, batch, cfg: ModelConfig, *, mesh=None):
     """tokens [B,T] -> (logits [B,T,V], aux = 0).  The shared block runs
     ``transformer.block_apply`` (the flash-attention kernel on the card).
     ``cfg.remat == "full"`` checkpoints each group body, its Mamba2 layers
     and the shared block as one unit, as the reference's ``group_body``."""
-    tokens = batch["tokens"]
-    x = nn.embedding_apply(p["embed"], tokens, cfg.cdtype)
-    positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    with nn.mesh_context(mesh):
+        tokens = batch["tokens"]
+        x = nn.embedding_apply(p["embed"], tokens, cfg.cdtype, mesh=mesh)
+        positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+        aspec = nn.batch_pspec(mesh, x.shape[0])
+        x = nn.constrain(x, mesh, aspec)
 
-    def group_body(x, group):
-        for bp in group:
-            x = mamba_block_apply(bp, x, cfg)
-        return tfm.block_apply(p["shared"], x, cfg, causal=True,
-                               positions=positions)[0]
+        def group_body(x, group):
+            for bp in group:
+                x = nn.constrain(x, mesh, aspec)
+                x = nn.constrain(mamba_block_apply(bp, x, cfg, mesh=mesh),
+                                 mesh, aspec)
+            y = tfm.block_apply(p["shared"], x, cfg, causal=True,
+                                positions=positions, mesh=mesh)[0]
+            return nn.constrain(y, mesh, aspec)
 
-    run = tfm.remat_wrap(group_body, cfg)
-    for group in p["groups"]:
-        x = run(x, group)
-    return _readout(p, x, cfg), torch.zeros((), dtype=torch.float32,
-                                             device=x.device)
+        run = tfm.remat_wrap(group_body, cfg)
+        for group in p["groups"]:
+            x = run(x, group)
+        logits = _readout(p, x, cfg)
+        if mesh is not None:
+            logits = nn.constrain(logits, mesh, tfm._logits_spec(mesh, aspec))
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def hybrid_loss(p, batch, cfg: ModelConfig):
-    logits, aux = hybrid_forward(p, batch, cfg)
-    return tfm._ce_from_logits(logits, batch, aux, cfg)
+def hybrid_loss(p, batch, cfg: ModelConfig, *, mesh=None):
+    with nn.mesh_context(mesh):
+        logits, aux = hybrid_forward(p, batch, cfg, mesh=mesh)
+        return tfm._ce_from_logits(logits, batch, aux, cfg, mesh=mesh)
 
 
 def _stack(trees):

@@ -10,7 +10,11 @@ Prefill and forward use the chunked WKV (``wkv_chunked``, through
 tensors are on the card, its plain version on the CPU).  Decode is the
 O(1) recurrence (``wkv_step``).  Where the reference stacks layer params
 ``[L, ...]`` and scans them, ``p["blocks"]`` is a list of per-layer dicts
-walked by a Python loop; the serving state is a dict of stacked tensors
+walked by a Python loop (their axes stacked as the reference's,
+``rwkv_init(..., with_axes=True)``).  Under a mesh (``rwkv_forward`` /
+``rwkv_loss``) the residual is pinned batch-parallel, the WKV runs on
+each rank's batch and head shard (heads on "model", as the "wkv_proj"
+rule puts the projections) and the logits stay vocab-sharded; the serving state is a dict of stacked tensors
 ``{"att": {"shift": [L,B,d], "wkv": [L,B,H,hd,hd]}, "ffn": {"shift":
 [L,B,d]}}``, which ``rwkv_decode_step`` updates in place.
 """
@@ -43,37 +47,45 @@ def rwkv_block_init(gen, cfg: ModelConfig, *, device="cpu"):
     Lm, Ld = cfg.rwkv_lora_mix, cfg.rwkv_lora_decay
     dt = cfg.pdtype
     f32 = torch.float32
+    Px = nn.Px
 
-    def zeros(shape, dtype=dt):
-        return torch.zeros(shape, dtype=dtype, device=device)
+    def zeros(shape, axes, dtype=dt):
+        return Px(torch.zeros(shape, dtype=dtype, device=device), axes)
 
-    def linear(d_in, d_out):
-        return nn.linear_init(gen, d_in, d_out, dtype=dt, device=device)
+    def linear(d_in, d_out, axes):
+        return nn.linear_init(gen, d_in, d_out, axes=axes, dtype=dt,
+                              device=device)
 
     att = {
         "ln": nn.layernorm_init(d, dtype=dt, device=device),
-        "maa_x": zeros((d,)),
-        "maa": zeros((5, d)),
-        "tm_A": nn.lecun_init(gen, (d, 5 * Lm), dt, d, device),
-        "tm_B": nn.normal_init(gen, (5, Lm, d), dt, 0.01, device),
-        "r": linear(d, d),
-        "k": linear(d, d),
-        "v": linear(d, d),
-        "g": linear(d, d),
-        "decay_base": torch.full((d,), -1.0, dtype=f32, device=device),
-        "dec_A": nn.lecun_init(gen, (d, Ld), dt, d, device),
-        "dec_B": nn.normal_init(gen, (Ld, d), dt, 0.01, device),
-        "u": zeros((d,), f32),
-        "ln_x": nn.layernorm_init(d, dtype=dt, device=device),
-        "o": linear(d, d),
+        "maa_x": zeros((d,), ("embed",)),
+        "maa": zeros((5, d), ("mix5", "embed")),
+        "tm_A": Px(nn.lecun_init(gen, (d, 5 * Lm), dt, d, device),
+                   ("embed", "lora")),
+        "tm_B": Px(nn.normal_init(gen, (5, Lm, d), dt, 0.01, device),
+                   ("mix5", "lora", "embed")),
+        "r": linear(d, d, ("embed", "wkv_proj")),
+        "k": linear(d, d, ("embed", "wkv_proj")),
+        "v": linear(d, d, ("embed", "wkv_proj")),
+        "g": linear(d, d, ("embed", "wkv_proj")),
+        "decay_base": Px(torch.full((d,), -1.0, dtype=f32, device=device),
+                         ("wkv_proj",)),
+        "dec_A": Px(nn.lecun_init(gen, (d, Ld), dt, d, device),
+                    ("embed", "lora")),
+        "dec_B": Px(nn.normal_init(gen, (Ld, d), dt, 0.01, device),
+                    ("lora", "wkv_proj")),
+        "u": zeros((d,), ("wkv_proj",), f32),
+        "ln_x": nn.layernorm_init(d, axis="wkv_proj", dtype=dt,
+                                  device=device),
+        "o": linear(d, d, ("wkv_proj", "embed")),
     }
     ffn = {
         "ln": nn.layernorm_init(d, dtype=dt, device=device),
-        "maa_k": zeros((d,)),
-        "maa_r": zeros((d,)),
-        "k": linear(d, ff),
-        "v": linear(ff, d),
-        "r": linear(d, d),
+        "maa_k": zeros((d,), ("embed",)),
+        "maa_r": zeros((d,), ("embed",)),
+        "k": linear(d, ff, ("embed", "mlp")),
+        "v": linear(ff, d, ("mlp", "embed")),
+        "r": linear(d, d, ("embed", "wkv_proj")),
     }
     return {"att": att, "ffn": ffn}
 
@@ -83,13 +95,25 @@ def rwkv_block_init(gen, cfg: ModelConfig, *, device="cpu"):
 # ---------------------------------------------------------------------------
 
 
-def wkv_chunked(r, k, v, lw, u, chunk: int, s0=None):
+def wkv_chunked(r, k, v, lw, u, chunk: int, s0=None, mesh=None):
     """Chunked WKV6.
 
     r,k,v [B,T,H,hd]; lw = log-decay [B,T,H,hd] (<= 0); u [H,hd].
-    Returns (y [B,T,H,hd], s_final [B,H,hd,hd])."""
-    return wkv_ops.wkv(r, k, v, lw.float(), u.float(), chunk=chunk,
-                       s0=None if s0 is None else s0.float())
+    Returns (y [B,T,H,hd], s_final [B,H,hd,hd]).  Under a mesh the scan
+    runs on each rank's batch shard and, where H divides "model", its
+    heads."""
+    def scan(r, k, v, lw, u, s0):
+        return wkv_ops.wkv(r, k, v, lw.float(), u.float(), chunk=chunk,
+                           s0=None if s0 is None else s0.float())
+
+    if mesh is None:
+        return scan(r, k, v, lw, u, s0)
+    b = nn.batch_pspec(mesh, r.shape[0], extra_dims=0)[0]
+    h = ("model" if "model" in nn.axis_names(mesh)
+         and r.shape[2] % nn.mesh_shape(mesh)["model"] == 0 else None)
+    x4, st = (b, None, h, None), (b, h, None, None)
+    return nn.local_map(scan, mesh, [x4, x4, x4, x4, (h, None), st],
+                        [x4, st], r, k, v, lw, u, s0)
 
 
 def wkv_recurrent(r, k, v, lw, u, s0=None):
@@ -121,8 +145,8 @@ def wkv_step(S, r_t, k_t, v_t, lw_t, u):
 
 def _token_shift(x, shift_state=None):
     """Previous token (zeros at position 0 or shift_state). x [B,T,d]."""
-    if shift_state is None:
-        return F.pad(x[:, :-1], (0, 0, 1, 0))
+    if shift_state is None:  # (a cat, not F.pad: a DTensor takes it)
+        return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
     return torch.cat([shift_state[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
 
 
@@ -132,40 +156,42 @@ def _dynamic_mix(p, x, xx):
     xxx = x + dx * p["maa_x"].to(x.dtype)[None, None, :]
     B, T, d = x.shape
     lora = torch.tanh(xxx @ p["tm_A"].to(x.dtype))  # [B,T,5*Lm]
-    lora = lora.reshape(B, T, 5, -1)
+    lora = nn.reshape(lora, B, T, 5, -1)
     dyn = torch.einsum("btml,mld->mbtd", lora, p["tm_B"].to(x.dtype))
     maa = p["maa"].to(x.dtype)  # [5,d]
     return x[None] + dx[None] * (maa[:, None, None, :] + dyn)  # [5,B,T,d]
 
 
-def time_mix_apply(p, x, cfg: ModelConfig, *, state=None, chunked=True):
+def time_mix_apply(p, x, cfg: ModelConfig, *, state=None, chunked=True,
+                   mesh=None):
     """Time-mix sub-block. state: {"shift": [B,d], "wkv": [B,H,hd,hd]}."""
     H, hd = _heads(cfg)
     B, T, d = x.shape
     shift = state["shift"] if state is not None else None
     xx = _token_shift(x, shift)
-    xw, xk, xv, xr, xg = _dynamic_mix(p, x, xx)
+    xw, xk, xv, xr, xg = nn.unbind(_dynamic_mix(p, x, xx))
     cd = cfg.cdtype
-    r = nn.linear_apply(p["r"], xr, cd).reshape(B, T, H, hd)
-    k = nn.linear_apply(p["k"], xk, cd).reshape(B, T, H, hd)
-    v = nn.linear_apply(p["v"], xv, cd).reshape(B, T, H, hd)
+    r = nn.reshape(nn.linear_apply(p["r"], xr, cd), B, T, H, hd)
+    k = nn.reshape(nn.linear_apply(p["k"], xk, cd), B, T, H, hd)
+    v = nn.reshape(nn.linear_apply(p["v"], xv, cd), B, T, H, hd)
     g = F.silu(nn.linear_apply(p["g"], xg, cd))
     # data-dependent decay (per channel)
     dec = p["decay_base"].float() + (
         torch.tanh(xw.float() @ p["dec_A"].float()) @ p["dec_B"].float())
-    lw = -torch.exp(dec).reshape(B, T, H, hd)  # log w <= 0
-    u = p["u"].float().reshape(H, hd)
+    lw = -nn.reshape(torch.exp(dec), B, T, H, hd)  # log w <= 0
+    u = nn.reshape(p["u"].float(), H, hd)
     s0 = state["wkv"] if state is not None else None
     if chunked:
-        y, s_final = wkv_chunked(r, k, v, lw, u, cfg.rwkv_chunk, s0=s0)
+        y, s_final = wkv_chunked(r, k, v, lw, u, cfg.rwkv_chunk, s0=s0,
+                                 mesh=mesh)
     else:
         y, s_final = wkv_recurrent(r, k, v, lw, u, s0=s0)
     # per-head group norm
-    yh = y.reshape(B, T, H, hd)
+    yh = nn.reshape(y, B, T, H, hd)
     mu = yh.mean(-1, keepdim=True)
     var = yh.var(-1, keepdim=True, correction=0)
     yh = (yh - mu) * torch.rsqrt(var + 64e-5)
-    y = yh.reshape(B, T, d) * p["ln_x"]["scale"].to(y.dtype) + \
+    y = nn.reshape(yh, B, T, d) * p["ln_x"]["scale"].to(y.dtype) + \
         p["ln_x"]["bias"].to(y.dtype)
     y = nn.linear_apply(p["o"], y * g, cd)
     return y, {"shift": x[:, -1, :], "wkv": s_final}
@@ -185,15 +211,18 @@ def channel_mix_apply(p, x, cfg: ModelConfig, *, state=None):
     return out, {"shift": x[:, -1, :]}
 
 
-def rwkv_block_apply(p, x, cfg: ModelConfig, *, state=None, chunked=True):
+def rwkv_block_apply(p, x, cfg: ModelConfig, *, state=None, chunked=True,
+                     mesh=None):
     att_state = state["att"] if state is not None else None
     ffn_state = state["ffn"] if state is not None else None
     h = nn.layernorm_apply(p["att"]["ln"], x, cfg.norm_eps)
     dy, new_att = time_mix_apply(p["att"], h, cfg, state=att_state,
-                                 chunked=chunked)
-    x = x + dy
+                                 chunked=chunked, mesh=mesh)
+    rspec = nn.batch_pspec(mesh, x.shape[0])
+    x = x + nn.constrain(dy, mesh, rspec)
     h = nn.layernorm_apply(p["ffn"]["ln"], x, cfg.norm_eps)
     dy, new_ffn = channel_mix_apply(p["ffn"], h, cfg, state=ffn_state)
+    dy = nn.constrain(dy, mesh, rspec)
     return x + dy, {"att": new_att, "ffn": new_ffn}
 
 
@@ -202,23 +231,31 @@ def rwkv_block_apply(p, x, cfg: ModelConfig, *, state=None, chunked=True):
 # ---------------------------------------------------------------------------
 
 
-def rwkv_init(gen, cfg: ModelConfig, *, device=None):
+def rwkv_init(gen, cfg: ModelConfig, *, device=None, with_axes=False):
     """RWKV6 params drawn from ``gen`` on ``device`` (the reference's
     distributions: lecun-normal linears, LoRA up-projections with std 0.01,
     zero mixing coefficients and bonus, decay base -1); ``None`` is the
-    CUDA card (``resolve_device``)."""
+    CUDA card (``resolve_device``).  With ``with_axes`` -> (params,
+    axes), the axes in the reference's layout."""
     device = resolve_device(device)
     dt = cfg.pdtype
-    return {
+    params, axes = nn.split({
         "embed": nn.embedding_init(gen, cfg.vocab, cfg.d_model, dtype=dt,
                                    device=device),
         "ln_in": nn.layernorm_init(cfg.d_model, dtype=dt, device=device),
-        "blocks": [rwkv_block_init(gen, cfg, device=device)
-                   for _ in range(cfg.n_layers)],
+    })
+    params["blocks"], axes["blocks"] = nn.stack_layers(
+        [rwkv_block_init(gen, cfg, device=device)
+         for _ in range(cfg.n_layers)])
+    rest, rest_axes = nn.split({
         "ln_f": nn.layernorm_init(cfg.d_model, dtype=dt, device=device),
-        "unembed": nn.linear_init(gen, cfg.d_model, cfg.vocab, dtype=dt,
+        "unembed": nn.linear_init(gen, cfg.d_model, cfg.vocab,
+                                  axes=("embed", "vocab"), dtype=dt,
                                   device=device),
-    }
+    })
+    params.update(rest)
+    axes.update(rest_axes)
+    return (params, axes) if with_axes else params
 
 
 def _empty_state(cfg: ModelConfig, batch: int, device):
@@ -234,8 +271,8 @@ def _empty_state(cfg: ModelConfig, batch: int, device):
     }
 
 
-def _embed(p, tokens, cfg: ModelConfig):
-    x = nn.embedding_apply(p["embed"], tokens, cfg.cdtype)
+def _embed(p, tokens, cfg: ModelConfig, mesh=None):
+    x = nn.embedding_apply(p["embed"], tokens, cfg.cdtype, mesh=mesh)
     return nn.layernorm_apply(p["ln_in"], x, cfg.norm_eps)
 
 
@@ -244,20 +281,32 @@ def _readout(p, x, cfg: ModelConfig):
     return nn.linear_apply(p["unembed"], x, torch.float32)
 
 
-def rwkv_forward(p, batch, cfg: ModelConfig):
+def rwkv_forward(p, batch, cfg: ModelConfig, *, mesh=None):
     """tokens [B,T] -> (logits [B,T,V], aux = 0).  ``cfg.remat == "full"``
     checkpoints each block, as the reference's ``remat_wrap``."""
-    x = _embed(p, batch["tokens"], cfg)
-    run = tfm.remat_wrap(lambda x, bp: rwkv_block_apply(bp, x, cfg)[0], cfg)
-    for bp in p["blocks"]:
-        x = run(x, bp)
-    return _readout(p, x, cfg), torch.zeros((), dtype=torch.float32,
-                                             device=x.device)
+    with nn.mesh_context(mesh):
+        x = _embed(p, batch["tokens"], cfg, mesh)
+        aspec = nn.batch_pspec(mesh, x.shape[0])
+        x = nn.constrain(x, mesh, aspec)
+
+        def body(x, bp):
+            x = nn.constrain(x, mesh, aspec)
+            y = rwkv_block_apply(bp, x, cfg, mesh=mesh)[0]
+            return nn.constrain(y, mesh, aspec)
+
+        run = tfm.remat_wrap(body, cfg)
+        for bp in p["blocks"]:
+            x = run(x, bp)
+        logits = _readout(p, x, cfg)
+        if mesh is not None:
+            logits = nn.constrain(logits, mesh, tfm._logits_spec(mesh, aspec))
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def rwkv_loss(p, batch, cfg: ModelConfig):
-    logits, aux = rwkv_forward(p, batch, cfg)
-    return tfm._ce_from_logits(logits, batch, aux, cfg)
+def rwkv_loss(p, batch, cfg: ModelConfig, *, mesh=None):
+    with nn.mesh_context(mesh):
+        logits, aux = rwkv_forward(p, batch, cfg, mesh=mesh)
+        return tfm._ce_from_logits(logits, batch, aux, cfg, mesh=mesh)
 
 
 def rwkv_prefill(p, batch, cfg: ModelConfig, *, max_len: int = 0):

@@ -6,7 +6,13 @@ reference stacks layer params ``[L, ...]`` and scans them with
 ``jax.lax.scan`` (an MoE model's first dense layers kept apart under
 ``p["pre"]``); here ``p["blocks"]`` (and an encoder-decoder's
 ``p["enc_blocks"]``) is one list of per-layer dicts, the first dense layers
-first, walked by a Python loop, on one device (no mesh).  A layer from
+first, walked by a Python loop.  Their logical axes keep the reference's
+layout (``lm_init(..., with_axes=True)``: ``pre/layer_i`` apart, the
+other layers stacked with ``"layers"`` first).  ``forward`` and
+``loss_fn`` take the reference's ``mesh``: the residual stream is pinned
+batch-parallel (and sequence-parallel over "model" with
+``seq_shard_activations``), and the loss reads vocab-sharded logits
+without gathering them (``_sharded_loglik``); serving runs on one device.  A layer from
 ``first_dense_layers`` on carries ``moe`` in place of ``mlp``; its FFN
 returns the router's aux loss, which the forward sums.  A decoder block of
 an encoder-decoder also carries ``ln_cross``/``cross``: attention from
@@ -79,34 +85,63 @@ def block_init(gen, cfg: ModelConfig, *, layer_idx: int = 0,
     return p
 
 
-def _ffn(p, x, cfg: ModelConfig, decode: bool):
+def _sp_on(cfg: ModelConfig, mesh, x) -> bool:
+    return (cfg.seq_shard_activations and mesh is not None
+            and "model" in nn.axis_names(mesh)
+            and x.dim() == 3 and x.shape[1] % nn.mesh_shape(mesh)["model"] == 0)
+
+
+def _gather_seq(x, cfg: ModelConfig, mesh):
+    """Megatron-SP: gather the seq-sharded residual before a block."""
+    if not _sp_on(cfg, mesh, x):
+        return x
+    return nn.constrain(x, mesh, nn.batch_pspec(mesh, x.shape[0]))
+
+
+def _ffn(p, x, cfg: ModelConfig, decode: bool, mesh=None):
     """Residual FFN; returns (y, aux).  ``decode`` picks the MoE's decode
     capacity factor (every path but the training forward, as the
     reference)."""
-    h = nn.rmsnorm_apply(p["ln_mlp"], x, cfg.norm_eps)
+    sp = _sp_on(cfg, mesh, x)
+    h = nn.rmsnorm_apply(p["ln_mlp"], _gather_seq(x, cfg, mesh), cfg.norm_eps)
     if "moe" in p:
-        h, aux = moe_lib.moe_apply(p["moe"], h, cfg, decode=decode)
+        h, aux = moe_lib.moe_apply(p["moe"], h, cfg, decode=decode, mesh=mesh)
+        if sp:
+            h = nn.constrain(h, mesh, (nn.batch_pspec(mesh, x.shape[0])[0],
+                                       "model", None))
     else:
         h = nn.mlp_apply(p["mlp"], h, activation=cfg.activation,
-                         compute_dtype=cfg.cdtype)
+                         compute_dtype=cfg.cdtype, mesh=mesh,
+                         explicit_tp=cfg.explicit_tp, fsdp=cfg.fsdp_params,
+                         seq_shard=sp)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + h, aux
+    # the branch's partial sums are reduced before they meet the residual
+    # (DTensor would otherwise reduce-scatter them onto the sequence)
+    return x + nn.constrain(h, mesh, _residual_spec(cfg, mesh, x.shape[0],
+                                                    x.shape[1])), aux
 
 
 def block_apply(p, x, cfg: ModelConfig, *, causal=True, positions=None,
-                enc_out=None):
+                enc_out=None, mesh=None):
     """Full-sequence block forward (``causal=False``: an encoder block).
-    Returns (y, aux_loss); aux is 0 for a dense block."""
-    h = nn.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
+    Returns (y, aux_loss); aux is 0 for a dense block.  Under a mesh each
+    branch's output is brought to the residual's layout before the add."""
+    sp = _sp_on(cfg, mesh, x)
+    rspec = _residual_spec(cfg, mesh, x.shape[0], x.shape[1])
+    h = nn.rmsnorm_apply(p["ln_attn"], _gather_seq(x, cfg, mesh),
+                         cfg.norm_eps)
     h = attn.attention_apply(p["attn"], h, cfg, causal=causal,
                              positions=positions,
-                             rope=cfg.positions == "rope")
-    x = x + h
+                             rope=cfg.positions == "rope", mesh=mesh,
+                             seq_shard=sp)
+    x = x + nn.constrain(h, mesh, rspec)
     if "cross" in p and enc_out is not None:
         h = nn.rmsnorm_apply(p["ln_cross"], x, cfg.norm_eps)
-        x = x + attn.attention_apply(p["cross"], h, cfg, causal=False,
-                                     x_kv=enc_out, rope=False)
-    return _ffn(p, x, cfg, decode=False)
+        x = x + nn.constrain(
+            attn.attention_apply(p["cross"], h, cfg, causal=False,
+                                 x_kv=enc_out, rope=False, mesh=mesh),
+            mesh, rspec)
+    return _ffn(p, x, cfg, decode=False, mesh=mesh)
 
 
 def _cross_prefill(p, x, enc_out, cfg: ModelConfig):
@@ -205,34 +240,50 @@ def block_extend(p, x, cache_k, cache_v, lens, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 
-def lm_init(gen, cfg: ModelConfig, *, device=None):
+def lm_init(gen, cfg: ModelConfig, *, device=None, with_axes=False):
     """LM params drawn from ``gen`` on ``device`` (lecun-normal linears and
     experts, ``o`` with std 1/sqrt(nh*hd), embedding std 1, a learned
     position table std 0.01, rmsnorm ones); ``None`` is the CUDA card
     (``resolve_device``).  An encoder-decoder has ``dec_layers`` cross
-    blocks, ``enc_layers`` encoder blocks and ``enc_ln_f``."""
+    blocks, ``enc_layers`` encoder blocks and ``enc_ln_f``.  With
+    ``with_axes`` -> (params, axes), the axes in the reference's layout."""
     device = resolve_device(device)
     dt = cfg.pdtype
+    n_dec = cfg.dec_layers or cfg.n_layers
+    n_pre = cfg.first_dense_layers if cfg.is_moe else 0
     p: dict[str, Any] = {
         "embed": nn.embedding_init(gen, cfg.vocab, cfg.d_model, dtype=dt,
                                    device=device),
         "ln_f": nn.rmsnorm_init(cfg.d_model, dtype=dt, device=device),
-        "blocks": [block_init(gen, cfg, layer_idx=i,
-                              cross=cfg.cross_attention, device=device)
-                   for i in range(cfg.dec_layers or cfg.n_layers)],
     }
+    layers = [block_init(gen, cfg, layer_idx=i, cross=cfg.cross_attention,
+                         device=device) for i in range(n_dec)]
     if not cfg.tie_embeddings:
-        p["unembed"] = nn.linear_init(gen, cfg.d_model, cfg.vocab, dtype=dt,
+        p["unembed"] = nn.linear_init(gen, cfg.d_model, cfg.vocab,
+                                      axes=("embed", "vocab"), dtype=dt,
                                       device=device)
+    enc = None
     if cfg.family == "encdec":
-        p["enc_blocks"] = [block_init(gen, cfg, layer_idx=i, device=device)
-                           for i in range(cfg.enc_layers)]
+        enc = [block_init(gen, cfg, layer_idx=i, device=device)
+               for i in range(cfg.enc_layers)]
         p["enc_ln_f"] = nn.rmsnorm_init(cfg.d_model, dtype=dt,
                                         device=device)
     if cfg.positions == "learned":
-        p["pos_embed"] = {"table": nn.normal_init(
-            gen, (cfg.max_seq, cfg.d_model), dt, 0.01, device)}
-    return p
+        p["pos_embed"] = {"table": nn.Px(nn.normal_init(
+            gen, (cfg.max_seq, cfg.d_model), dt, 0.01, device),
+            ("pos", "embed"))}
+    params, axes = nn.split(p)
+    params["blocks"] = []
+    if n_pre:
+        pre = [nn.split(t) for t in layers[:n_pre]]
+        params["blocks"] = [v for v, _ in pre]
+        axes["pre"] = {f"layer_{i}": a for i, (_, a) in enumerate(pre)}
+    if layers[n_pre:]:  # (an MoE model cut to its dense layers has none)
+        stacked, axes["blocks"] = nn.stack_layers(layers[n_pre:])
+        params["blocks"] += stacked
+    if enc is not None:
+        params["enc_blocks"], axes["enc_blocks"] = nn.stack_layers(enc)
+    return (params, axes) if with_axes else params
 
 
 # ---------------------------------------------------------------------------
@@ -279,9 +330,9 @@ def _frame_embeds(batch, cfg: ModelConfig):
     return batch["frame_embeds"]
 
 
-def _encoder_and_prefix(p, batch, cfg: ModelConfig):
+def _encoder_and_prefix(p, batch, cfg: ModelConfig, mesh=None):
     """(the encoder's output or None, the vision prefix or None)."""
-    enc_out = (encode(p, _frame_embeds(batch, cfg), cfg)
+    enc_out = (encode(p, _frame_embeds(batch, cfg), cfg, mesh=mesh)
                if cfg.family == "encdec" else None)
     prefix = batch.get("patch_embeds") if cfg.family == "vlm" else None
     return enc_out, prefix
@@ -300,10 +351,11 @@ def _learned_positions(p, pos, dtype):
                                   device=rows.device))
 
 
-def _embed_tokens(p, tokens, cfg: ModelConfig, *, prefix_embeds=None):
+def _embed_tokens(p, tokens, cfg: ModelConfig, *, prefix_embeds=None,
+                  mesh=None):
     """Token embeddings with the vision prefix prepended and learned or
     sinusoidal positions added -> (x [B,S,d], positions [1,S])."""
-    x = nn.embedding_apply(p["embed"], tokens, cfg.cdtype)
+    x = nn.embedding_apply(p["embed"], tokens, cfg.cdtype, mesh=mesh)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     S = x.shape[1]
@@ -316,62 +368,157 @@ def _embed_tokens(p, tokens, cfg: ModelConfig, *, prefix_embeds=None):
     return x, positions
 
 
-def encode(p, frame_embeds, cfg: ModelConfig):
+def encode(p, frame_embeds, cfg: ModelConfig, *, mesh=None):
     """The encoder stack over stubbed frame embeddings [B,F,d] (whisper):
     sinusoidal positions, non-causal blocks, ``enc_ln_f``."""
     x = frame_embeds.to(cfg.cdtype)
     S = x.shape[1]
     x = x + nn.sinusoidal_positions(S, cfg.d_model, x.device).to(x.dtype)[None]
-    run = remat_wrap(lambda x, layer: block_apply(layer, x, cfg,
-                                                  causal=False)[0], cfg)
+    aspec = nn.batch_pspec(mesh, x.shape[0])
+
+    def body(x, layer):
+        x = nn.constrain(x, mesh, aspec)
+        y = block_apply(layer, x, cfg, causal=False, mesh=mesh)[0]
+        return nn.constrain(y, mesh, aspec)
+
+    run = remat_wrap(body, cfg)
     for layer in p["enc_blocks"]:
         x = run(x, layer)
     return nn.rmsnorm_apply(p["enc_ln_f"], x, cfg.norm_eps)
 
 
-def _run_blocks(p, x, cfg: ModelConfig, *, positions=None, enc_out=None):
+def _residual_spec(cfg: ModelConfig, mesh, batch: int, seq: int):
+    """Residual-stream sharding: batch over DP; + Megatron-SP over model
+    on the sequence dim when ``seq_shard_activations``."""
+    bspec = nn.batch_pspec(mesh, batch)
+    if (cfg.seq_shard_activations and mesh is not None
+            and "model" in nn.axis_names(mesh)
+            and seq % nn.mesh_shape(mesh)["model"] == 0):
+        return (bspec[0], "model", None)
+    return bspec
+
+
+def _run_blocks(p, x, cfg: ModelConfig, *, positions=None, enc_out=None,
+                mesh=None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    run = remat_wrap(lambda x, layer, enc_out: block_apply(
-        layer, x, cfg, causal=True, positions=positions, enc_out=enc_out),
-        cfg)
+    aspec = _residual_spec(cfg, mesh, x.shape[0], x.shape[1])
+
+    def body(x, layer, enc_out):
+        x = nn.constrain(x, mesh, aspec)
+        y, a = block_apply(layer, x, cfg, causal=True, positions=positions,
+                           enc_out=enc_out, mesh=mesh)
+        return nn.constrain(y, mesh, aspec), a
+
+    run = remat_wrap(body, cfg)
     for layer in p["blocks"]:
         x, a = run(x, layer, enc_out)
         aux = aux + a
     return x, aux
 
 
-def forward(p, batch, cfg: ModelConfig):
+def forward(p, batch, cfg: ModelConfig, *, mesh=None):
     """tokens [B,S] (with ``frame_embeds`` for an encoder-decoder and,
     optionally, ``patch_embeds`` for a vision-prefix model) -> (logits
-    [B,S,V] at the text positions, aux)."""
-    enc_out, prefix = _encoder_and_prefix(p, batch, cfg)
-    x, positions = _embed_tokens(p, batch["tokens"], cfg,
-                                 prefix_embeds=prefix)
-    x, aux = _run_blocks(p, x, cfg, positions=positions, enc_out=enc_out)
-    if prefix is not None:  # only score text positions
-        x = x[:, prefix.shape[1]:]
-    return _logits(p, x, cfg), aux
+    [B,S,V] at the text positions, aux).  Under ``mesh`` the parameters
+    and the batch are DTensors (``training.train.place_train_step``
+    places them) and so are the logits, vocab-sharded over "model"."""
+    with nn.mesh_context(mesh):
+        enc_out, prefix = _encoder_and_prefix(p, batch, cfg, mesh)
+        x, positions = _embed_tokens(p, batch["tokens"], cfg,
+                                     prefix_embeds=prefix, mesh=mesh)
+        bspec = nn.batch_pspec(mesh, x.shape[0])
+        x = nn.constrain(x, mesh, bspec)
+        x, aux = _run_blocks(p, x, cfg, positions=positions,
+                             enc_out=enc_out, mesh=mesh)
+        # a sequence-parallel residual is gathered before the readout
+        x = nn.constrain(x, mesh, bspec)
+        if prefix is not None:  # only score text positions
+            x = x[:, prefix.shape[1]:]
+        logits = _logits(p, x, cfg)
+        if mesh is not None:
+            logits = nn.constrain(logits, mesh, _logits_spec(mesh, bspec))
+    return logits, aux
 
 
-def _ce_from_logits(logits, batch, aux, cfg: ModelConfig):
+def _logits_spec(mesh, bspec):
+    return (bspec[0], None, "model" if "model" in nn.axis_names(mesh)
+            else None)
+
+
+def _psum_model(x, mesh, op: str = "sum"):
+    """The reference's ``psum``/``pmax`` over "model" inside a local
+    region: its backward passes the (replicated) cotangent through, as
+    JAX transposes a psum in ``shard_map``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    sub = mesh["model"]
+    return DTensor.from_local(x, sub, [Partial(op)], run_check=False
+                              ).redistribute(sub, [Replicate()]).to_local()
+
+
+def _sharded_loglik(logits, targets, mesh, batch_size: int):
+    """Per-token target log-likelihood with vocab sharded over "model".
+
+    Runs in a local region: every vocab shard computes its local max /
+    sum-exp / target logit and combines them with [B,S] reductions over
+    "model"; no full-logits collective, no one-hot."""
+    bspec = nn.batch_pspec(mesh, batch_size, extra_dims=1)
+    v_local = logits.shape[-1] // nn.mesh_shape(mesh)["model"]
+    j = mesh.get_local_rank("model")
+
+    def local(lg, tg):
+        lg = lg.float()
+        # detached BEFORE the max over shards: the max shift is
+        # gradient-invariant for logsumexp (the reference's stop_gradient)
+        lmax = _psum_model(lg.max(dim=-1).values.detach(), mesh, "max")
+        sumexp = torch.exp(lg - lmax[..., None]).sum(dim=-1)
+        gsum = _psum_model(sumexp, mesh)
+        local_t = tg.long() - j * v_local
+        in_range = (local_t >= 0) & (local_t < v_local)
+        idx = local_t.clamp(0, v_local - 1)
+        tl = torch.gather(lg, -1, idx[..., None])[..., 0]
+        tl = _psum_model(torch.where(in_range, tl, 0.0), mesh)
+        return tl - lmax - torch.log(gsum)
+
+    return nn.local_map(local, mesh, [bspec + ("model",), bspec], [bspec],
+                        logits, targets)
+
+
+def _loglik(logits, targets):
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+
+
+def _ce_from_logits(logits, batch, aux, cfg: ModelConfig, *, mesh=None):
     """Next-token cross entropy: float32 log-softmax, the target's
-    log-likelihood, mean over ``loss_mask`` (all ones by default)."""
+    log-likelihood, mean over ``loss_mask`` (all ones by default).  Under
+    a mesh whose "model" divides the vocab the logits stay vocab-sharded
+    (``_sharded_loglik``); else each rank reads its batch shard's whole
+    rows."""
     targets = batch["targets"]
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32,
                           device=targets.device)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    if mesh is None:
+        ll = _loglik(logits, targets)
+    elif ("model" in nn.axis_names(mesh)
+          and logits.shape[-1] % nn.mesh_shape(mesh)["model"] == 0):
+        ll = _sharded_loglik(logits, targets, mesh, logits.shape[0])
+    else:
+        bspec = nn.batch_pspec(mesh, logits.shape[0], extra_dims=1)
+        ll = nn.local_map(_loglik, mesh, [bspec + (None,), bspec], [bspec],
+                          logits, targets)
     denom = torch.clamp(mask.sum(), min=1.0)
     ce = -(ll * mask).sum() / denom
     total = ce + cfg.router_aux_weight * aux
     return total, {"ce": ce, "aux": aux, "tokens": mask.sum()}
 
 
-def loss_fn(p, batch, cfg: ModelConfig):
-    logits, aux = forward(p, batch, cfg)
-    return _ce_from_logits(logits, batch, aux, cfg)
+def loss_fn(p, batch, cfg: ModelConfig, *, mesh=None):
+    with nn.mesh_context(mesh):
+        logits, aux = forward(p, batch, cfg, mesh=mesh)
+        return _ce_from_logits(logits, batch, aux, cfg, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

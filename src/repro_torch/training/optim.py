@@ -20,6 +20,16 @@ reference keeps them unstacked under ``pre``, so their leaves are decayed
 by their own rank.  The quantized moments block the last dimension, so per-layer codes and scales
 equal the stacked ones row by row.  The schedule, the clip factor and the
 bias corrections are float32, as in the reference.
+
+Under a mesh the leaves are DTensors: each moment has its parameter's
+placements, the gradient is brought to them, and the update runs on the
+local shards (the global norm is reduced over the mesh first).  The
+8-bit moments' codes have the parameter's placements too.  Their scales
+follow the reference's layout (the parameter's spec) where the last dim
+is not sharded or each shard holds whole blocks; where a shard splits a
+block (or a row with one scale), a block's scale is the maximum over the
+shards that hold it (an all-reduce over the mesh dims that shard the
+last dim), and the scales are kept replicated over those dims.
 """
 from __future__ import annotations
 
@@ -179,6 +189,8 @@ def dequantize_unsigned(q, scale):
 def adamw_init(params, cfg: OptimizerConfig):
     """{"moments": a tree like ``params``, "step": 0-d int32 on the CPU}."""
     def mk(p):
+        if _is_dtensor(p):
+            return _dt_moments(p, cfg)
         zeros = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         if cfg.quantize_states:
             mq, ms = quantize_signed(zeros)
@@ -192,6 +204,7 @@ def adamw_init(params, cfg: OptimizerConfig):
 
 def global_norm(tree):
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    leaves = [x.full_tensor() if _is_dtensor(x) else x for x in leaves]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
@@ -211,25 +224,37 @@ def adamw_update(grads, opt_state, params, cfg: OptimizerConfig):
 
     unstacked = unstacked_blocks(params)
     for (path, p), g in zip(named_leaves(params), tree_leaves(grads)):
-        g = g.float() * clip
         mom = _moment_dict(opt_state["moments"], path)
+        sharded = _is_dtensor(p)
+        if sharded:
+            g = g.redistribute(p.device_mesh, p.placements).to_local()
+            p_local = p.to_local()
+        else:
+            p_local = p
+        g = g.float() * clip
         if cfg.quantize_states:
-            m = dequantize_signed(mom["mq"], mom["ms"])
-            v = dequantize_unsigned(mom["vq"], mom["vs"])
+            m, v = (_dt_dequantize(mom, p) if sharded else
+                    (dequantize_signed(mom["mq"], mom["ms"]),
+                     dequantize_unsigned(mom["vq"], mom["vs"])))
+        elif sharded:
+            m, v = mom["m"].to_local(), mom["v"].to_local()
         else:
             m, v = mom["m"], mom["v"]
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
         del g
         upd = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-        p32 = p.float()  # p itself when p is float32
+        p32 = p_local.float()  # p_local itself when it is float32
         if cfg.weight_decay > 0 and decays(path, p, unstacked):
             upd.add_(cfg.weight_decay * p32)
-        p.copy_(p32.sub_(lr * upd))
+        p_local.copy_(p32.sub_(lr * upd))
         del upd, p32
         if cfg.quantize_states:
-            mom["mq"], mom["ms"] = quantize_signed(m)
-            mom["vq"], mom["vs"] = quantize_unsigned(v)
+            if sharded:
+                _dt_quantize(mom, p, m, v)
+            else:
+                mom["mq"], mom["ms"] = quantize_signed(m)
+                mom["vq"], mom["vs"] = quantize_unsigned(v)
     opt_state["step"] = torch.tensor(step + 1, dtype=torch.int32)
     return params, opt_state, {"lr": lr, "grad_norm": gnorm}
 
@@ -238,3 +263,109 @@ def _moment_dict(moments, path):
     for k in path:
         moments = moments[k]
     return moments
+
+
+# ---------------------------------------------------------------------------
+# Moments of DTensor parameters
+# ---------------------------------------------------------------------------
+
+
+def _is_dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor"
+
+
+def _last_dim_split(p):
+    """(the mesh dims that shard ``p``'s last dim, whether each shard
+    holds whole quantization blocks)."""
+    from torch.distributed.tensor import Shard
+
+    last = p.dim() - 1
+    dims = [d for d, pl in enumerate(p.placements)
+            if isinstance(pl, Shard) and pl.dim == last]
+    _, bs = _blocked_shape(tuple(p.shape))
+    whole = not dims or (bs == QBLOCK and p.to_local().shape[-1] % QBLOCK == 0)
+    return dims, whole
+
+
+def _scale_placements(p):
+    from torch.distributed.tensor import Replicate
+
+    dims, whole = _last_dim_split(p)
+    if whole:
+        return list(p.placements)
+    return [Replicate() if d in dims else pl
+            for d, pl in enumerate(p.placements)]
+
+
+def _wrap(local, p, placements=None):
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, p.device_mesh,
+                              placements or p.placements, run_check=False)
+
+
+def _dt_moments(p, cfg: OptimizerConfig):
+    zeros = torch.zeros(p.to_local().shape, dtype=torch.float32,
+                        device=p.to_local().device)
+    if not cfg.quantize_states:
+        return {"m": _wrap(zeros, p), "v": _wrap(zeros.clone(), p)}
+    mom = {}
+    _dt_quantize(mom, p, zeros, zeros.clone())
+    return mom
+
+
+def _block_index(p):
+    """For each local column of ``p``'s last dim, the global index of its
+    quantization block."""
+    dims, _ = _last_dim_split(p)
+    n_local = p.to_local().shape[-1]
+    offset = 0
+    for d in dims:  # major to minor
+        offset = offset * p.device_mesh.size(d) \
+            + p.device_mesh.get_coordinate()[d]
+    offset *= n_local
+    _, bs = _blocked_shape(tuple(p.shape))
+    cols = torch.arange(n_local, device=p.to_local().device) + offset
+    return cols // bs
+
+
+def _dt_dequantize(mom, p):
+    dims, whole = _last_dim_split(p)
+    if whole:
+        return (dequantize_signed(mom["mq"].to_local(), mom["ms"].to_local()),
+                dequantize_unsigned(mom["vq"].to_local(),
+                                    mom["vs"].to_local()))
+    idx = _block_index(p)
+    return tuple(mom[q].to_local().float() * mom[sc].to_local()[..., idx]
+                 for q, sc in (("mq", "ms"), ("vq", "vs")))
+
+
+def _dt_quantize(mom, p, m, v):
+    """Store the local float32 moments ``m``/``v`` of ``p``'s shard as
+    8-bit codes and scales (see the module doc)."""
+    dims, whole = _last_dim_split(p)
+    if whole:
+        mq, ms = quantize_signed(m)
+        vq, vs = quantize_unsigned(v)
+        mom.update(mq=_wrap(mq, p), ms=_wrap(ms, p), vq=_wrap(vq, p),
+                   vs=_wrap(vs, p))
+        return
+    import torch.distributed._functional_collectives as funcol
+
+    idx = _block_index(p)
+    nb = _blocked_shape(tuple(p.shape))[0][-1]
+    spl = _scale_placements(p)
+    for x, qn, sn, lim, dt in ((m.abs(), "mq", "ms", 127.0, torch.int8),
+                               (v, "vq", "vs", 255.0, torch.uint8)):
+        amax = torch.zeros(x.shape[:-1] + (nb,), dtype=torch.float32,
+                           device=x.device)
+        amax = amax.scatter_reduce(-1, idx.expand(x.shape), x, "amax")
+        for d in dims:
+            amax = funcol.all_reduce(amax, "max", (p.device_mesh, d))
+        scale = amax / lim
+        safe = torch.clamp(scale, min=1e-12 if lim == 127.0 else 1e-30)
+        src = m if lim == 127.0 else v
+        lo = -127 if lim == 127.0 else 0
+        q = torch.clamp(torch.round(src / safe[..., idx]), lo, lim).to(dt)
+        mom[qn] = _wrap(q, p)
+        mom[sn] = _wrap(scale, p, spl)

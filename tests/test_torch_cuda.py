@@ -191,8 +191,8 @@ def test_cuda_train_step_matches_cpu_step(cuda):
     opt = optim.OptimizerConfig(lr=1e-3, eps=1e-3, warmup_steps=1,
                                 decay_steps=10)
     tcfg = TrainConfig(optimizer=opt)
-    cpu = init_state(torch.Generator().manual_seed(0), api, cfg, opt,
-                     device="cpu")
+    cpu, _ = init_state(torch.Generator().manual_seed(0), api, cfg, opt,
+                        device="cpu")
     gpu = {"params": optim.tree_map(
         lambda t: t.detach().cuda().requires_grad_(), cpu["params"])}
     gpu["opt"] = optim.adamw_init(gpu["params"], opt)
@@ -938,8 +938,8 @@ def test_cuda_state_family_gradient_and_step_match_cpu(cuda, arch):
     api = get_model(cfg)
     opt = optim.OptimizerConfig(lr=1e-3, eps=1e-3, warmup_steps=1,
                                 decay_steps=10)
-    cpu = init_state(torch.Generator().manual_seed(0), api, cfg, opt,
-                     device="cpu")
+    cpu, _ = init_state(torch.Generator().manual_seed(0), api, cfg, opt,
+                        device="cpu")
     gpu = {"params": optim.tree_map(
         lambda t: t.detach().cuda().requires_grad_(), cpu["params"])}
     gpu["opt"] = optim.adamw_init(gpu["params"], opt)
@@ -1054,8 +1054,8 @@ def test_cuda_encdec_vlm_logits_and_step_match_cpu(cuda, arch):
     api = get_model(cfg)
     opt = optim.OptimizerConfig(lr=1e-3, eps=1e-3, warmup_steps=1,
                                 decay_steps=10)
-    cpu = init_state(torch.Generator().manual_seed(0), api, cfg, opt,
-                     device="cpu")
+    cpu, _ = init_state(torch.Generator().manual_seed(0), api, cfg, opt,
+                        device="cpu")
     gpu = {"params": optim.tree_map(
         lambda t: t.detach().cuda().requires_grad_(), cpu["params"])}
     gpu["opt"] = optim.adamw_init(gpu["params"], opt)

@@ -132,7 +132,7 @@ def test_abstract_state_equals_reference(arch):
     assert quant == (arch == "nemotron-4-340b")
     jparams, _ = jspecs.abstract_params(jax_get_model(jcfg), jcfg)
     jopt = jspecs.abstract_opt_state(jparams, JaxOpt(quantize_states=quant))
-    params = specs.abstract_params(get_model(cfg), cfg)
+    params, _ = specs.abstract_params(get_model(cfg), cfg)
     opt = specs.abstract_opt_state(
         params, optim.OptimizerConfig(quantize_states=quant))
     leaves = optim.tree_leaves(params)
@@ -204,7 +204,7 @@ def test_cache_template(arch):
         [(p, _spec(t)) for p, t in named(real)]
     if arch == "llama3.2-3b":  # the dry-run's decode cell: the template in
         with torch.no_grad():  # decode on meta
-            pm = specs.abstract_params(api, cfg)
+            pm, _ = specs.abstract_params(api, cfg)
             tok = torch.empty(2, dtype=torch.int32, device=META)
             cache, logits = api.decode(pm, tmpl, tok, cfg)
         assert _spec(logits) == ((2, cfg.vocab), "float32")
@@ -259,7 +259,7 @@ def test_meta_charges_kernels_and_launches_nothing(arch):
     step = _grad_step(api, cfg)
     on_cpu = cost.run(step, cpu_p, b)[1]
     before = _launch_counts()
-    on_meta = cost.run(step, specs.abstract_params(api, cfg),
+    on_meta = cost.run(step, specs.abstract_params(api, cfg)[0],
                        {k: v.to(META) for k, v in b.items()})[1]
     assert _launch_counts() == before
 
@@ -418,3 +418,105 @@ def test_dryrun_cli_and_roofline_suite(tmp_path, monkeypatch, capsys):
                      ("train_4k", "prefill_32k", "decode_32k")] + [
         "roofline_summary"]
     assert "cells_ok=3 errors=0 skipped=1" in rep.rows[-1][2]
+
+
+# ---------------------------------------------------------------------------
+# The mesh cells: a subprocess under the ``fake`` process group (it is
+# process-global, as the reference sets XLA_FLAGS before importing JAX)
+# ---------------------------------------------------------------------------
+
+MESH_SCRIPT = r"""
+import json, sys, warnings
+warnings.filterwarnings("ignore")
+import torch
+import torch.distributed as dist
+from repro_torch.launch import cost, dryrun
+from repro_torch.launch import sharding as shd
+from repro_torch.launch.mesh import fake_world, make_local_mesh
+from repro_torch.models import nn
+
+out = {"cells": []}
+for arch in ("llama3.2-3b", "nemotron-4-340b"):
+    for mp in (False, True):
+        out["cells"].append(dryrun.run_cell(
+            arch, "train_4k", overrides={"n_layers": 2}, multi_pod=mp))
+for shape in ("prefill_32k", "decode_32k"):
+    out["cells"].append(dryrun.run_cell("llama3.2-3b", shape,
+                                        multi_pod=False))
+# an MLP's forward on a 2 x 2 mesh, counted: its FSDP all-gathers alone
+dist.destroy_process_group()
+fake_world(4)
+mesh = make_local_mesh(2, 2, device="cpu")
+d, ff = 64, 256
+values, axes = nn.split(nn.mlp_init(torch.Generator(), d, ff,
+                                    device="meta"))
+sh = shd.make_shardings(axes, shd.TRAIN_RULES, mesh)
+p = {k: {"w": shd.place(values[k]["w"], sh[k]["w"])} for k in values}
+x = shd.place(torch.empty((4, 8, d), device="meta"),
+              shd.NamedSharding(mesh, ("data", None, None)))
+with nn.mesh_context(mesh):
+    rec = cost.analyze(lambda p, x: nn.mlp_apply(p, x), p, x)
+out["mlp"] = {"collective_bytes": rec["collective_bytes"],
+              "collective_detail": rec["collective_detail"],
+              "specs": {k: list(sh[k]["w"].spec) for k in sh}}
+json.dump(out, sys.stdout)
+"""
+
+
+@pytest.fixture(scope="module")
+def mesh_dryrun():
+    import subprocess
+    import sys
+
+    proc = subprocess.run([sys.executable, "-c", MESH_SCRIPT],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout)
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "nemotron-4-340b"])
+def test_mesh_train_cells_count_per_device(mesh_dryrun, arch, multi_pod):
+    """The train cell on each production mesh (cut to 2 layers): ``ok``,
+    ``n_chips`` 256 / 512, per-device FLOPs below one device's share of
+    the whole step's work times the TP waste bound, and collectives."""
+    rec = next(r for r in mesh_dryrun["cells"] if r["arch"] == arch
+               and r["shape"] == "train_4k" and r["multi_pod"] == multi_pod)
+    assert rec["status"] == "ok", rec
+    n = 512 if multi_pod else 256
+    assert rec["n_chips"] == n == rec["n_devices"]
+    assert rec["mesh"] == ({"pod": 2, "data": 16, "model": 16} if multi_pod
+                           else {"data": 16, "model": 16})
+    rl = rec["roofline"]
+    assert rl["collective_bytes_per_device"] > 0
+    assert rl["t_collective_s"] == (rl["collective_bytes_per_device"]
+                                    / dryrun.LINK_BW)
+    detail = rl["collective_detail"]
+    assert detail["per_op_bytes"]["all-gather"] > 0  # FSDP gathers
+    assert detail["per_op_bytes"]["all-reduce"] > 0
+    assert 0 < rl["useful_flops_ratio"] <= 1
+    assert rec["kernels"]["flash_attention"]["calls"] > 0
+
+
+def test_mesh_serving_cells_are_skipped_with_their_reason(mesh_dryrun):
+    recs = [r for r in mesh_dryrun["cells"] if r["shape"] != "train_4k"]
+    assert [r["shape"] for r in recs] == ["prefill_32k", "decode_32k"]
+    for r in recs:
+        assert r["status"] == "skipped"
+        assert "item 15b" in r["reason"]
+
+
+def test_fsdp_gathers_counted_by_hand(mesh_dryrun):
+    """A gated MLP (d 64, ff 256) on a 2 x 2 mesh, x batch-sharded: up and
+    gate [d, ff] are sharded (data, model) and down [ff, d] (model, data);
+    each is all-gathered over "data" once, into its model shard: 3 all-
+    gathers of d * ff / 2 float32 each, and nothing else moves (the down
+    projection's output stays a partial sum)."""
+    m = mesh_dryrun["mlp"]
+    assert m["specs"] == {"up": ["data", "model"], "gate": ["data", "model"],
+                          "down": ["model", "data"]}
+    gathered = 3 * 64 * 256 // 2 * 4
+    assert m["collective_detail"] == {"per_op_bytes": {"all-gather":
+                                                       gathered},
+                                      "counts": {"all-gather": 3}}
+    assert m["collective_bytes"] == gathered

@@ -149,7 +149,7 @@ def test_long_prefill_takes_the_chunked_path():
         b = specs.prefill_batch_specs(c, 1, S)
         with torch.no_grad():
             counter = cost.run(lambda p, b: tapi.prefill(p, b, c, max_len=S),
-                               specs.abstract_params(tapi, c), b)[1]
+                               specs.abstract_params(tapi, c)[0], b)[1]
         return counter.largest
 
     H = tcfg.n_heads  # the einsum's bmm folds B and H: [B*H, q, k]

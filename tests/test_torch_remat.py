@@ -124,7 +124,7 @@ def test_dots_recomputes_the_kernels(arch):
     for remat in ("none", "full", "dots"):
         cfg = get_smoke_config(arch, remat=remat)
         api = get_model(cfg)
-        p = specs.abstract_params(api, cfg)
+        p, _ = specs.abstract_params(api, cfg)
         b = specs.train_batch_specs(cfg, 2, 32)
         calls[remat] = {k: v["calls"] for k, v in cost.analyze(
             _loss_and_grads(api, cfg), p, b)["kernels"].items()}
