@@ -39,7 +39,11 @@ Phases, each printing one JSON line:
    S 512, 9 layer caches), at llama3.2-3b's heads, at whisper's cross
    shape (12 layer caches) and at internvl2-1b's heads (B 8, Hkv 2, G 7,
    D 64, S 512, 24 layer caches), beside the plain version, SDPA (GQA,
-   length mask) and the bound.
+   length mask) and the bound.  The kernel's optional log-sum-exp output
+   against the plain one's at every head dim (a row of length 0 first:
+   output 0, log-sum-exp -inf), the output bit-equal to the call without
+   it; at zamba2's and llama3.2-3b's shapes the layer loop's graph
+   without and with it, in turns over ``LSE_ROUNDS`` rounds.
 4. WKV6 kernel vs plain: y and the final state against
    ``ref.wkv_chunked_ref`` (``WKV_CASES`` in f32 and bf16: T 37 in chunks
    of 8, 200 and 256; a non-zero initial state; f32 within 1e-4
@@ -271,6 +275,18 @@ Phases, each printing one JSON line:
    the one-rank ones on rank 0 (phase 35's limits), each rank's flash
    launches equal to them and its flash inputs the local shard's (batch
    1, 12 of 24 heads after the K/V repeat: G 1, D 128, S 2048).
+37. serving under a 2 x 2 mesh, four gloo ranks on this card as in 36:
+   (a) llama3.2-3b at full width in f32, 4 of 28 layers, a 2048-token
+   prompt, a 256-token extend and 16 greedy decode steps on a cache laid
+   out by ``cache_specs`` (each rank's contiguous kernel on its half of
+   the positions, the ranks combined by the log-sum-exp), the logits
+   within 1e-5 of one rank's, the greedy tokens equal up to a near tie;
+   (b) the paged engine (rhapsody-demo) and (c) the slot engine
+   (zamba2-2.7b smoke) serving 8 requests on 2 x 2 and on one rank, the
+   transcripts, counters and block telemetry equal on every rank and to
+   one rank's.  Each rank's launches by kernel, the local shapes each
+   kernel saw, the staged all-gathers and the step times beside one
+   rank's (every prefill warmed once before it is timed).
 
 Every phase that drives a path sets all five kernels' launch counts to 0
 just before it runs and checks every count just after: the paged serving
@@ -307,6 +323,7 @@ import concurrent.futures
 import contextlib
 import gc
 import importlib.util
+import inspect
 import json
 import math
 import os
@@ -1019,6 +1036,10 @@ def state_prompt_lens(rng, arch, n):
     return lens
 
 
+# rounds of the decode graph without and with its log-sum-exp output
+LSE_ROUNDS = 5
+
+
 def decode_timing(torch, ops, ref, kernel, name, L, B, Hkv, G, D, S, lens):
     """The contiguous decode kernel over ``L`` layer caches [B, S, Hkv, D]
     in bf16, as an engine holds them (cold in the 50 MB L2 each call):
@@ -1042,9 +1063,12 @@ def decode_timing(torch, ops, ref, kernel, name, L, B, Hkv, G, D, S, lens):
     out = torch.empty_like(qg)
     scale = 1.0 / math.sqrt(D)
 
-    def run_kernel(layer):
-        code = kernel.decode_attention_grouped(qg, kc[layer], vc[layer], ln,
-                                               out, scale)
+    lse = torch.empty((B, Hkv, G), dtype=torch.float32, device=DEVICE)
+
+    def run_kernel(layer, with_lse=False):
+        code = kernel.decode_attention_grouped(
+            qg, kc[layer], vc[layer], ln, out, scale,
+            **({"lse": lse} if with_lse else {}))
         if code:
             raise RuntimeError(f"CUDA error {code}")
 
@@ -1060,6 +1084,16 @@ def decode_timing(torch, ops, ref, kernel, name, L, B, Hkv, G, D, S, lens):
         lambda layer: ref.decode_ref(qg, kc[layer], vc[layer], ln),
         lambda layer: sdpa(qs, kt[layer], vt[layer], attn_mask=mask,
                            enable_gqa=True))
+    if "lse" in inspect.signature(kernel.decode_attention_grouped
+                                  ).parameters:  # (older trees lack it)
+        # the layer loop's graph without and with the log-sum-exp, in
+        # turns over rounds (an eager loop's time spreads ~2x between
+        # calls; a graph's replays carry no host dispatch)
+        for key, with_lse in LSE_ROUNDS * (("no_lse_graph_ms", False),
+                                           ("lse_graph_ms", True)):
+            times.setdefault(key, []).append(graph_ms(
+                torch, lambda: [run_kernel(layer, with_lse)
+                                for layer in range(L)], 20) / L)
     flops, bytes_moved = kernel_cost.decode_attention(
         q, kc[0], sum(min(n, S) for n in lens))  # the K and V rows attended
     bms, by = bound_ms(bytes_moved, flops, H100_BF16_FLOPS)
@@ -1072,6 +1106,39 @@ def decode_timing(torch, ops, ref, kernel, name, L, B, Hkv, G, D, S, lens):
             **times, "bound_ms": bms, "bound_by": by,
             "bytes": bytes_moved, "flops": flops, "max_err": err,
             "achieved_GBps": bytes_moved / (times["kernel_ms"] * 1e-3) / 1e9}
+
+
+def decode_lse_case(torch, ops, ref, name, q, kc, vc, lens, tol):
+    """The contiguous kernel with its log-sum-exp output against the plain
+    version's: the output within ``tol`` (bit-equal to the call without
+    the log-sum-exp), the log-sum-exp within (1e-5, 1e-5) of the plain
+    one's, -inf exactly where the plain one's is (a length of 0, whose
+    output is 0)."""
+    B, _, Hq, D = q.shape
+    Hkv = kc.shape[2]
+    ln = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    out, lse = ops.decode_attention(q, kc, vc, ln, return_lse=True)
+    bare = ops.decode_attention(q, kc, vc, ln)
+    p_out, p_lse = ref.decode_ref(q.reshape(B, Hkv, Hq // Hkv, D), kc, vc,
+                                  ln, return_lse=True)
+    torch.cuda.synchronize()
+    err, ok = within(out, p_out.reshape(out.shape), tol)
+    check(ok and bool(torch.isfinite(out).all()),
+          f"decode {name} with lse: output error {err}")
+    check(torch.equal(out, bare), f"decode {name}: the output changes when "
+                                  f"the lse is written")
+    empty = torch.isneginf(p_lse.reshape(lse.shape))
+    check(torch.equal(torch.isneginf(lse), empty),
+          f"decode {name}: -inf log-sum-exp where the plain one has "
+          f"{empty.sum()} of them, the kernel {torch.isneginf(lse).sum()}")
+    check(bool((out[ln == 0] == 0).all()),
+          f"decode {name}: a length-0 row's output is not 0")
+    lerr, lok = within(lse[~empty], p_lse.reshape(lse.shape)[~empty],
+                       (1e-5, 1e-5))
+    check(lok, f"decode {name}: log-sum-exp error {lerr}")
+    return {"config": f"{name}-lse", "S": kc.shape[1], "lens": lens,
+            "max_err": err, "lse_max_err": lerr, "atol": tol[0],
+            "rtol": tol[1], "lse_tol": [1e-5, 1e-5]}
 
 
 def phase_decode(torch, ops, ref, kernel):
@@ -1108,6 +1175,12 @@ def phase_decode(torch, ops, ref, kernel):
             cases.append({"config": name, "dtype": str(dtype).split(".")[-1],
                           "Hkv": Hkv, "G": G, "D": D, "S": S, "lens": lens,
                           "max_err": err, "atol": tol[0], "rtol": tol[1]})
+            # with the log-sum-exp, a row of length 0 first (a rank's
+            # shard of a sequence-split cache holding none of it)
+            lse_lens = [0] + lens[1:]
+            cases.append(decode_lse_case(torch, ops, ref, name, q, kc, vc,
+                                         lse_lens, tol))
+            worst = max(worst, cases[-1]["max_err"])
     B, Hkv, G, D, S = WHISPER_CROSS
     for dtype, tol in ((f32, F32_TOL), (bf16, BF16_TOL)):
         q = card_randn(torch, gen, (B, 1, Hkv * G, D), dtype)
@@ -3753,6 +3826,8 @@ DRYRUN_STEPS = (("llama3.2-3b", TRAIN_SEQ), ("rwkv6-1.6b", TRAIN_SEQ),
 DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun_chip.json")
 # the train cells the worker also counts on both production meshes
 DRYRUN_MESH_ARCHS = ("llama3.2-3b", "nemotron-4-340b")
+# llama3.2-3b's serving cells it counts on both meshes (full depth)
+DRYRUN_SERVING_SHAPES = ("prefill_32k", "decode_32k")
 
 
 def tree_bytes(state):
@@ -3832,6 +3907,27 @@ def dryrun_worker(path):
                        "error": f"{type(e).__name__}: {e}"}
             rec["seconds"] = time.perf_counter() - t0
             out["mesh_cells"].append(rec)
+    out["serving_mesh_cells"] = []
+    for shape in DRYRUN_SERVING_SHAPES:
+        for multi_pod in (False, True):
+            t0 = time.perf_counter()
+            try:
+                rec = dryrun.run_cell(MAIN_PATH_ARCH, shape,
+                                      multi_pod=multi_pod)
+            except Exception as e:  # noqa: BLE001 — phase 33 reports it
+                rec = {"arch": MAIN_PATH_ARCH, "shape": shape,
+                       "multi_pod": multi_pod, "status": "error",
+                       "error": f"{type(e).__name__}: {e}"}
+            rec["seconds"] = time.perf_counter() - t0
+            out["serving_mesh_cells"].append(rec)
+    t0 = time.perf_counter()
+    try:
+        from repro_torch.launch import hillclimb
+
+        out["hillclimb"] = hillclimb.run()
+    except Exception as e:  # noqa: BLE001 — phase 33 reports it
+        out["hillclimb"] = {"error": f"{type(e).__name__}: {e}"}
+    out["hillclimb_seconds"] = time.perf_counter() - t0
     for remat in ("none", "full", "dots"):
         cfg = get_config(MAIN_PATH_ARCH, remat=remat)
         api = get_model(cfg)
@@ -3946,7 +4042,45 @@ def phase_dryrun(torch, worker, measured):
             "est_live_bytes_per_device":
             rec["memory"]["est_live_bytes_per_device"],
             "seconds": rec["seconds"]})
+    serving = []
+    for rec in data["serving_mesh_cells"]:
+        n = 512 if rec["multi_pod"] else 256
+        where = (f"dry-run {rec['arch']} x {rec['shape']} x "
+                 f"{'2x16x16' if rec['multi_pod'] else '16x16'}")
+        check(rec["status"] == "ok", f"{where}: {rec}")
+        rl = rec["roofline"]
+        check(rec["n_chips"] == n and rl["collective_bytes_per_device"] > 0,
+              f"{where}: n_chips {rec['n_chips']}, collective bytes "
+              f"{rl['collective_bytes_per_device']}")
+        serving.append({
+            "arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
+            "n_chips": n, **{k: rl[k] for k in (
+                "flops_per_device", "bytes_per_device",
+                "collective_bytes_per_device", "t_compute_s", "t_memory_s",
+                "t_collective_s", "bottleneck")},
+            "kernels": rec["kernels"],
+            "est_live_bytes_per_device":
+            rec["memory"]["est_live_bytes_per_device"],
+            "seconds": rec["seconds"]})
+    hc = data["hillclimb"]
+    check(isinstance(hc, list) and len(hc) == 6,
+          f"dry-run hill-climb: {hc}")
+    climb = []
+    for rec in hc:
+        rl = rec["roofline"]
+        row = {"label": rec["label"], "arch": rec["arch"],
+               "shape": rec["shape"], "overrides": rec["overrides"],
+               **{k: rl[k] for k in ("t_compute_s", "t_memory_s",
+                                     "t_collective_s")},
+               "dominant_s": rec["dominant_s"],
+               "roofline_fraction": rec["roofline_fraction"]}
+        print(f"[hillclimb] {row['label']}: dominant_s "
+              f"{row['dominant_s']} roofline_fraction "
+              f"{row['roofline_fraction']}", flush=True)
+        climb.append(row)
     return {"cells": cells, "steps": steps, "mesh_cells": mesh_cells,
+            "serving_mesh_cells": serving, "hillclimb": climb,
+            "hillclimb_seconds": data["hillclimb_seconds"],
             "device_bytes": cap, "worker_seconds": data["seconds"]}, \
         data["remat"]
 
@@ -4405,6 +4539,383 @@ def mesh_full_width_check(per):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Serving under a 2 x 2 mesh, four gloo ranks on this card (phase 37)
+# ---------------------------------------------------------------------------
+
+# (a) llama3.2-3b at full width in f32, depth cut: a prompt, a chunk and
+# greedy steps on a cache laid out by cache_specs (its 2320 positions split
+# over "model")
+SERVE_MESH_LAYERS = 4
+SERVE_MESH_BATCH = 2
+SERVE_MESH_PROMPT, SERVE_MESH_CHUNK, SERVE_MESH_STEPS = 2048, 256, 16
+# logits against one rank's: max |diff| <= 1e-5 x max(1, max |one rank's|)
+SERVE_MESH_TOL = 1e-5
+# (b) the paged engine (rhapsody-demo, full width) and (c) the slot engine
+# (zamba2-2.7b's smoke config) serve the same requests on 2 x 2 and on one
+# rank
+SERVE_MESH_ENGINE = dict(max_num_seqs=4, max_num_batched_tokens=256,
+                         max_len=128, prefill_buckets=(16, 32, 64), seed=0)
+SERVE_MESH_REQUESTS, SERVE_MESH_NEW = 8, 12
+
+
+def serve_mesh_prompts(cfg):
+    """Phase 37's requests: 5 to 39 tokens (zamba2 at most its SSD chunk:
+    its slot engine prefills at the exact length, which the scan takes up
+    to one chunk or in whole chunks)."""
+    rng = np.random.RandomState(37)
+    top = cfg.ssm_chunk + 1 if cfg.family == "hybrid" else 40
+    return [list(map(int, rng.randint(0, cfg.vocab, size=n)))
+            for n in rng.randint(5, top, size=SERVE_MESH_REQUESTS)]
+
+
+def serve_mesh_full_width(torch, rank, mesh, zero, counts, shapes):
+    """Phase 37 (a) on one rank: llama3.2-3b at full width in f32, cut to
+    ``SERVE_MESH_LAYERS`` layers, parameters placed by ``SERVE_RULES``:
+    ``prefill`` of a ``SERVE_MESH_PROMPT``-token prompt, a
+    ``SERVE_MESH_CHUNK``-token ``extend`` and ``SERVE_MESH_STEPS`` decode
+    steps, each rank's cache laid out by ``cache_specs``.  Rank 0 first
+    runs it on one rank (no mesh) and its greedy tokens are fed to every
+    rank's sharded run (teacher forcing), so each step's logits compare."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import get_model, nn
+
+    cfg = configs.get_config(MAIN_PATH_ARCH).scaled(
+        n_layers=SERVE_MESH_LAYERS, param_dtype="float32",
+        compute_dtype="float32")
+    api = get_model(cfg)
+    params, axes = api.init(torch.Generator(device=DEVICE).manual_seed(0),
+                            cfg, device=DEVICE, with_axes=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(37)
+    prompt = torch.randint(0, cfg.vocab, (SERVE_MESH_BATCH,
+                                          SERVE_MESH_PROMPT), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    chunk = torch.randint(0, cfg.vocab, (SERVE_MESH_BATCH, SERVE_MESH_CHUNK),
+                          generator=gen, device=DEVICE, dtype=torch.int32)
+    max_len = SERVE_MESH_PROMPT + SERVE_MESH_CHUNK + SERVE_MESH_STEPS
+
+    def warm(p, m):
+        """One untimed prefill: the timed one is then not the process's
+        first call (the card's and DTensor's first-call costs)."""
+        with torch.no_grad():
+            api.prefill(p, {"tokens": prompt}, cfg, max_len=max_len, mesh=m)
+            torch.cuda.synchronize()
+
+    def run(p, m, forced):
+        logits, times = [], {"decode_s": []}
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, lg = api.prefill(p, {"tokens": prompt}, cfg,
+                                    max_len=max_len, mesh=m)
+            if m is not None:  # the caller lays the cache out (a pool's)
+                cache = nn.lay_out_cache(cache, m)
+            logits.append(nn.gathered(lg))
+            torch.cuda.synchronize()
+            times["prefill_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cache, lg = api.extend(p, cache, chunk, cfg, mesh=m)
+            logits.append(nn.gathered(lg)[:, -1])
+            torch.cuda.synchronize()
+            times["extend_s"] = time.perf_counter() - t0
+            toks = []
+            for i in range(SERVE_MESH_STEPS):
+                tok = (forced[i] if forced is not None
+                       else logits[-1].argmax(-1).to(torch.int32))
+                toks.append(tok)
+                t0 = time.perf_counter()
+                cache, lg = api.decode(p, cache, tok, cfg, mesh=m)
+                logits.append(nn.gathered(lg))
+                torch.cuda.synchronize()
+                times["decode_s"].append(time.perf_counter() - t0)
+            k = cache["k"]
+            times["cache_local_shape"] = list(nn.local(k).shape)
+        return logits, toks, times
+
+    rec = {"config": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": "float32",
+           "batch": SERVE_MESH_BATCH, "prompt": SERVE_MESH_PROMPT,
+           "chunk": SERVE_MESH_CHUNK, "steps": SERVE_MESH_STEPS,
+           "max_len": max_len}
+    want, forced = None, [None]
+    if rank == 0:
+        warm(params, None)
+        zero()
+        want, toks, t1 = run(params, None, None)
+        rec["launches_one_rank"] = counts()
+        rec["times_one_rank"] = t1
+        forced = [torch.stack(toks).cpu()]
+    dist.broadcast_object_list(forced, src=0)
+    forced = forced[0].to(DEVICE)
+    placed = shd.place_params(params, axes, cfg, mesh)
+    del params
+    dist.barrier()
+    warm(placed, mesh)
+    mesh_lib.STAGED.clear()
+    shapes.clear()
+    zero()
+    got, _, t2 = run(placed, mesh, forced)
+    rec["launches"] = counts()
+    rec["times"] = t2
+    rec["staged"] = dict(mesh_lib.STAGED)
+    rec["kernel_shapes"] = sorted(shapes)
+    rec["local_device"] = str(nn.local(placed["embed"]["table"]).device)
+    if want is not None:
+        errs, flips = [], []
+        for i, (a, b) in enumerate(zip(got, want)):
+            err = float((a - b).abs().max())
+            scale = max(1.0, float(b.abs().max()))
+            errs.append(err / scale)
+            top2 = torch.topk(b, 2, dim=-1).values
+            gap = top2[:, 0] - top2[:, 1]
+            differ = a.argmax(-1) != b.argmax(-1)
+            for row in torch.nonzero(differ).flatten().tolist():
+                flips.append({"logits": i, "row": row,
+                              "gap": float(gap[row])})
+        rec["max_rel_logit_err"] = max(errs)
+        rec["logit_errs"] = errs
+        rec["flips"] = flips
+    return rec
+
+
+def serve_mesh_engine(torch, rank, mesh, zero, counts, shapes, arch, paged):
+    """Phase 37 (b)/(c) on one rank: ``arch``'s engine (paged or slot pool)
+    serves ``SERVE_MESH_REQUESTS`` greedy requests on the 2 x 2 mesh (the
+    parameters placed by ``SERVE_RULES``; every rank) and, on rank 0, on
+    one rank; the transcripts, counters and block telemetry, each rank's
+    launches and the shapes its kernels saw."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg = (configs.get_config(arch) if paged
+           else configs.get_smoke_config(arch))
+    api = get_model(cfg)
+    params, axes = api.init(torch.Generator(device=DEVICE).manual_seed(0),
+                            cfg, device=DEVICE, with_axes=True)
+    prompts = serve_mesh_prompts(cfg)
+
+    def serve(p, m):
+        eng = InferenceEngine(cfg, p, paged=paged, device=DEVICE, mesh=m,
+                              **SERVE_MESH_ENGINE)
+        uids = [eng.submit(q, max_new_tokens=SERVE_MESH_NEW)
+                for q in prompts]
+        step_s, done = [], {}
+        with torch.no_grad():
+            while eng.has_work():
+                t0 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                for req in eng.collect_finished():
+                    done[req.uid] = req
+        stats = {k: v for k, v in dataclasses.asdict(eng.stats).items()
+                 if k != "started"}
+        return {"outputs": [done[u].output for u in uids], "stats": stats,
+                "telemetry": eng.block_telemetry(), "step_s": step_s}
+
+    rec = {"config": cfg.name, "paged": paged, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "requests": len(prompts),
+           "new_tokens": SERVE_MESH_NEW}
+    if rank == 0:
+        zero()
+        rec["one_rank"] = serve(params, None)
+        rec["launches_one_rank"] = counts()
+    placed = shd.place_params(params, axes, cfg, mesh)
+    del params
+    dist.barrier()
+    mesh_lib.STAGED.clear()
+    shapes.clear()
+    zero()
+    rec["mesh"] = serve(placed, mesh)
+    rec["launches"] = counts()
+    rec["staged"] = dict(mesh_lib.STAGED)
+    rec["kernel_shapes"] = sorted(shapes)
+    every = [None] * dist.get_world_size()
+    mine = {k: rec["mesh"][k] for k in ("outputs", "stats", "telemetry")}
+    dist.all_gather_object(every, mine)
+    rec["ranks_equal"] = all(e == mine for e in every)
+    return rec
+
+
+def serve_mesh_rank(rank, rdv, out_dir):
+    """One of phase 37's ranks (``torch.multiprocessing`` spawns it): (a),
+    (b) and (c) on the 2 x 2 mesh; its records to ``out_dir/rank<r>.json``.
+    Each decode kernel launch records its kernel, q's and k's shapes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.launch import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    counters = {"paged_decode_attention": (da, "launches"),
+                "decode_attention": (da, "contiguous_launches"),
+                "flash_attention": (fa, "launches"),
+                "ssd": (ssd_ops, "launches"), "wkv6": (wkv_ops, "launches")}
+
+    def zero():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def counts():
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+    shapes = set()
+    launch = da._launch
+
+    def spy(name, fn, q, k, v, *args, **kw):
+        shapes.add((name, tuple(q.shape), tuple(k.shape)))
+        return launch(name, fn, q, k, v, *args, **kw)
+
+    da._launch = spy
+    out = {"rank": rank}
+    mesh_lib.init_ranks(rank, MESH_WORLD, mesh_lib.rendezvous_file(rdv),
+                        backend="gloo")
+    mesh_lib.stage_all_gather_through_host()
+    try:
+        mesh = mesh_lib.make_local_mesh(2, 2, device=DEVICE)
+        parts = (("full_width", lambda: serve_mesh_full_width(
+                      torch, rank, mesh, zero, counts, shapes)),
+                 ("paged_engine", lambda: serve_mesh_engine(
+                     torch, rank, mesh, zero, counts, shapes,
+                     "rhapsody-demo", True)),
+                 ("slot_engine", lambda: serve_mesh_engine(
+                     torch, rank, mesh, zero, counts, shapes,
+                     "zamba2-2.7b", False)))
+        for name, fn in parts:
+            try:
+                out[name] = fn()
+            except Exception:  # noqa: BLE001 — the parent fails the phase
+                out[name] = {"error": traceback.format_exc()[-3000:]}
+            torch.cuda.empty_cache()
+    finally:
+        da._launch = launch
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def phase_serve_mesh(torch):
+    """Phase 37: four gloo ranks sharing this card in a 2 x 2 mesh serve
+    (see ``serve_mesh_rank``) -> each rank's records, checked: (a) rank
+    0's logits within ``SERVE_MESH_TOL`` of one rank's at every step, a
+    greedy token differing only where one rank's top-two gap is under
+    MODEL_GAP_TOL, the contiguous kernel launched n_layers x steps on
+    every rank over its half of the cache; (b)/(c) the transcripts,
+    counters and block telemetry equal to one rank's and equal on every
+    rank, each rank launching what one rank launches, the paged kernel
+    over half the kv heads, zamba2's SSD and contiguous kernels on
+    shards."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    d = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    t0 = time.perf_counter()
+    mp.spawn(serve_mesh_rank, args=(d, d), nprocs=MESH_WORLD, join=True)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for r, rk in enumerate(ranks):
+        for part in ("full_width", "paged_engine", "slot_engine"):
+            check("error" not in rk[part],
+                  f"serving 2 x 2 {part} rank {r}: {rk[part].get('error')}")
+    out = {"mesh": {"data": 2, "model": 2}, "world": MESH_WORLD,
+           "backend": "gloo, all-gather staged through host memory",
+           "wall_seconds": wall}
+    # (a)
+    per = [rk["full_width"] for rk in ranks]
+    first = per[0]
+    L, steps = first["n_layers"], first["steps"]
+    check(first["max_rel_logit_err"] <= SERVE_MESH_TOL,
+          f"serving 2 x 2 llama3.2-3b: logits vs one rank "
+          f"{first['max_rel_logit_err']} > {SERVE_MESH_TOL}")
+    bad = [f for f in first["flips"] if f["gap"] >= MODEL_GAP_TOL]
+    check(not bad, f"serving 2 x 2 llama3.2-3b: greedy flips past the gap "
+                   f"rule: {bad}")
+    check(first["launches_one_rank"]["decode_attention"] == L * steps,
+          f"serving one rank: launches {first['launches_one_rank']}")
+    s_local = first["max_len"] // 2
+    for r, rec in enumerate(per):
+        where = f"serving 2 x 2 llama3.2-3b rank {r}"
+        check(rec["local_device"].startswith("cuda"),
+              f"{where}: shards on {rec['local_device']}")
+        check(rec["launches"] == {**{k: 0 for k in rec["launches"]},
+                                  "decode_attention": L * steps},
+              f"{where}: launches {rec['launches']}")
+        ks = {tuple(k) for name, _, k in rec["kernel_shapes"]}
+        check(ks == {(SERVE_MESH_BATCH // 2, s_local, 8, 128)},
+              f"{where}: the decode kernel's caches {ks}, want its half "
+              f"{s_local} of {first['max_len']} positions")
+    out["full_width"] = {
+        k: v for k, v in first.items()
+        if k not in ("launches", "times", "staged", "kernel_shapes",
+                     "logit_errs")}
+    out["full_width"].update(
+        launches_by_rank=[r["launches"] for r in per],
+        kernel_shapes_by_rank=[r["kernel_shapes"] for r in per],
+        staged_by_rank=[r["staged"] for r in per],
+        times_by_rank=[r["times"] for r in per])
+    # (b), (c)
+    for part in ("paged_engine", "slot_engine"):
+        per = [rk[part] for rk in ranks]
+        first = per[0]
+        where = f"serving 2 x 2 {first['config']} ({part})"
+        for key in ("outputs", "stats", "telemetry"):
+            check(first["mesh"][key] == first["one_rank"][key],
+                  f"{where}: {key} differ from one rank's")
+        for r, rec in enumerate(per):
+            check(rec["ranks_equal"], f"{where} rank {r}: the ranks differ")
+            check(rec["launches"] == first["launches_one_rank"],
+                  f"{where} rank {r}: launches {rec['launches']} vs one "
+                  f"rank {first['launches_one_rank']}")
+        want = ({"paged_decode_attention"} if part == "paged_engine"
+                else {"ssd", "decode_attention"})
+        check(all(first["launches"][k] > 0 for k in want),
+              f"{where}: launches {first['launches']}")
+        if part == "paged_engine":
+            ks = {tuple(k) for n, _, k in first["kernel_shapes"]
+                  if n == "paged_decode_attention"}
+            check(all(k[2] == 2 for k in ks),
+                  f"{where}: the paged kernel's stores {ks}, want 2 of 4 "
+                  f"kv heads")
+        else:
+            ks = {tuple(k) for n, _, k in first["kernel_shapes"]
+                  if n == "decode_attention"}
+            check(all(k[1] == SERVE_MESH_ENGINE["max_len"] // 2 for k in ks),
+                  f"{where}: the contiguous kernel's caches {ks}, want "
+                  f"half of {SERVE_MESH_ENGINE['max_len']} positions")
+        out[part] = {
+            "config": first["config"], "n_layers": first["n_layers"],
+            "d_model": first["d_model"], "requests": first["requests"],
+            "new_tokens": first["new_tokens"],
+            "outputs_equal_one_rank": True,
+            "telemetry": first["mesh"]["telemetry"],
+            "decode_steps": first["mesh"]["stats"]["decode_steps"],
+            "launches_one_rank": first["launches_one_rank"],
+            "launches_by_rank": [r["launches"] for r in per],
+            "kernel_shapes_by_rank": [r["kernel_shapes"] for r in per],
+            "staged_by_rank": [r["staged"] for r in per],
+            "step_s_one_rank": first["one_rank"]["step_s"],
+            "step_s_by_rank": [r["mesh"]["step_s"] for r in per]}
+    return out
+
+
 def main():
     import torch
 
@@ -4688,6 +5199,14 @@ def main():
     mesh_four = phase_mesh_four_ranks(torch)
     emit({"phase": "mesh_four_ranks", **mesh_four})
     four = {c["config"]: c["launches_by_rank"] for c in mesh_four["cases"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 37. serving under a 2 x 2 mesh, four gloo ranks on this card
+    serve_mesh = phase_serve_mesh(torch)
+    emit({"phase": "serve_mesh", **serve_mesh})
+    smesh = {part: [r for r in serve_mesh[part]["launches_by_rank"]]
+             for part in ("full_width", "paged_engine", "slot_engine")}
 
     decode_src = ("src/repro_torch/kernels/decode_attention/csrc/"
                   "decode_attention.cu")
@@ -4701,12 +5220,19 @@ def main():
             "main_path": main_path["launches"], "agent_population": agents,
             "exp3": exp3_path["launches"],
             "paged_compare_f32":
-            paged_full["launches"]["paged_decode_attention"]},
+            paged_full["launches"]["paged_decode_attention"],
+            "sharded_paged_engine_2x2_by_rank": [
+                r["paged_decode_attention"]
+                for r in smesh["paged_engine"]]},
         "decode_attention": {
             "zamba2_serving": zamba["launches"]["decode_attention"],
             "paged_compare_f32": paged_full["launches"]["decode_attention"],
             "whisper_serving": whisper["launches"]["decode_attention"],
-            "internvl_serving": internvl["launches"]["decode_attention"]},
+            "internvl_serving": internvl["launches"]["decode_attention"],
+            "sharded_serving_2x2_full_width_by_rank": [
+                r["decode_attention"] for r in smesh["full_width"]],
+            "sharded_zamba2_slot_engine_2x2_by_rank": [
+                r["decode_attention"] for r in smesh["slot_engine"]]},
         "flash_attention": {"train_main_path": train_path["launches"],
                             "sharded_train_1x1": mesh_one["launches"],
                             "sharded_train_2x2_by_rank": {
@@ -4724,7 +5250,9 @@ def main():
         "ssd": {"zamba2_serving": zamba["launches"]["ssd"],
                 "zamba2_training": zamba_train["launches"]["ssd"],
                 "sharded_train_2x2_by_rank": [
-                    r["ssd"] for r in four["zamba2-2.7b"]]},
+                    r["ssd"] for r in four["zamba2-2.7b"]],
+                "sharded_zamba2_slot_engine_2x2_by_rank": [
+                    r["ssd"] for r in smesh["slot_engine"]]},
         "wkv6": {"rwkv6_serving": rwkv["launches"]["wkv6"],
                  "rwkv6_training": rwkv_train["launches"]["wkv6"],
                  "sharded_train_2x2_by_rank": [
@@ -4767,6 +5295,8 @@ def main():
              max([wkv_worst] + [t["max_err"] for t in wkv_timings]),
              wkv_timings[0]),
     ]})
+    print(f"chip_smoke: phases 1-37 took {time.perf_counter() - START:.1f}"
+          f" s", flush=True)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -23,8 +23,11 @@
 // skipping them adds the same zeros); positions past the cache (S, or
 // max_blocks * block_size) do not exist, so a length beyond the cache
 // attends every position -- what the reference does when a full slot's
-// length keeps growing; the output is acc / max(l, 1e-30).  len >= 1 is
-// required (the engine always attends at least the token it just wrote).
+// length keeps growing; the output is acc / max(l, 1e-30), so a length of
+// 0 gives 0.  The contiguous entry point can also write each query head's
+// log-sum-exp (mx + log l, -inf at length 0): a rank holding one sequence
+// shard of a cache under a device mesh returns it beside its output, and
+// the ranks' outputs combine as the blocks of a cluster do below.
 // The arithmetic depends only on logical positions and on the split, which
 // the host picks from shapes alone, so relocating physical blocks changes
 // no bit and two calls on the same inputs agree bit for bit.
@@ -507,6 +510,7 @@ decode_kernel(const T* __restrict__ q,      // [B, Hkv, G, D]
               const T* __restrict__ v,
               const int* __restrict__ lens, // [B]
               T* __restrict__ out,          // [B, Hkv, G, D]
+              float* __restrict__ lse,      // [B, Hkv, G] or null
               Rows rows, int Hkv, int G, int splits, float scale) {
   using L = Tile<T, D>;
   using Math = std::conditional_t<kTensorCores<T, D>, MmaMath<D>,
@@ -645,6 +649,9 @@ decode_kernel(const T* __restrict__ q,      // [B, Hkv, G, D]
     }
     out[((size_t)b * Hkv + h) * GD + idx] =
         from_float<T>(a / fmaxf(lsum, 1e-30f));
+    if (lse != nullptr && idx == g * D)
+      lse[((size_t)b * Hkv + h) * G + g] =
+          lsum > 0.f ? mx + logf(lsum) : __int_as_float(0xff800000);  // -inf
   }
 }
 
@@ -686,8 +693,8 @@ Shape choose_shape(int B, int Hkv, int G, int cap) {
 
 template <typename T, int D, typename Rows>
 int launch_d(const T* q, const T* k, const T* v, const int* lens, T* out,
-             Rows rows, int B, int Hkv, int G, int cap, float scale,
-             cudaStream_t stream) {
+             float* lse, Rows rows, int B, int Hkv, int G, int cap,
+             float scale, cudaStream_t stream) {
   auto kern = decode_kernel<T, D, Rows>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
@@ -706,7 +713,7 @@ int launch_d(const T* q, const T* k, const T* v, const int* lens, T* out,
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
   const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, kern, q, k, v, lens, out, rows, Hkv, G,
+      cudaLaunchKernelEx(&cfg, kern, q, k, v, lens, out, lse, rows, Hkv, G,
                          shape.splits, scale);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
@@ -714,8 +721,8 @@ int launch_d(const T* q, const T* k, const T* v, const int* lens, T* out,
 
 template <typename T, typename Rows>
 int launch(const void* q, const void* k, const void* v, const void* lens,
-           void* out, Rows rows, int B, int Hkv, int G, int D, int cap,
-           float scale, cudaStream_t s) {
+           void* out, float* lse, Rows rows, int B, int Hkv, int G, int D,
+           int cap, float scale, cudaStream_t s) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -723,8 +730,8 @@ int launch(const void* q, const void* k, const void* v, const void* lens,
   T* ot = static_cast<T*>(out);
 #define REPRO_DECODE_CASE(DIM)                                            \
   case DIM:                                                               \
-    return launch_d<T, DIM, Rows>(qt, kt, vt, lt, ot, rows, B, Hkv, G, cap, \
-                                  scale, s);
+    return launch_d<T, DIM, Rows>(qt, kt, vt, lt, ot, lse, rows, B, Hkv, G, \
+                                  cap, scale, s);
   switch (D) {
     REPRO_DECODE_CASE(8)
     REPRO_DECODE_CASE(16)
@@ -752,18 +759,18 @@ Shape shape_for(int B, int Hkv, int G, int D, int cap) {
 
 template <typename Rows>
 int dispatch(int dtype, const void* q, const void* k, const void* v,
-             const void* lens, void* out, Rows rows, int B, int Hkv, int G,
-             int D, int cap, float scale, void* stream) {
+             const void* lens, void* out, float* lse, Rows rows, int B,
+             int Hkv, int G, int D, int cap, float scale, void* stream) {
   if (B <= 0 || B > 65535 || Hkv <= 0 || Hkv > (1 << 27) || G <= 0 ||
       G > kMaxG)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, lens, out, rows, B, Hkv, G, D, cap, scale,
-                         s);
+    return launch<float>(q, k, v, lens, out, lse, rows, B, Hkv, G, D, cap,
+                         scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, lens, out, rows, B, Hkv, G, D, cap,
-                                 scale, s);
+    return launch<__nv_bfloat16>(q, k, v, lens, out, lse, rows, B, Hkv, G, D,
+                                 cap, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -778,19 +785,22 @@ extern "C" int paged_decode_attention(int dtype, const void* q, const void* k,
   if (bs <= 0 || bs > kMaxBlockSize || mb <= 0)
     return (int)cudaErrorInvalidValue;
   const PagedRows rows{static_cast<const int*>(tables), bs, mb, Hkv};
-  return dispatch(dtype, q, k, v, lens, out, rows, B, Hkv, G, D, bs * mb,
-                  scale, stream);
+  return dispatch(dtype, q, k, v, lens, out, nullptr, rows, B, Hkv, G, D,
+                  bs * mb, scale, stream);
 }
 
-// Contiguous caches [B, S, Hkv, D]; lengths int32 (clamped to S).
+// Contiguous caches [B, S, Hkv, D]; lengths int32 (clamped to S, 0
+// allowed: out 0, lse -inf).  `lse`, when not null, receives each query
+// head's float32 log-sum-exp of its scaled scores, [B, Hkv, G]: what a
+// caller needs to combine the outputs of several sequence shards.
 extern "C" int decode_attention(int dtype, const void* q, const void* k,
                                 const void* v, const void* lens, void* out,
-                                int B, int Hkv, int G, int D, int S,
-                                float scale, void* stream) {
+                                void* lse, int B, int Hkv, int G, int D,
+                                int S, float scale, void* stream) {
   if (S <= 0) return (int)cudaErrorInvalidValue;
   const ContiguousRows rows{S, Hkv};
-  return dispatch(dtype, q, k, v, lens, out, rows, B, Hkv, G, D, S, scale,
-                  stream);
+  return dispatch(dtype, q, k, v, lens, out, static_cast<float*>(lse), rows,
+                  B, Hkv, G, D, S, scale, stream);
 }
 
 // The launch shape either entry point takes for these shapes (cap = S or

@@ -32,7 +32,7 @@ def load():
             + [ctypes.c_float, ctypes.c_void_p])
         lib.paged_decode_attention.restype = ctypes.c_int
         lib.decode_attention.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_void_p])
         lib.decode_attention.restype = ctypes.c_int
         lib.decode_attention_shape.argtypes = (
@@ -59,18 +59,20 @@ def paged_decode_attention_grouped(q, k_store, v_store, block_tables,
 
 
 def decode_attention_grouped(q, k_cache, v_cache, kv_length, out,
-                             scale: float):
+                             scale: float, lse=None):
     """Launch on the current stream.  q/out [B,Hkv,G,D]; caches [B,S,Hkv,D];
-    lengths [B] int32 (clamped to S by the kernel); all contiguous on one
-    CUDA device (the caller checks).  Returns the CUDA error code of the
-    launch (0 on success)."""
+    lengths [B] int32 (clamped to S by the kernel); ``lse``, if given, a
+    float32 [B,Hkv,G] that receives each head's log-sum-exp; all
+    contiguous on one CUDA device (the caller checks).  Returns the CUDA
+    error code of the launch (0 on success)."""
     B, Hkv, G, D = q.shape
     S = k_cache.shape[1]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     return load().decode_attention(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), kv_length.data_ptr(), out.data_ptr(), B, Hkv, G,
-        D, S, scale, stream)
+        v_cache.data_ptr(), kv_length.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, Hkv, G, D, S, scale,
+        stream)
 
 
 def launch_shape(dtype, B: int, Hkv: int, G: int, D: int, cap: int):

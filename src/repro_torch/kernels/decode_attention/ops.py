@@ -83,7 +83,7 @@ def _check_kernel_limits(q, k, v):
                          "must be 16-byte aligned")
 
 
-def _launch(name, launch, q, k, v, *args):
+def _launch(name, launch, q, k, v, *args, lse=None):
     """Check the kernel's limits, launch on a CUDA tensor, count it."""
     if q.device.type != "cuda":
         raise ValueError(f"no {name} for device {q.device}")
@@ -92,7 +92,8 @@ def _launch(name, launch, q, k, v, *args):
     qg = q.reshape(B, k.shape[2], Hq // k.shape[2], D)
     out = torch.empty_like(qg)
     if B:
-        err = launch(qg, k, v, *args, out, 1.0 / math.sqrt(D))
+        extra = {} if lse is None else {"lse": lse}
+        err = launch(qg, k, v, *args, out, 1.0 / math.sqrt(D), **extra)
         if err:
             raise RuntimeError(f"{name} kernel launch failed: CUDA error "
                                f"{err}")
@@ -133,26 +134,36 @@ def paged_decode_attention(q, k_store, v_store, block_tables, kv_length):
     return out
 
 
-def decode_attention(q, k_cache, v_cache, kv_length):
+def decode_attention(q, k_cache, v_cache, kv_length, return_lse=False):
     """q [B,1,Hq,D]; caches [B,S,Hkv,D]; kv_length [B] int32 (valid
-    positions, >= 1, including the current token; a length past S attends
-    all S positions, as the reference's mask does) -> [B,1,Hq,D]."""
+    positions including the current token; a length past S attends all S
+    positions, as the reference's mask does; a length of 0 gives 0)
+    -> [B,1,Hq,D].  With ``return_lse`` -> (out, lse [B,Hq] float32, each
+    head's log-sum-exp of its scaled scores, -inf at length 0): the
+    partial result of one sequence shard, which the caller combines with
+    the others' (``models.attention._combine_model``)."""
     global contiguous_launches
     _check("decode_attention", q, k_cache, v_cache, kv_length)
     B, _, Hq, D = q.shape
     if k_cache.shape[0] != B:
         raise ValueError(f"caches must be [{B}, S, Hkv, D], got "
                          f"{tuple(k_cache.shape)}")
+    lse = (torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if q.device.type == "meta":
         cost.charge("decode_attention", *cost.decode_attention(q, k_cache))
-        return torch.empty_like(q)
-    if q.device.type == "cpu":
+        out = torch.empty_like(q)
+    elif q.device.type == "cpu":
         qg = q.reshape(B, k_cache.shape[2], Hq // k_cache.shape[2], D)
-        return ref.decode_ref(qg, k_cache, v_cache,
-                              kv_length).reshape(B, 1, Hq, D)
-    out = _launch("decode_attention", decode_attention_grouped, q, k_cache,
-                  v_cache, kv_length)
-    if B:
-        with _count_lock:
-            contiguous_launches += 1
-    return out
+        got = ref.decode_ref(qg, k_cache, v_cache, kv_length,
+                             return_lse=return_lse)
+        out, lse = got if return_lse else (got, None)
+        out = out.reshape(B, 1, Hq, D)
+        lse = None if lse is None else lse.reshape(B, Hq)
+    else:
+        out = _launch("decode_attention", decode_attention_grouped, q,
+                      k_cache, v_cache, kv_length, lse=lse)
+        if B:
+            with _count_lock:
+                contiguous_launches += 1
+    return (out, lse) if return_lse else out

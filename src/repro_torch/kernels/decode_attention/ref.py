@@ -16,8 +16,11 @@ import torch
 NEG_INF = -1e30
 
 
-def decode_ref(q, k_cache, v_cache, kv_length):
-    """q [B,Hkv,G,D]; caches [B,S,Hkv,D]; kv_length [B] -> [B,Hkv,G,D]."""
+def decode_ref(q, k_cache, v_cache, kv_length, return_lse=False):
+    """q [B,Hkv,G,D]; caches [B,S,Hkv,D]; kv_length [B] -> [B,Hkv,G,D], and
+    with ``return_lse`` also each head's float32 log-sum-exp of its scaled
+    scores [B,Hkv,G].  A sequence with no valid position (length 0, as a
+    rank's shard of a cache under a mesh can be) gives 0 and -inf."""
     D = q.shape[-1]
     S = k_cache.shape[1]
     s = torch.einsum("bhgd,bkhd->bhgk", q.float(),
@@ -27,7 +30,12 @@ def decode_ref(q, k_cache, v_cache, kv_length):
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
-    return out.to(q.dtype)
+    some = valid.any(dim=1)[:, None, None]
+    out = torch.where(some[..., None], out, 0.0).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(some, torch.logsumexp(s, dim=-1), float("-inf"))
+    return out, lse
 
 
 def decode_split_ref(q, k_cache, v_cache, kv_length, splits, tile=16):

@@ -19,8 +19,10 @@ Without a mesh flag a cell is one H100.  ``--multi-pod`` counts it on the
 ``fake`` process group of 256 or 512 (``launch/mesh.fake_world``), the
 state and the batch are DTensors placed by ``TRAIN_RULES`` whose local
 shards lie on ``meta``, and every count (FLOPs, bytes, the collectives'
-bytes) is one device's.  Serving cells on a mesh are written ``skipped``
-(serving under a mesh is ROADMAP Queue 1 item 15b).  The roofline divides
+bytes) is one device's.  A serving cell on a mesh places the parameters
+by ``SERVE_RULES``, the batch by ``batch_spec`` and the decode cache by
+``cache_specs``, and runs ``prefill`` / ``decode`` with the mesh (the
+decode kernel charges its rank's shard of the cache).  The roofline divides
 the counts by the H100 data sheet's constants (``kernels/cost.py``: bf16
 peak, HBM rate, NVLink rate); none is a measurement.
 
@@ -63,9 +65,6 @@ PEAK_FLOPS = kernel_cost.PEAK_FLOPS  # dense bf16 FLOP/s
 HBM_BW = kernel_cost.HBM_BW  # HBM3 bytes/s
 HBM_BYTES = kernel_cost.HBM_BYTES  # device memory
 LINK_BW = kernel_cost.NVLINK_BW  # NVLink bytes/s, one direction
-
-MESH_SKIP = ("serving under a mesh (cache specs, prefill and decode on "
-             "sharded caches) is ROADMAP Queue 1 item 15b, not ported yet")
 
 # Per-arch microbatch counts for train_4k (keep activations ~O(1 sample))
 MICROBATCHES = {
@@ -135,9 +134,11 @@ def build_train(api, cfg, tcfg: TrainConfig, mesh=None):
 
 
 def build_cell(arch: str, shape: str, *, overrides: Optional[dict] = None,
-               mesh=None):
+               mesh=None, microbatches: Optional[int] = None):
     """Returns (fn, example_args, cfg, extra) for the cell, on ``meta``:
-    ``fn(*example_args)`` runs it once.  ``mesh``: a train cell on it."""
+    ``fn(*example_args)`` runs it once, on ``mesh`` if given.
+    ``microbatches`` sets a train cell's count in place of
+    ``MICROBATCHES``."""
     seq, batch, kind = sp.SHAPES[shape]
     cfg = get_config(arch, **arch_overrides(arch, shape, overrides))
     api = get_model(cfg)
@@ -147,33 +148,38 @@ def build_cell(arch: str, shape: str, *, overrides: Optional[dict] = None,
         dp = 1
         if mesh is not None:
             dp = mesh_devices(mesh) // nn.mesh_shape(mesh).get("model", 1)
-        micro = MICROBATCHES.get(arch, DEFAULT_MICRO)
+        micro = microbatches or MICROBATCHES.get(arch, DEFAULT_MICRO)
         while batch % (micro * dp) and micro > 1:
             micro //= 2
         tcfg = TrainConfig(global_batch=batch, seq_len=seq,
                            microbatches=micro, optimizer=opt_cfg)
         fn, args = build_train(api, cfg, tcfg, mesh)
         return fn, args, cfg, {"microbatches": micro}
+    params, axes = sp.abstract_params(api, cfg)
     if mesh is not None:
-        raise NotImplementedError(MESH_SKIP)
-
-    params, _ = sp.abstract_params(api, cfg)
+        params = shd.place_params(params, axes, cfg, mesh)
     # vlm: the vision prefix occupies cache positions ahead of the tokens
     eff_len = seq + (cfg.vision_tokens if cfg.family == "vlm" else 0)
     if kind == "prefill":
         @torch.no_grad()
         def prefill_fn(params, b):
-            return api.prefill(params, b, cfg, max_len=eff_len)
+            return api.prefill(params, b, cfg, max_len=eff_len, mesh=mesh)
 
-        return (prefill_fn, (params, sp.prefill_batch_specs(cfg, batch, seq)),
-                cfg, {})
+        b = sp.prefill_batch_specs(cfg, batch, seq)
+        if mesh is not None:
+            b = {k: shd.place(v, shd.batch_sharding(mesh, v.dim() - 1))
+                 for k, v in b.items()}
+        return prefill_fn, (params, b), cfg, {}
 
     @torch.no_grad()
     def decode_fn(params, cache, tokens):
-        return api.decode(params, cache, tokens, cfg)
+        return api.decode(params, cache, tokens, cfg, mesh=mesh)
 
     cache = sp.cache_template(cfg, batch, seq)
     tokens = torch.empty((batch,), dtype=torch.int32, device=sp.META)
+    if mesh is not None:
+        cache = nn.lay_out_cache(cache, mesh)
+        tokens = nn.constrain(tokens, mesh, nn.batch_pspec(mesh, batch, 0))
     return decode_fn, (params, cache, tokens), cfg, {}
 
 
@@ -266,8 +272,6 @@ def run_cell(arch: str, shape: str, *,
                            "seq": seq, "batch": batch}
     if multi_pod is not None:
         rec["multi_pod"] = multi_pod
-    if ok and multi_pod is not None and kind != "train":
-        ok, why = False, MESH_SKIP
     if not ok:
         rec.update(status="skipped", reason=why)
         return rec

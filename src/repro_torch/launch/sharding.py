@@ -157,3 +157,21 @@ def opt_axes_like(param_axes_tree, quantized: bool):
         return {"m": axes, "v": axes}
 
     return {"moments": _tree_map(mk, param_axes_tree), "step": ()}
+
+
+def place_params(params, axes, cfg, mesh):
+    """``params`` (the port's layout, every rank holding them whole, or on
+    ``meta``) as DTensors placed by ``SERVE_RULES`` from ``axes``, the
+    reference's layout (``init(..., with_axes=True)``)."""
+    from repro_torch.models.convert import unstack_axes
+
+    sh = make_shardings(unstack_axes(axes, cfg), SERVE_RULES, mesh)
+
+    def walk(tree, s):
+        if isinstance(tree, dict):
+            return {k: walk(v, s[k]) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, x) for v, x in zip(tree, s)]
+        return place(tree, s)
+
+    return walk(params, sh)

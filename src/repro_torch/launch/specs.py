@@ -7,15 +7,16 @@ parameters and the optimizer state are made on the ``meta`` device: shapes
 and dtypes, nothing allocated.  The cache template mirrors the port's own
 prefill cache (stacked ``k``/``v``/``len`` for the transformer families,
 ``ssm``/``attn`` for zamba2, ``att``/``ffn`` for rwkv6), so the dry-run's
-decode cell feeds it straight into ``ModelApi.decode``.  The cache's
-partition specs (``cache_specs``) belong to serving under a mesh, which
-is not ported yet (ROADMAP Queue 1 item 15b).
+decode cell feeds it straight into ``ModelApi.decode``.  ``cache_specs``
+gives the cache's partition specs on a mesh (the reference's rule applied
+by leaf name to the port's layout), as plain tuples that
+``sharding.place`` lays a cache out by.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import ModelApi
+from repro_torch.models import ModelApi, nn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba2 import ssm_dims
 from repro_torch.training.optim import adamw_init, tree_leaves
@@ -162,3 +163,20 @@ def cache_template(cfg: ModelConfig, batch: int, max_len: int):
         cache["cross_v"] = _empty(*cross, dtype=cd)
     cache["len"] = _empty(batch, dtype=i32)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Cache partition specs (by leaf name)
+# ---------------------------------------------------------------------------
+
+
+def cache_specs(cfg: ModelConfig, mesh, batch: int, max_len: int):
+    """Spec tree of the cache of ``batch`` sequences of ``max_len``
+    positions (``cache_template``'s layout) on ``mesh``: see
+    ``models.nn.cache_spec``."""
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        return nn.cache_spec(path, tuple(tree.shape), mesh, batch)
+
+    return walk(cache_template(cfg, batch, max_len), ())

@@ -5,8 +5,10 @@ the transformer families (``transformer.py``: dense, MoE with ``moe.py``
 as its FFN, the encoder-decoder ``encdec`` and the vision-prefix ``vlm``),
 rwkv6 (``ssm``) and zamba2 (``hybrid``).  ``init(..., with_axes=True)``
 gives ``(params, axes)``, the axes tree equal to the reference's
-``nn.split(api.init(...))[1]``; ``loss`` and ``forward`` take the
-reference's ``mesh``.
+``nn.split(api.init(...))[1]``; every other callable takes the
+reference's ``mesh`` (the serving ones return the cache as computed and
+vocab-sharded logits under one; ``nn.lay_out_cache`` lays a cache out by
+``launch.specs.cache_specs``' rule).
 """
 from __future__ import annotations
 
@@ -29,10 +31,10 @@ class ModelApi:
     init: Callable  # (generator, cfg, *, device, with_axes=False) -> params or (params, axes)
     loss: Callable  # (params, batch, cfg, *, mesh=None) -> (loss, metrics)
     forward: Callable  # (params, batch, cfg, *, mesh=None) -> (logits, aux)
-    prefill: Callable  # (params, batch, cfg, *, max_len[, last_only: dense]) -> (cache, logits)
-    decode: Callable  # (params, cache, tokens [B], cfg) -> (cache, logits [B,V])
-    extend: Optional[Callable] = None  # (params, cache, tokens [B,T], cfg) -> (cache, logits [B,T,V])
-    decode_paged: Optional[Callable] = None  # (params, store, block_tables, lens, tokens [B], write_phys, write_off, cfg) -> (store, logits [B,V])
+    prefill: Callable  # (params, batch, cfg, *, max_len[, last_only: dense], mesh=None) -> (cache, logits)
+    decode: Callable  # (params, cache, tokens [B], cfg, *, mesh=None) -> (cache, logits [B,V])
+    extend: Optional[Callable] = None  # (params, cache, tokens [B,T], cfg, *, mesh=None) -> (cache, logits [B,T,V])
+    decode_paged: Optional[Callable] = None  # (params, store, block_tables, lens, tokens [B], write_phys, write_off, cfg, *, mesh=None) -> (store, logits [B,V])
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:

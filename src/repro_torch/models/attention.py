@@ -290,44 +290,199 @@ def attention_apply(p, x, cfg: ModelConfig, *, causal=True, positions=None,
 # ---------------------------------------------------------------------------
 
 
-def attention_prefill(p, x, cfg: ModelConfig, *, positions=None):
+def attention_prefill(p, x, cfg: ModelConfig, *, positions=None,
+                      mesh=None):
     """Prefill: forward + return (output, (k_cache_entries, v_cache_entries)).
     The algorithm is the reference's: ``chunked_causal_attention`` where
     ``_pick_impl`` says "chunked" and the blocks divide S, else
-    ``full_attention``."""
+    ``full_attention``.  Under a mesh it runs on each rank's shard as the
+    training forward's attention does (``_attend``: heads over "model"
+    where they divide it), with the tensor-parallel q and o under
+    ``explicit_tp``; the K/V come back batch-sharded, replicated over
+    "model"."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, x, cfg, positions, positions,
-                           rope=cfg.positions == "rope")
+                           rope=cfg.positions == "rope", mesh=mesh)
     if _pick_impl(cfg, S) == "chunked" and S % cfg.attn_chunk_q == 0:
-        out = chunked_causal_attention(q, k, v, block_q=cfg.attn_chunk_q,
-                                       block_k=cfg.attn_chunk_k)
+        def fn(q, k, v):
+            return chunked_causal_attention(q, k, v, block_q=cfg.attn_chunk_q,
+                                            block_k=cfg.attn_chunk_k)
     else:
-        out = full_attention(q, k, v, causal=True)
-    out = out.reshape(B, S, cfg.padded_heads * cfg.head_dim)
+        def fn(q, k, v):
+            return full_attention(q, k, v, causal=True)
+    out = nn.reshape(_attend(q, k, v, cfg, mesh, fn), B, S,
+                     cfg.padded_heads * cfg.head_dim)
+    if _tp_ok(cfg, mesh):
+        return nn.linear_apply_tp(p["o"], out, "row", mesh, cfg.cdtype,
+                                  fsdp=cfg.fsdp_params), (k, v)
     return nn.linear_apply(p["o"], out, cfg.cdtype), (k, v)
 
 
-def _write_rows(cache, pos, new):
-    """``cache[b, pos[b, t]] = new[b, t]`` in place for the consecutive
-    positions ``pos`` [B, T], dropping every position >= Smax.  The
-    writes go through positions clamped to Smax - 1, and that row is then
-    set to what it must hold: the chunk's own entry for it, or its value
-    before the call (so the dropped writes, which collide there, leave no
-    trace, with no host sync)."""
+def _write_rows(cache, pos, new, lo: int = 0):
+    """``cache[b, pos[b, t] - lo] = new[b, t]`` in place for the
+    consecutive positions ``pos`` [B, T], dropping every position outside
+    the cache's rows ``[lo, lo + S)`` (``lo`` > 0: a rank's shard of a
+    sequence-split cache).  The writes go through positions clamped to
+    the rows, and the end rows are then set to what they must hold: the
+    chunk's own entry for them, or their value before the call (so the
+    dropped writes, which collide there, leave no trace, with no host
+    sync)."""
     B, T = pos.shape
     last = cache.shape[1] - 1
     bidx = torch.arange(B, device=pos.device)
-    before = cache[:, last].clone()
-    cache[bidx[:, None], pos.clamp(max=last)] = new.to(cache.dtype)
-    t = last - pos[:, 0]  # the chunk entry that belongs at row Smax - 1
-    own = ((t >= 0) & (t < T)).reshape((B,) + (1,) * (cache.dim() - 2))
-    cache[:, last] = torch.where(
-        own, new[bidx, t.clamp(0, T - 1)].to(cache.dtype), before)
+    rel = pos - lo
+    ends = (last, 0) if lo else (last,)
+    before = [cache[:, row].clone() for row in ends]
+    cache[bidx[:, None], rel.clamp(0, last)] = new.to(cache.dtype)
+    for row, old in zip(ends, before):
+        t = row - rel[:, 0]  # the chunk entry that belongs at this row
+        own = ((t >= 0) & (t < T)).reshape((B,) + (1,) * (cache.dim() - 2))
+        cache[:, row] = torch.where(
+            own, new[bidx, t.clamp(0, T - 1)].to(cache.dtype), old)
 
 
-def attention_extend(p, x, cache_k, cache_v, kv_length, cfg: ModelConfig):
+# ---------------------------------------------------------------------------
+# Serving under a mesh: each rank's shard of the cache
+# ---------------------------------------------------------------------------
+
+
+def _combine_model(out, lse, mesh):
+    """The decode outputs of the "model" ranks' sequence shards, each
+    [B,1,Hq,D] with its log-sum-exp [B,Hq], combined as the kernel
+    combines its cluster's blocks: sum_r e^(lse_r - lse) out_r, lse =
+    log sum_r e^lse_r (two all-reduces: the max, then the weighted output
+    and the weights, summed as one tensor).  A rank with no valid
+    position has lse -inf and adds 0."""
+    m = nn.psum_model(lse, mesh, "max")
+    w = torch.exp(lse - m)[:, None, :, None]
+    sums = nn.psum_model(torch.cat([w * out.float(), w], dim=-1), mesh)
+    return (sums[..., :-1] / sums[..., -1:]).to(out.dtype)
+
+
+def decode_on_shards(q, cache_k, cache_v, kv_length, mesh, *, new=None):
+    """Contiguous decode (``ops.decode_attention``) under ``mesh`` on each
+    rank's shard of the caches [B,S,Hkv,D] (DTensors laid out by
+    ``launch.specs.cache_specs``, or plain tensors, replicated): ``new``
+    = (k_new, v_new) [B,1,Hkv,D] is first written at ``kv_length`` [B]
+    (the row lands on the rank whose shard holds it; a full cache drops
+    it), then each rank attends its positions.  A sequence split over
+    "model" gives each rank the local length clamp(len + 1 - lo, 0,
+    S_loc) and the kernel's log-sum-exp, and the ranks' outputs are
+    combined (``_combine_model``); an unsplit one is attended whole.
+    ``new=None`` (cross attention): nothing is written and every position
+    is valid.  Returns out [B,1,Hq,D], batch-sharded as the cache."""
+    cache_k, cache_v = (nn.as_dtensor(c, mesh) for c in (cache_k, cache_v))
+    cspec = nn.spec_of(cache_k)
+    if cspec[1] not in (None, "model"):
+        raise ValueError(f"a decode cache splits its sequence over 'model' "
+                         f"or not at all, not {cspec}")
+    split = cspec[1] == "model"
+    lo = nn.local_offsets(cache_k)[1]
+    b, h = cspec[0], cspec[2]
+    qspec = (b, None, h, None)
+    S = cache_k.shape[1]
+
+    def fn(ql, kl, vl, lens, *kv_new):
+        if kv_new:
+            _write_rows(kl, lens[:, None], kv_new[0], lo)
+            _write_rows(vl, lens[:, None], kv_new[1], lo)
+            n = lens + 1
+        else:
+            n = torch.full_like(lens, S)
+        # the kernel reads contiguous inputs (the writes above went to
+        # the shards themselves)
+        ql, kl, vl = (t.contiguous() for t in (ql, kl, vl))
+        if not split:
+            return da_ops.decode_attention(ql, kl, vl, n.to(torch.int32))
+        n_loc = (n - lo).clamp(0, kl.shape[1]).to(torch.int32)
+        out, lse = da_ops.decode_attention(ql, kl, vl, n_loc, return_lse=True)
+        return _combine_model(out, lse, mesh)
+
+    args = [q, cache_k, cache_v, kv_length]
+    specs = [qspec, cspec, cspec, (b,)]
+    if new is not None:
+        args += list(new)
+        specs += [qspec, qspec]
+    return nn.local_map(fn, mesh, specs, [qspec], *args)
+
+
+def paged_on_shards(q, k_store, v_store, block_tables, kv_length, k_new,
+                    v_new, write_phys, write_off, mesh):
+    """Paged decode (``ops.paged_decode_attention``) under ``mesh``.  The
+    store [num_blocks, block_size, Hkv, D] is shared by every sequence, so
+    it is never split by batch or inside a block: its kv heads lie on
+    "model" where Hkv divides it (each rank runs the unchanged kernel on
+    its q heads and their kv heads), else it is replicated and each rank
+    attends all heads.  Every data rank holds the whole store, so each
+    writes every row's new K/V (its heads); each then attends its batch
+    shard's sequences.  Returns out [B,1,Hq,D]."""
+    k_store, v_store = (nn.as_dtensor(s, mesh) for s in (k_store, v_store))
+    h = nn.spec_of(k_store)[2]
+    b = nn.batch_pspec(mesh, q.shape[0], extra_dims=0)[0]
+    sspec, nspec = (None, None, h, None), (None, None, h, None)
+
+    def fn(ql, ks, vs, bt, lens, kn, vn, wp, wo):
+        ks[wp.long(), wo.long()] = kn[:, 0].to(ks.dtype)
+        vs[wp.long(), wo.long()] = vn[:, 0].to(vs.dtype)
+        return da_ops.paged_decode_attention(
+            ql.contiguous(), ks.contiguous(), vs.contiguous(), bt, lens + 1)
+
+    qspec = (b, None, h, None)
+    return nn.local_map(
+        fn, mesh, [qspec, sspec, sspec, (b, None), (b,), nspec, nspec,
+                   (None,), (None,)], [qspec],
+        q, k_store, v_store, block_tables, kv_length, k_new, v_new,
+        write_phys, write_off)
+
+
+def _extend_attend(q, cache_k, cache_v, pos, cfg: ModelConfig):
+    """The chunk's attention over a whole cache (``attention_extend``'s
+    score math)."""
+    B, T = pos.shape
+    Smax = cache_k.shape[1]
+    Hq = q.shape[2]
+    k = _repeat_kv(cache_k, Hq)
+    v = _repeat_kv(cache_v, Hq)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    # key j is valid for chunk query t iff j <= its absolute position
+    mask = (torch.arange(Smax, device=q.device)[None, None, :]
+            <= pos[:, :, None])  # [B,T,Smax]
+    logits = torch.where(mask[:, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def _extend_on_shards(q, cache_k, cache_v, k_new, v_new, pos, cfg, mesh):
+    """``attention_extend``'s writes and attention under ``mesh``: each
+    rank writes the chunk's rows that fall in its shard of the cache (by
+    sequence, or by kv head for a paged view), then the cache is gathered
+    over "model" and each rank attends its batch shard over all of it, in
+    the unsharded score math."""
+    cache_k, cache_v = (nn.as_dtensor(c, mesh) for c in (cache_k, cache_v))
+    cspec = nn.spec_of(cache_k)
+    lo = nn.local_offsets(cache_k)[1]
+    nspec = (cspec[0], None, cspec[2], None)
+
+    def write(cl, nl, pl):
+        _write_rows(cl, pl, nl, lo)
+        return cl
+
+    for c, n in ((cache_k, k_new), (cache_v, v_new)):
+        nn.local_map(write, mesh, [cspec, nspec, (cspec[0], None)], [cspec],
+                     c, n, pos)
+    b = nn.batch_pspec(mesh, q.shape[0], extra_dims=0)[0]
+    full = (b, None, None, None)
+    return nn.local_map(lambda ql, kl, vl, pl: _extend_attend(ql, kl, vl, pl,
+                                                              cfg),
+                        mesh, [full, full, full, (b, None)], [full],
+                        q, cache_k, cache_v, pos)
+
+
+def attention_extend(p, x, cache_k, cache_v, kv_length, cfg: ModelConfig,
+                     mesh=None):
     """Multi-token cache extension (chunked prefill).
 
     x: [B,T,d] new tokens appended at positions kv_length..kv_length+T-1;
@@ -337,31 +492,26 @@ def attention_extend(p, x, cache_k, cache_v, kv_length, cfg: ModelConfig):
     valid entries *before* this chunk.  Returns (out [B,T,d], cache_k,
     cache_v, new_len).  Each chunk query attends to the cache prefix plus
     the chunk's own causal triangle, with the score math of
-    ``full_attention``."""
+    ``full_attention``.  Under a mesh: ``_extend_on_shards`` (each rank
+    writes its shard, then attends the gathered cache)."""
     B, T, _ = x.shape
-    Smax = cache_k.shape[1]
     pos = kv_length[:, None] + torch.arange(T, device=x.device)[None, :]
     q, k_new, v_new = _project_qkv(p, x, x, cfg, pos, pos,
                                    rope=cfg.positions == "rope")
-    _write_rows(cache_k, pos, k_new)
-    _write_rows(cache_v, pos, v_new)
-    Hq = q.shape[2]
-    k = _repeat_kv(cache_k, Hq)
-    v = _repeat_kv(cache_v, Hq)
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    # key j is valid for chunk query t iff j <= its absolute position
-    mask = (torch.arange(Smax, device=x.device)[None, None, :]
-            <= pos[:, :, None])  # [B,T,Smax]
-    logits = torch.where(mask[:, None], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
-    out = out.reshape(B, T, cfg.padded_heads * cfg.head_dim)
+    if mesh is not None:
+        out = _extend_on_shards(q, cache_k, cache_v, k_new, v_new, pos, cfg,
+                                mesh)
+    else:
+        _write_rows(cache_k, pos, k_new)
+        _write_rows(cache_v, pos, v_new)
+        out = _extend_attend(q, cache_k, cache_v, pos, cfg)
+    out = nn.reshape(out, B, T, cfg.padded_heads * cfg.head_dim)
     return (nn.linear_apply(p["o"], out, cfg.cdtype), cache_k, cache_v,
             kv_length + T)
 
 
-def attention_decode(p, x, cache_k, cache_v, kv_length, cfg: ModelConfig):
+def attention_decode(p, x, cache_k, cache_v, kv_length, cfg: ModelConfig,
+                     mesh=None):
     """Single-token decode step against contiguous caches.
 
     x: [B,1,d]; cache_k/v: [B,Smax,Hkv,D], written IN PLACE at
@@ -371,13 +521,21 @@ def attention_decode(p, x, cache_k, cache_v, kv_length, cfg: ModelConfig):
     reference does (its ``.at[].set`` drops the out-of-range write and its
     mask admits all Smax positions).  Attention runs
     ``ops.decode_attention``: the hand-written CUDA kernel whenever the
-    tensors are on the card, its plain version on the CPU.
+    tensors are on the card, its plain version on the CPU.  Under a mesh
+    it runs on each rank's shard of the caches (``decode_on_shards``).
     Returns (out [B,1,d], cache_k, cache_v, new_len)."""
     B = x.shape[0]
     Smax = cache_k.shape[1]
     pos = kv_length[:, None]
     q, k_new, v_new = _project_qkv(p, x, x, cfg, pos, pos,
                                    rope=cfg.positions == "rope")
+    new_len = kv_length + 1
+    if mesh is not None:
+        out = decode_on_shards(q, cache_k, cache_v, kv_length, mesh,
+                               new=(k_new, v_new))
+        out = nn.reshape(out, B, 1, cfg.padded_heads * cfg.head_dim)
+        return (nn.linear_apply(p["o"], out, cfg.cdtype), cache_k, cache_v,
+                new_len)
     bidx = torch.arange(B, device=x.device)
     fits = (kv_length < Smax)[:, None, None]
     wpos = kv_length.clamp(max=Smax - 1).long()
@@ -385,14 +543,14 @@ def attention_decode(p, x, cache_k, cache_v, kv_length, cfg: ModelConfig):
                                       cache_k[bidx, wpos])
     cache_v[bidx, wpos] = torch.where(fits, v_new[:, 0].to(cache_v.dtype),
                                       cache_v[bidx, wpos])
-    new_len = kv_length + 1
     out = da_ops.decode_attention(q, cache_k, cache_v, new_len)
     out = out.reshape(B, 1, cfg.padded_heads * cfg.head_dim)
     return nn.linear_apply(p["o"], out, cfg.cdtype), cache_k, cache_v, new_len
 
 
 def attention_decode_paged(p, x, k_store, v_store, block_tables, kv_length,
-                           write_phys, write_off, cfg: ModelConfig):
+                           write_phys, write_off, cfg: ModelConfig,
+                           mesh=None):
     """Single-token decode directly against a block-paged KV store.
 
     x: [B,1,d]; k_store/v_store: [num_blocks, block_size, Hkv, D] (one
@@ -404,12 +562,18 @@ def attention_decode_paged(p, x, k_store, v_store, block_tables, kv_length,
 
     Attention then reads K/V through the block table in
     ``ops.paged_decode_attention``: the hand-written CUDA kernel whenever
-    the tensors are on the card, its plain version on the CPU.
+    the tensors are on the card, its plain version on the CPU.  Under a
+    mesh it runs on each rank's heads of the store (``paged_on_shards``).
     Returns (out [B,1,d], k_store, v_store)."""
     B = x.shape[0]
     pos = kv_length[:, None]
     q, k_new, v_new = _project_qkv(p, x, x, cfg, pos, pos,
                                    rope=cfg.positions == "rope")
+    if mesh is not None:
+        out = paged_on_shards(q, k_store, v_store, block_tables, kv_length,
+                              k_new, v_new, write_phys, write_off, mesh)
+        out = nn.reshape(out, B, 1, cfg.padded_heads * cfg.head_dim)
+        return nn.linear_apply(p["o"], out, cfg.cdtype), k_store, v_store
     k_store[write_phys, write_off] = k_new[:, 0].to(k_store.dtype)
     v_store[write_phys, write_off] = v_new[:, 0].to(v_store.dtype)
     out = da_ops.paged_decode_attention(q, k_store, v_store, block_tables,

@@ -14,10 +14,10 @@ application, the Zamba trick), which is the port's dense
 ``[G, K, ...]`` and scans them, ``p["groups"]`` is a list of G lists of K
 block dicts walked by Python loops (their axes stacked ``[G, K, ...]`` as
 the reference's, ``hybrid_init(..., with_axes=True)``).  Under a mesh
-(``hybrid_forward`` / ``hybrid_loss``) the residual is pinned
-batch-parallel, the SSD runs on each rank's batch and head shard (heads
-on "model", as the "ssm_heads" rule puts them; B and C are replicated
-over it) and the logits stay vocab-sharded.  The serving cache keeps the
+(``hybrid_forward`` / ``hybrid_loss`` and the serving functions) the
+residual is pinned batch-parallel, the SSD runs on each rank's batch and
+head shard (heads on "model", as the "ssm_heads" rule puts them; B and C
+are replicated over it) and the logits stay vocab-sharded.  The serving cache keeps the
 reference's stacked layout, ``{"ssm": {"conv": {"x","B","C": [G,K,B,W-1,
 C]}, "ssm": [G,K,B,H,N,P]}, "attn": {"k","v": [G,B,Smax,Hkv,D], "len":
 [G,B]}}``, which ``hybrid_decode_step`` updates in place.
@@ -244,12 +244,12 @@ def mamba_block_step(p, u, state, cfg: ModelConfig):
     x_res = u
     u = nn.rmsnorm_apply(p["ln"], u, cfg.norm_eps)
     z, x, Bm, Cm, dt, new_tails = _project_streams(p, u, cfg, state)
-    x = x[:, 0].reshape(B, H, P)
+    x = nn.reshape(x[:, 0], B, H, P)
     dt_t = F.softplus(dt[:, 0].float() + p["dt_bias"][None, :])
     A = -torch.exp(p["A_log"])
     h, y = ssd_step(state["ssm"], x, dt_t, A, Bm[:, 0], Cm[:, 0])
     y = y + p["D"].to(y.dtype)[None, :, None] * x
-    y = y.reshape(B, 1, d_in).to(z.dtype)
+    y = nn.reshape(y, B, 1, d_in).to(z.dtype)
     y = nn.rmsnorm_apply(p["norm"], y * F.silu(z), cfg.norm_eps)
     out = x_res + nn.linear_apply(p["out_proj"], y, cfg.cdtype)
     return out, {"conv": new_tails, "ssm": h}
@@ -348,51 +348,71 @@ def _stack(trees):
     """Stack a list of equally shaped state dicts leaf by leaf."""
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+    return nn.stack(trees)
 
 
-def hybrid_prefill(p, batch, cfg: ModelConfig, *, max_len: int):
-    """Prefill: (cache, logits [B,V] at the last position)."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = nn.embedding_apply(p["embed"], tokens, cfg.cdtype)
-    positions = torch.arange(S, device=x.device)[None, :]
-    ssm_states, ks, vs = [], [], []
-    for group in p["groups"]:
-        states = []
-        for bp in group:
-            x, st = mamba_block_apply(bp, x, cfg, return_state=True)
-            states.append(st)
-        ssm_states.append(_stack(states))
-        x, kv = tfm.block_prefill(p["shared"], x, cfg, max_len=max_len,
-                                  positions=positions)
-        ks.append(kv["k"])
-        vs.append(kv["v"])
-    G = len(p["groups"])
-    cache = {"ssm": _stack(ssm_states),
-             "attn": {"k": torch.stack(ks), "v": torch.stack(vs),
-                      "len": torch.full((G, B), S, dtype=torch.int32,
-                                        device=x.device)}}
-    return cache, _readout(p, x[:, -1:, :], cfg)[:, 0]
+def hybrid_prefill(p, batch, cfg: ModelConfig, *, max_len: int, mesh=None):
+    """Prefill: (cache, logits [B,V] at the last position).  Under a mesh
+    the Mamba2 blocks run as the training forward's (the SSD on each
+    rank's batch and head shard), the shared block as
+    ``transformer.block_prefill`` under the mesh; the cache comes back as
+    they computed it (``nn.lay_out_cache`` lays it out by
+    ``cache_specs``)."""
+    with nn.mesh_context(mesh):
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = nn.embedding_apply(p["embed"], tokens, cfg.cdtype, mesh=mesh)
+        aspec = nn.batch_pspec(mesh, B)
+        x = nn.constrain(x, mesh, aspec)
+        positions = torch.arange(S, device=nn.local(x).device)[None, :]
+        ssm_states, ks, vs = [], [], []
+        for group in p["groups"]:
+            states = []
+            for bp in group:
+                x, st = mamba_block_apply(bp, x, cfg, return_state=True,
+                                          mesh=mesh)
+                x = nn.constrain(x, mesh, aspec)
+                states.append(st)
+            ssm_states.append(_stack(states))
+            x, kv = tfm.block_prefill(p["shared"], x, cfg, max_len=max_len,
+                                      positions=positions, mesh=mesh)
+            x = nn.constrain(x, mesh, aspec)
+            ks.append(kv["k"])
+            vs.append(kv["v"])
+        G = len(p["groups"])
+        cache = {"ssm": _stack(ssm_states),
+                 "attn": {"k": nn.stack(ks), "v": nn.stack(vs),
+                          "len": torch.full((G, B), S, dtype=torch.int32,
+                                            device=nn.local(x).device)}}
+        return cache, _readout(p, x[:, -1:, :], cfg)[:, 0]
 
 
-def hybrid_decode_step(p, cache, tokens, cfg: ModelConfig):
+def hybrid_decode_step(p, cache, tokens, cfg: ModelConfig, *, mesh=None):
     """One decode step; tokens [B] -> (cache, logits [B,V]).  Every cache
-    tensor is updated in place; the shared block's attention runs
-    ``attention_decode`` (the contiguous flash-decode kernel on the
-    card)."""
-    x = nn.embedding_apply(p["embed"], tokens[:, None], cfg.cdtype)
-    ssm, attn = cache["ssm"], cache["attn"]
-    for g, group in enumerate(p["groups"]):
-        for i, bp in enumerate(group):
-            st = {"conv": {n: ssm["conv"][n][g, i] for n in ("x", "B", "C")},
-                  "ssm": ssm["ssm"][g, i]}
-            x, new = mamba_block_step(bp, x, st, cfg)
-            for n in ("x", "B", "C"):
-                ssm["conv"][n][g, i].copy_(new["conv"][n])
-            ssm["ssm"][g, i].copy_(new["ssm"])
-        lens = attn["len"][g]
-        x = tfm.block_decode(p["shared"], x, attn["k"][g], attn["v"][g],
-                             lens, cfg)
-        attn["len"][g] = lens + 1
-    return cache, _readout(p, x, cfg)[:, 0]
+    tensor is updated in place (each rank's shard under a mesh); the
+    shared block's attention runs ``attention_decode`` (the contiguous
+    flash-decode kernel on the card; under a mesh on each rank's sequence
+    shard of the cache, the ranks' results combined)."""
+    with nn.mesh_context(mesh):
+        x = nn.embedding_apply(p["embed"], tokens[:, None], cfg.cdtype,
+                               mesh=mesh)
+        aspec = nn.batch_pspec(mesh, x.shape[0])
+        x = nn.constrain(x, mesh, aspec)
+        ssm, attn = cache["ssm"], cache["attn"]
+        for g, group in enumerate(p["groups"]):
+            for i, bp in enumerate(group):
+                st = {"conv": {n: nn.index0(nn.index0(ssm["conv"][n], g), i)
+                               for n in ("x", "B", "C")},
+                      "ssm": nn.index0(nn.index0(ssm["ssm"], g), i)}
+                x, new = mamba_block_step(bp, x, st, cfg)
+                x = nn.constrain(x, mesh, aspec)
+                for n in ("x", "B", "C"):
+                    nn.assign(st["conv"][n], new["conv"][n])
+                nn.assign(st["ssm"], new["ssm"])
+            lens = nn.index0(attn["len"], g)
+            x = tfm.block_decode(p["shared"], x, nn.index0(attn["k"], g),
+                                 nn.index0(attn["v"], g), lens, cfg,
+                                 mesh=mesh)
+            x = nn.constrain(x, mesh, aspec)
+            nn.assign(lens, lens + 1)
+        return cache, _readout(p, x, cfg)[:, 0]

@@ -92,7 +92,10 @@ def axis_names(mesh) -> tuple:
 
 
 def mesh_shape(mesh) -> dict:
-    """{axis name: size}, the reference's ``mesh.shape``."""
+    """{axis name: size}, the reference's ``mesh.shape`` (which a stub
+    mesh may hold already)."""
+    if isinstance(mesh.shape, dict):
+        return dict(mesh.shape)
     return dict(zip(axis_names(mesh), tuple(mesh.shape)))
 
 
@@ -181,6 +184,173 @@ def batch_pspec(mesh, batch_size: int, extra_dims: int = 2):
     dp = math.prod(shape[a] for a in bt)
     lead = bt if batch_size % dp == 0 else None
     return (lead,) + (None,) * extra_dims
+
+
+# ---------------------------------------------------------------------------
+# Cache layout under a mesh (the reference's ``cache_specs`` rule, by leaf
+# name; ``launch.specs.cache_specs`` applies it to a cache template)
+# ---------------------------------------------------------------------------
+
+
+def batch_dim_for(keys, rank: int) -> int:
+    """The slot (batch) dim of a cache leaf, from its name and rank."""
+    name = keys[-1]
+    if name in ("k", "v", "cross_k", "cross_v", "wkv", "ssm"):
+        return rank - 4
+    if name == "len":
+        return rank - 1
+    if name == "shift":
+        return rank - 2
+    if len(keys) >= 2 and keys[-2] == "conv":
+        return rank - 3
+    raise ValueError(f"unknown cache leaf {keys}")
+
+
+def cache_spec(path: tuple, shape: tuple, mesh, batch: int) -> tuple:
+    """The spec of the cache leaf at ``path`` (its dict keys) of ``shape``:
+    the batch on ("pod", "data") when it divides their size; the KV
+    sequence of ``k``/``v``/``cross_k``/``cross_v``, the heads of rwkv's
+    ``wkv`` and zamba2's ``ssm`` state and the ``d_in`` of the conv tail
+    ``x`` on "model" when they divide it; ``len`` and ``shift`` follow the
+    batch.  The dims are counted from the end, so the port's stacked
+    leaves and the reference's scanned ones get one rule."""
+    sizes = mesh_shape(mesh)
+    b_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    b_size = math.prod(sizes[a] for a in b_axes)
+    batch_entry = None
+    if b_axes and batch % b_size == 0:  # (one axis: its name, as P has it)
+        batch_entry = b_axes if len(b_axes) > 1 else b_axes[0]
+    model_size = sizes.get("model", 1)
+
+    def model_if(dim: int):
+        return "model" if dim % model_size == 0 else None
+
+    rank = len(shape)
+    ent = [None] * rank
+    bdim = batch_dim_for(path, rank)
+    ent[bdim] = batch_entry
+    name = path[-1]
+    if name in ("k", "v", "cross_k", "cross_v", "wkv", "ssm"):
+        # the KV sequence, or rwkv's / the SSM's heads
+        ent[bdim + 1] = model_if(shape[bdim + 1])
+    elif name == "x" and path[-2] == "conv":
+        ent[rank - 1] = model_if(shape[rank - 1])  # d_in
+    return tuple(ent)
+
+
+def lay_out_cache(cache, mesh):
+    """``cache`` (a tree of tensors or DTensors, any layout) laid out by
+    ``cache_spec`` on ``mesh``, leaf by leaf from its own shapes (a
+    whisper prefill's frames may be fewer than ``WHISPER_FRAMES``): a
+    plain tensor every rank holds whole is cut to its shards, a DTensor
+    redistributed."""
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        batch = tree.shape[batch_dim_for(path, tree.dim())]
+        return constrain(tree, mesh, cache_spec(path, tuple(tree.shape),
+                                                mesh, batch))
+
+    return walk(cache, ())
+
+
+def spec_of(x) -> tuple:
+    """A DTensor's placements as a spec (one entry per dim: the mesh axis
+    that shards it, a tuple of them, or None); a plain tensor's is all
+    None (replicated)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    ent = [[] for _ in range(x.dim())]
+    if isinstance(x, DTensor):
+        names = axis_names(x.device_mesh)
+        for d, p in enumerate(x.placements):
+            if isinstance(p, Shard):
+                ent[p.dim].append(names[d])
+    return tuple(None if not e else e[0] if len(e) == 1 else tuple(e)
+                 for e in ent)
+
+
+def local_offsets(x) -> tuple:
+    """The global index of the first element of ``x``'s local shard, dim
+    by dim (zeros for a plain tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return (0,) * x.dim()
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    _, off = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, x.placements)
+    return tuple(off)
+
+
+def local(x):
+    """A DTensor's local shard (a view of its storage), or ``x``."""
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def _shift_placements(placements, by: int):
+    from torch.distributed.tensor import Shard
+
+    return [Shard(p.dim + by) if isinstance(p, Shard) else p
+            for p in placements]
+
+
+def stack(xs):
+    """``torch.stack(xs)`` of tensors of one layout: DTensors are stacked
+    shard by shard (nothing moves), their placements shifted by the new
+    leading dim."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(xs[0], DTensor):
+        return torch.stack(xs)
+    return DTensor.from_local(torch.stack([x.to_local() for x in xs]),
+                              xs[0].device_mesh,
+                              _shift_placements(xs[0].placements, 1),
+                              run_check=False)
+
+
+def index0(x, i: int):
+    """``x[i]`` on the leading dim as a view: a DTensor (not sharded on
+    that dim) keeps its local storage, so writes into the result land in
+    ``x``."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x[i]
+    return DTensor.from_local(x.to_local()[i], x.device_mesh,
+                              _shift_placements(x.placements, -1),
+                              run_check=False)
+
+
+def assign(dst, src):
+    """``dst.copy_(src)``, in place; under a mesh ``src`` is first laid out
+    as ``dst`` is, and each rank copies its own shard."""
+    if hasattr(dst, "to_local"):
+        src = as_dtensor(src, dst.device_mesh).redistribute(
+            dst.device_mesh, dst.placements)
+        dst.to_local().copy_(src.to_local())
+    else:
+        dst.copy_(src)
+    return dst
+
+
+def gathered(x):
+    """``x`` whole on every rank, as a plain tensor (a DTensor's
+    ``full_tensor()``)."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def psum_model(x, mesh, op: str = "sum"):
+    """The reference's ``psum``/``pmax`` over "model" inside a local
+    region: its backward passes the (replicated) cotangent through, as
+    JAX transposes a psum in ``shard_map``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    sub = mesh["model"]
+    return DTensor.from_local(x, sub, [Partial(op)], run_check=False
+                              ).redistribute(sub, [Replicate()]).to_local()
 
 
 def reshape(x, *shape):

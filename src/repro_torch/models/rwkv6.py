@@ -12,9 +12,10 @@ O(1) recurrence (``wkv_step``).  Where the reference stacks layer params
 ``[L, ...]`` and scans them, ``p["blocks"]`` is a list of per-layer dicts
 walked by a Python loop (their axes stacked as the reference's,
 ``rwkv_init(..., with_axes=True)``).  Under a mesh (``rwkv_forward`` /
-``rwkv_loss``) the residual is pinned batch-parallel, the WKV runs on
-each rank's batch and head shard (heads on "model", as the "wkv_proj"
-rule puts the projections) and the logits stay vocab-sharded; the serving state is a dict of stacked tensors
+``rwkv_loss`` and the serving functions) the residual is pinned
+batch-parallel, the WKV runs on each rank's batch and head shard (heads
+on "model", as the "wkv_proj" rule puts the projections) and the logits
+stay vocab-sharded; the serving state is a dict of stacked tensors
 ``{"att": {"shift": [L,B,d], "wkv": [L,B,H,hd,hd]}, "ffn": {"shift":
 [L,B,d]}}``, which ``rwkv_decode_step`` updates in place.
 """
@@ -309,34 +310,51 @@ def rwkv_loss(p, batch, cfg: ModelConfig, *, mesh=None):
         return tfm._ce_from_logits(logits, batch, aux, cfg, mesh=mesh)
 
 
-def rwkv_prefill(p, batch, cfg: ModelConfig, *, max_len: int = 0):
+def _stack_states(states):
+    return {
+        "att": {name: nn.stack([st["att"][name] for st in states])
+                for name in ("shift", "wkv")},
+        "ffn": {"shift": nn.stack([st["ffn"]["shift"] for st in states])},
+    }
+
+
+def rwkv_prefill(p, batch, cfg: ModelConfig, *, max_len: int = 0,
+                 mesh=None):
     """Prefill = full forward collecting per-layer states (no KV cache).
     Returns (state stacked over layers, logits [B,V] at the last
-    position)."""
-    x = _embed(p, batch["tokens"], cfg)
-    init = _empty_state(cfg, x.shape[0], x.device)
-    states = []
-    for bp in p["blocks"]:
-        x, st = rwkv_block_apply(bp, x, cfg, state=init)
-        states.append(st)
-    stacked = {
-        "att": {name: torch.stack([st["att"][name] for st in states])
-                for name in ("shift", "wkv")},
-        "ffn": {"shift": torch.stack([st["ffn"]["shift"] for st in states])},
-    }
-    return stacked, _readout(p, x[:, -1:, :], cfg)[:, 0]
+    position).  Under a mesh the blocks run as the training forward's
+    (the WKV on each rank's batch and head shard, from a zero state laid
+    out by ``cache_specs``) and the state comes back as they computed
+    it."""
+    with nn.mesh_context(mesh):
+        x = _embed(p, batch["tokens"], cfg, mesh)
+        aspec = nn.batch_pspec(mesh, x.shape[0])
+        x = nn.constrain(x, mesh, aspec)
+        init = _empty_state(cfg, x.shape[0], nn.local(x).device)
+        if mesh is not None:
+            init = {k: nn.lay_out_cache(v, mesh) for k, v in init.items()}
+        states = []
+        for bp in p["blocks"]:
+            x, st = rwkv_block_apply(bp, x, cfg, state=init, mesh=mesh)
+            x = nn.constrain(x, mesh, aspec)
+            states.append(st)
+        return _stack_states(states), _readout(p, x[:, -1:, :], cfg)[:, 0]
 
 
-def rwkv_decode_step(p, cache, tokens, cfg: ModelConfig):
+def rwkv_decode_step(p, cache, tokens, cfg: ModelConfig, *, mesh=None):
     """One recurrent step; tokens [B] -> (cache, logits [B,V]).  The
-    state tensors of ``cache`` are updated in place."""
-    x = _embed(p, tokens[:, None], cfg)
-    for i, bp in enumerate(p["blocks"]):
-        st = {"att": {"shift": cache["att"]["shift"][i],
-                      "wkv": cache["att"]["wkv"][i]},
-              "ffn": {"shift": cache["ffn"]["shift"][i]}}
-        x, new = rwkv_block_apply(bp, x, cfg, state=st, chunked=False)
-        cache["att"]["shift"][i].copy_(new["att"]["shift"])
-        cache["att"]["wkv"][i].copy_(new["att"]["wkv"])
-        cache["ffn"]["shift"][i].copy_(new["ffn"]["shift"])
-    return cache, _readout(p, x, cfg)[:, 0]
+    state tensors of ``cache`` are updated in place (each rank's shard
+    under a mesh)."""
+    with nn.mesh_context(mesh):
+        x = _embed(p, tokens[:, None], cfg, mesh)
+        x = nn.constrain(x, mesh, nn.batch_pspec(mesh, x.shape[0]))
+        for i, bp in enumerate(p["blocks"]):
+            st = {"att": {"shift": nn.index0(cache["att"]["shift"], i),
+                          "wkv": nn.index0(cache["att"]["wkv"], i)},
+                  "ffn": {"shift": nn.index0(cache["ffn"]["shift"], i)}}
+            x, new = rwkv_block_apply(bp, x, cfg, state=st, chunked=False,
+                                      mesh=mesh)
+            for part, name in (("att", "shift"), ("att", "wkv"),
+                               ("ffn", "shift")):
+                nn.assign(st[part][name], new[part][name])
+        return cache, _readout(p, x, cfg)[:, 0]

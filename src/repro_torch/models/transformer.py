@@ -12,7 +12,13 @@ other layers stacked with ``"layers"`` first).  ``forward`` and
 ``loss_fn`` take the reference's ``mesh``: the residual stream is pinned
 batch-parallel (and sequence-parallel over "model" with
 ``seq_shard_activations``), and the loss reads vocab-sharded logits
-without gathering them (``_sharded_loglik``); serving runs on one device.  A layer from
+without gathering them (``_sharded_loglik``).  The serving functions take
+it too: a cache laid out by ``launch.specs.cache_specs``' rule
+(``nn.lay_out_cache``: the KV sequence over "model"; the pools and the
+dry-run lay theirs out) has each rank's decode attend its shard, the
+ranks' partial results combined by their log-sum-exp
+(``attention.decode_on_shards``); the paged store splits its kv heads
+(``attention.paged_on_shards``).  A layer from
 ``first_dense_layers`` on carries ``moe`` in place of ``mlp``; its FFN
 returns the router's aux loss, which the forward sums.  A decoder block of
 an encoder-decoder also carries ``ln_cross``/``cross``: attention from
@@ -144,95 +150,122 @@ def block_apply(p, x, cfg: ModelConfig, *, causal=True, positions=None,
     return _ffn(p, x, cfg, decode=False, mesh=mesh)
 
 
-def _cross_prefill(p, x, enc_out, cfg: ModelConfig):
+def _cross_prefill(p, x, enc_out, cfg: ModelConfig, mesh=None):
     """Cross-attention over the encoder output; returns (out, (k, v)), the
-    K/V that decode and extend read again."""
+    K/V that decode and extend read again.  Under a mesh the attention
+    runs on each rank's shard (``attention._attend``)."""
     B, S, _ = x.shape
     q, k, v = attn._project_qkv(p, x, enc_out, cfg, None, None, rope=False)
-    out = attn.full_attention(q, k, v, causal=False)
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    out = attn._attend(q, k, v, cfg, mesh, lambda q, k, v:
+                       attn.full_attention(q, k, v, causal=False))
+    out = nn.reshape(out, B, S, cfg.n_heads * cfg.head_dim)
     return nn.linear_apply(p["o"], out, cfg.cdtype), (k, v)
 
 
-def _cross_cached(p, x, cross_k, cross_v, cfg: ModelConfig):
+def _cross_cached(p, x, cross_k, cross_v, cfg: ModelConfig, mesh=None):
     """Cross-attention of x [B,T,d] over one layer's cached encoder K/V
     [B,F,Hkv,D], every frame valid: one token through
     ``ops.decode_attention`` (the contiguous CUDA kernel on the card, at
-    S = F), a chunk through ``full_attention``, as the reference."""
+    S = F; under a mesh on each rank's frames, ``decode_on_shards``), a
+    chunk through ``full_attention``, as the reference (under a mesh over
+    the gathered frames)."""
     B, T, _ = x.shape
     q = attn.project_q(p, x, cfg)
-    if T == 1:
+    if T == 1 and mesh is not None:
+        kv_len = torch.full((B,), cross_k.shape[1], dtype=torch.int32,
+                            device=x.device)
+        o = attn.decode_on_shards(q, cross_k, cross_v, kv_len, mesh)
+    elif T == 1:
         kv_len = torch.full((B,), cross_k.shape[1], dtype=torch.int32,
                             device=x.device)
         o = da_ops.decode_attention(q, cross_k, cross_v, kv_len)
     else:
-        o = attn.full_attention(q, cross_k, cross_v, causal=False)
-    o = o.reshape(B, T, cfg.n_heads * cfg.head_dim)
+        o = attn._attend(q, cross_k, cross_v, cfg, mesh, lambda q, k, v:
+                         attn.full_attention(q, k, v, causal=False))
+    o = nn.reshape(o, B, T, cfg.n_heads * cfg.head_dim)
     return nn.linear_apply(p["o"], o, cfg.cdtype)
 
 
+def _pad_seq(t, max_len: int, mesh=None):
+    """[B,S,H,D] K/V zero-padded to max_len positions (on each rank's
+    shard under a mesh: DTensor pads no sharded tensor)."""
+    pad = (0, 0, 0, 0, 0, max_len - t.shape[1])
+    if mesh is None:
+        return torch.nn.functional.pad(t, pad)
+    spec = nn.spec_of(t)
+    return nn.local_map(lambda tl: torch.nn.functional.pad(tl, pad), mesh,
+                        [spec], [spec], t)
+
+
 def block_prefill(p, x, cfg: ModelConfig, *, max_len: int, positions=None,
-                  enc_out=None):
+                  enc_out=None, mesh=None):
     """Prefill forward; returns (y, {"k", "v"} padded to max_len, plus
     "cross_k"/"cross_v" over the encoder output in a cross block).  More
     than ``max_len`` positions raise, as the reference's pad does (a
-    negative ``F.pad`` would silently crop the cache)."""
-    S = x.shape[1]
+    negative ``F.pad`` would silently crop the cache).  Under a mesh each
+    branch's output is brought to the residual's layout before the add."""
+    B, S = x.shape[:2]
     if S > max_len:
         raise ValueError(
             f"prefill of {S} positions (a vision prefix included) does not "
             f"fit the cache's max_len {max_len}")
+    rspec = nn.batch_pspec(mesh, B)
     h = nn.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
-    h, (k, v) = attn.attention_prefill(p["attn"], h, cfg, positions=positions)
-    pad = (0, 0, 0, 0, 0, max_len - S)
-    kv = {"k": torch.nn.functional.pad(k, pad),
-          "v": torch.nn.functional.pad(v, pad)}
-    x = x + h
+    h, (k, v) = attn.attention_prefill(p["attn"], h, cfg, positions=positions,
+                                       mesh=mesh)
+    kv = {"k": _pad_seq(k, max_len, mesh), "v": _pad_seq(v, max_len, mesh)}
+    x = x + nn.constrain(h, mesh, rspec)
     if "cross" in p and enc_out is not None:
         h = nn.rmsnorm_apply(p["ln_cross"], x, cfg.norm_eps)
         h, (kv["cross_k"], kv["cross_v"]) = _cross_prefill(p["cross"], h,
-                                                           enc_out, cfg)
-        x = x + h
-    y, _ = _ffn(p, x, cfg, decode=True)
+                                                           enc_out, cfg, mesh)
+        x = x + nn.constrain(h, mesh, rspec)
+    y, _ = _ffn(p, x, cfg, decode=True, mesh=mesh)
     return y, kv
 
 
 def block_decode(p, x, cache_k, cache_v, lens, cfg: ModelConfig, *,
-                 cross=None):
+                 cross=None, mesh=None):
     """Single-token decode against one layer's contiguous caches;
     ``cross`` is the layer's (cross_k, cross_v) in a cross block."""
+    rspec = nn.batch_pspec(mesh, x.shape[0])
     h = nn.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
     h, _, _, _ = attn.attention_decode(p["attn"], h, cache_k, cache_v, lens,
-                                       cfg)
-    x = x + h
+                                       cfg, mesh=mesh)
+    x = x + nn.constrain(h, mesh, rspec)
     if "cross" in p and cross is not None:
         h = nn.rmsnorm_apply(p["ln_cross"], x, cfg.norm_eps)
-        x = x + _cross_cached(p["cross"], h, *cross, cfg)
-    return _ffn(p, x, cfg, decode=True)[0]
+        x = x + nn.constrain(_cross_cached(p["cross"], h, *cross, cfg, mesh),
+                             mesh, rspec)
+    return _ffn(p, x, cfg, decode=True, mesh=mesh)[0]
 
 
 def block_decode_paged(p, x, k_store, v_store, block_tables, lens,
-                       write_phys, write_off, cfg: ModelConfig):
+                       write_phys, write_off, cfg: ModelConfig, *,
+                       mesh=None):
     """Single-token decode against one layer's paged K/V stores."""
     h = nn.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
     h, _, _ = attn.attention_decode_paged(
         p["attn"], h, k_store, v_store, block_tables, lens, write_phys,
-        write_off, cfg)
-    return _ffn(p, x + h, cfg, decode=True)[0]
+        write_off, cfg, mesh=mesh)
+    x = x + nn.constrain(h, mesh, nn.batch_pspec(mesh, x.shape[0]))
+    return _ffn(p, x, cfg, decode=True, mesh=mesh)[0]
 
 
 def block_extend(p, x, cache_k, cache_v, lens, cfg: ModelConfig, *,
-                 cross=None):
+                 cross=None, mesh=None):
     """Multi-token cache extension: x [B,T,d] appended at cache positions
     lens..lens+T-1; ``cross`` as in ``block_decode``."""
+    rspec = nn.batch_pspec(mesh, x.shape[0])
     h = nn.rmsnorm_apply(p["ln_attn"], x, cfg.norm_eps)
     h, _, _, _ = attn.attention_extend(p["attn"], h, cache_k, cache_v, lens,
-                                       cfg)
-    x = x + h
+                                       cfg, mesh=mesh)
+    x = x + nn.constrain(h, mesh, rspec)
     if "cross" in p and cross is not None:
         h = nn.rmsnorm_apply(p["ln_cross"], x, cfg.norm_eps)
-        x = x + _cross_cached(p["cross"], h, *cross, cfg)
-    return _ffn(p, x, cfg, decode=True)[0]
+        x = x + nn.constrain(_cross_cached(p["cross"], h, *cross, cfg, mesh),
+                             mesh, rspec)
+    return _ffn(p, x, cfg, decode=True, mesh=mesh)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -338,17 +371,25 @@ def _encoder_and_prefix(p, batch, cfg: ModelConfig, mesh=None):
     return enc_out, prefix
 
 
-def _learned_positions(p, pos, dtype):
-    """Rows ``pos`` of the learned position table in ``dtype``.  A
-    position past the table gives NaN, as the reference's ``jnp.take``
-    fills it (only a free slot's length grows that far, and the engine
-    discards that row)."""
+def _learned_positions(p, pos, dtype, mesh=None):
+    """Rows ``pos`` [B,T] of the learned position table in ``dtype`` ->
+    [B,T,d].  A position past the table gives NaN, as the reference's
+    ``jnp.take`` fills it (only a free slot's length grows that far, and
+    the engine discards that row).  Under a mesh each rank reads its
+    batch shard's rows of the (replicated) table."""
+    def rows_at(tab, pos):
+        n = tab.shape[0]
+        rows = tab[pos.clamp(0, n - 1).long()].to(dtype)
+        return torch.where((pos < n)[..., None], rows,
+                           torch.full((), float("nan"), dtype=dtype,
+                                      device=rows.device))
+
     tab = p["pos_embed"]["table"]
-    n = tab.shape[0]
-    rows = tab[pos.clamp(0, n - 1).long()].to(dtype)
-    return torch.where((pos < n)[..., None], rows,
-                       torch.full((), float("nan"), dtype=dtype,
-                                  device=rows.device))
+    if mesh is None:
+        return rows_at(tab, pos)
+    b = nn.batch_pspec(mesh, pos.shape[0], extra_dims=0)[0]
+    return nn.local_map(rows_at, mesh, [(None, None), (b, None)],
+                        [(b, None, None)], tab, pos)
 
 
 def _embed_tokens(p, tokens, cfg: ModelConfig, *, prefix_embeds=None,
@@ -445,17 +486,6 @@ def _logits_spec(mesh, bspec):
             else None)
 
 
-def _psum_model(x, mesh, op: str = "sum"):
-    """The reference's ``psum``/``pmax`` over "model" inside a local
-    region: its backward passes the (replicated) cotangent through, as
-    JAX transposes a psum in ``shard_map``."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-
-    sub = mesh["model"]
-    return DTensor.from_local(x, sub, [Partial(op)], run_check=False
-                              ).redistribute(sub, [Replicate()]).to_local()
-
-
 def _sharded_loglik(logits, targets, mesh, batch_size: int):
     """Per-token target log-likelihood with vocab sharded over "model".
 
@@ -470,14 +500,14 @@ def _sharded_loglik(logits, targets, mesh, batch_size: int):
         lg = lg.float()
         # detached BEFORE the max over shards: the max shift is
         # gradient-invariant for logsumexp (the reference's stop_gradient)
-        lmax = _psum_model(lg.max(dim=-1).values.detach(), mesh, "max")
+        lmax = nn.psum_model(lg.max(dim=-1).values.detach(), mesh, "max")
         sumexp = torch.exp(lg - lmax[..., None]).sum(dim=-1)
-        gsum = _psum_model(sumexp, mesh)
+        gsum = nn.psum_model(sumexp, mesh)
         local_t = tg.long() - j * v_local
         in_range = (local_t >= 0) & (local_t < v_local)
         idx = local_t.clamp(0, v_local - 1)
         tl = torch.gather(lg, -1, idx[..., None])[..., 0]
-        tl = _psum_model(torch.where(in_range, tl, 0.0), mesh)
+        tl = nn.psum_model(torch.where(in_range, tl, 0.0), mesh)
         return tl - lmax - torch.log(gsum)
 
     return nn.local_map(local, mesh, [bspec + ("model",), bspec], [bspec],
@@ -539,80 +569,104 @@ def _logits(p, x, cfg: ModelConfig):
 
 
 def prefill(p, batch, cfg: ModelConfig, *, max_len: int,
-            last_only: bool = True):
+            last_only: bool = True, mesh=None):
     """Prefill caches; returns (cache, logits).
 
     A vision prefix stays in the cache and the logits (its length counts
     in ``len``); the cached positions must fit ``max_len``, or
     ``block_prefill`` raises (the reference's pad fails there too).
     ``last_only=True`` -> logits [B, vocab] at the final position; ``False``
-    -> logits [B, S, vocab]."""
-    enc_out, prefix = _encoder_and_prefix(p, batch, cfg)
-    x, positions = _embed_tokens(p, batch["tokens"], cfg,
-                                 prefix_embeds=prefix)
-    B, S, _ = x.shape
-    kvs = []
-    for layer in p["blocks"]:
-        x, kv = block_prefill(layer, x, cfg, max_len=max_len,
-                              positions=positions, enc_out=enc_out)
-        kvs.append(kv)
-    cache = {name: torch.stack([kv[name] for kv in kvs]) for name in kvs[0]}
-    cache["len"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    if last_only:
-        return cache, _logits(p, x[:, -1:, :], cfg)[:, 0]
-    return cache, _logits(p, x, cfg)
+    -> logits [B, S, vocab].  Under ``mesh`` (parameters placed by
+    ``SERVE_RULES``) the residual is pinned batch-parallel, the cache
+    comes back as the blocks computed it (``nn.lay_out_cache`` lays it
+    out by ``cache_specs``) and the logits vocab-sharded (DTensors)."""
+    with nn.mesh_context(mesh):
+        enc_out, prefix = _encoder_and_prefix(p, batch, cfg, mesh)
+        x, positions = _embed_tokens(p, batch["tokens"], cfg,
+                                     prefix_embeds=prefix, mesh=mesh)
+        B, S, _ = x.shape
+        aspec = nn.batch_pspec(mesh, B)
+        x = nn.constrain(x, mesh, aspec)
+        kvs = []
+        for layer in p["blocks"]:
+            x = nn.constrain(x, mesh, aspec)
+            x, kv = block_prefill(layer, x, cfg, max_len=max_len,
+                                  positions=positions, enc_out=enc_out,
+                                  mesh=mesh)
+            x = nn.constrain(x, mesh, aspec)
+            kvs.append(kv)
+        cache = {name: nn.stack([kv[name] for kv in kvs]) for name in kvs[0]}
+        cache["len"] = torch.full((B,), S, dtype=torch.int32,
+                                  device=nn.local(x).device)
+        if last_only:
+            return cache, _logits(p, x[:, -1:, :], cfg)[:, 0]
+        return cache, _logits(p, x, cfg)
 
 
 def _cross(cache, i):
     """Layer ``i``'s cached (cross_k, cross_v), or None."""
     if "cross_k" not in cache:
         return None
-    return cache["cross_k"][i], cache["cross_v"][i]
+    return nn.index0(cache["cross_k"], i), nn.index0(cache["cross_v"], i)
 
 
-def extend_step(p, cache, tokens, cfg: ModelConfig):
+def extend_step(p, cache, tokens, cfg: ModelConfig, *, mesh=None):
     """Chunked cache extension; tokens [B, T] -> (cache, logits [B,T,vocab]).
 
     The chunk is written into the cache at positions len..len+T-1 (in
-    place) and logits come back for every chunk position."""
-    T = tokens.shape[1]
-    x = nn.embedding_apply(p["embed"], tokens, cfg.cdtype)
-    lens = cache["len"]
-    if cfg.positions == "learned":
-        pos = lens[:, None] + torch.arange(T, device=x.device)[None, :]
-        x = x + _learned_positions(p, pos, x.dtype)
-    for i, layer in enumerate(p["blocks"]):
-        x = block_extend(layer, x, cache["k"][i], cache["v"][i], lens, cfg,
-                         cross=_cross(cache, i))
-    cache["len"] = lens + T
-    return cache, _logits(p, x, cfg)
+    place; under a mesh each rank's shard) and logits come back for every
+    chunk position."""
+    with nn.mesh_context(mesh):
+        T = tokens.shape[1]
+        x = nn.embedding_apply(p["embed"], tokens, cfg.cdtype, mesh=mesh)
+        x = nn.constrain(x, mesh, nn.batch_pspec(mesh, x.shape[0]))
+        lens = cache["len"]
+        if cfg.positions == "learned":
+            pos = lens[:, None] + torch.arange(T, device=x.device)[None, :]
+            x = x + _learned_positions(p, pos, x.dtype, mesh)
+        for i, layer in enumerate(p["blocks"]):
+            x = block_extend(layer, x, nn.index0(cache["k"], i),
+                             nn.index0(cache["v"], i), lens, cfg,
+                             cross=_cross(cache, i), mesh=mesh)
+        cache["len"] = lens + T
+        return cache, _logits(p, x, cfg)
 
 
-def decode_step(p, cache, tokens, cfg: ModelConfig):
+def decode_step(p, cache, tokens, cfg: ModelConfig, *, mesh=None):
     """One decode step; tokens [B] -> (cache, logits [B, vocab])."""
-    x = nn.embedding_apply(p["embed"], tokens[:, None], cfg.cdtype)
-    lens = cache["len"]
-    if cfg.positions == "learned":  # the current position: the cache length
-        x = x + _learned_positions(p, lens, x.dtype)[:, None, :]
-    for i, layer in enumerate(p["blocks"]):
-        x = block_decode(layer, x, cache["k"][i], cache["v"][i], lens, cfg,
-                         cross=_cross(cache, i))
-    cache["len"] = lens + 1
-    return cache, _logits(p, x, cfg)[:, 0]
+    with nn.mesh_context(mesh):
+        x = nn.embedding_apply(p["embed"], tokens[:, None], cfg.cdtype,
+                               mesh=mesh)
+        x = nn.constrain(x, mesh, nn.batch_pspec(mesh, x.shape[0]))
+        lens = cache["len"]
+        if cfg.positions == "learned":  # the position: the cache length
+            x = x + _learned_positions(p, lens[:, None], x.dtype, mesh)
+        for i, layer in enumerate(p["blocks"]):
+            x = block_decode(layer, x, nn.index0(cache["k"], i),
+                             nn.index0(cache["v"], i), lens, cfg,
+                             cross=_cross(cache, i), mesh=mesh)
+        cache["len"] = lens + 1
+        return cache, _logits(p, x, cfg)[:, 0]
 
 
 def paged_decode_step(p, store, block_tables, lens, tokens, write_phys,
-                      write_off, cfg: ModelConfig):
+                      write_off, cfg: ModelConfig, *, mesh=None):
     """One decode step directly on the block-paged physical store.
 
     ``store`` holds k/v ``[L, num_blocks, block_size, Hkv, D]``;
     ``block_tables`` [B, max_blocks] and ``lens`` [B] (valid length before
     this token) are int32; ``write_phys``/``write_off`` [B] name the cell
     each new token's K/V is written into.  Attention reads K/V through the
-    tables (the CUDA kernel on the card).  Returns (store, logits [B, V])."""
-    x = nn.embedding_apply(p["embed"], tokens[:, None], cfg.cdtype)
-    for i, layer in enumerate(p["blocks"]):
-        x = block_decode_paged(layer, x, store["k"][i], store["v"][i],
-                               block_tables, lens, write_phys, write_off,
-                               cfg)
-    return store, _logits(p, x, cfg)[:, 0]
+    tables (the CUDA kernel on the card; under a mesh on each rank's kv
+    heads of the store, ``attention.paged_on_shards``).  Returns (store,
+    logits [B, V])."""
+    with nn.mesh_context(mesh):
+        x = nn.embedding_apply(p["embed"], tokens[:, None], cfg.cdtype,
+                               mesh=mesh)
+        x = nn.constrain(x, mesh, nn.batch_pspec(mesh, x.shape[0]))
+        for i, layer in enumerate(p["blocks"]):
+            x = block_decode_paged(layer, x, nn.index0(store["k"], i),
+                                   nn.index0(store["v"], i), block_tables,
+                                   lens, write_phys, write_off, cfg,
+                                   mesh=mesh)
+        return store, _logits(p, x, cfg)[:, 0]

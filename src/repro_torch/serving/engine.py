@@ -49,6 +49,14 @@ decodes it with the paged kernel.  ``preempt_sequence`` retires a decoding
 sequence's blocks to residency and requeues it; its readmission forks them
 back and catches up through ``extend``, so the transcript is unchanged.
 
+``mesh=`` serves under a device mesh, as the reference's
+``InferenceEngine(mesh=)``: the caller places the parameters by
+``SERVE_RULES`` (``launch.sharding.place_params``), every model call
+takes the mesh, and the pools are laid out on it (``kvcache``).  Every
+rank runs this same host-side schedule: the logits are gathered whole
+before sampling and each rank's sampler draws from the same seeded
+generator, so every rank emits the same tokens and keeps the same books.
+
 Greedy output is token-for-token the reference engine's.  Caches and
 stores are updated in place where the reference donates them to jitted
 functions, and there is one host sync per prefill and per decode step.
@@ -66,7 +74,7 @@ import torch
 
 from repro_torch.core.prefix import RadixIndex
 from repro_torch.device import resolve_device
-from repro_torch.models import ModelApi, get_model
+from repro_torch.models import ModelApi, get_model, nn
 from repro_torch.models.config import ModelConfig
 from .kvcache import (CachePool, PagedCachePool, extract_blocks,
                       gather_block_view, insert_blocks, scatter_block_writes)
@@ -185,7 +193,7 @@ class InferenceEngine:
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  max_running: Optional[int] = None,
-                 paged_decode_mode: str = "direct", device=None):
+                 paged_decode_mode: str = "direct", device=None, mesh=None):
         if paged_decode_mode not in ("direct", "gather"):
             raise ValueError(
                 f"paged_decode_mode must be 'direct' or 'gather', "
@@ -193,6 +201,12 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.api: ModelApi = get_model(cfg)
+        self.mesh = mesh
+        # the model calls, under the mesh when there is one
+        self._prefill_fn = self._meshed(self.api.prefill)
+        self._decode_fn = self._meshed(self.api.decode)
+        self._extend_fn = self._meshed(self.api.extend)
+        self._decode_paged_fn = self._meshed(self.api.decode_paged)
         self.params = params
         self.max_num_seqs = max_num_seqs
         self.max_num_batched_tokens = max_num_batched_tokens
@@ -221,7 +235,7 @@ class InferenceEngine:
         self.paged = paged
         if not paged:
             self.pool = CachePool(cfg, max_num_seqs, max_len,
-                                  device=self.device)
+                                  device=self.device, mesh=mesh)
             self._resident_len: dict[int, int] = {}  # slot -> covered len
             self._last_tokens = torch.zeros((max_num_seqs,),
                                             dtype=torch.int64,
@@ -240,7 +254,7 @@ class InferenceEngine:
             num_blocks = max_num_seqs * (-(-max_len // block_size)) + 1
         self.num_blocks = num_blocks
         self.pool = PagedCachePool(cfg, num_blocks, block_size, max_len,
-                                   device=self.device)
+                                   device=self.device, mesh=mesh)
         self.prefill_chunk = min(prefill_chunk or max(self.buckets),
                                  max_num_batched_tokens)
         self._chunk_buckets = tuple(
@@ -259,9 +273,21 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # Model calls (in place on the physical store)
     # ------------------------------------------------------------------
+    def _meshed(self, fn):
+        """``fn`` (a ``ModelApi`` call), or under the mesh: called with it,
+        its logits gathered whole on every rank."""
+        if self.mesh is None or fn is None:
+            return fn
+
+        def call(*args, **kw):
+            state, logits = fn(*args, mesh=self.mesh, **kw)
+            return state, nn.gathered(logits)
+
+        return call
+
     def _paged_extend(self, params, store, bt, lens, tokens, wphys, woff):
         view = gather_block_view(store, bt, lens)
-        view, logits = self.api.extend(params, view, tokens, self.cfg)
+        view, logits = self._extend_fn(params, view, tokens, self.cfg)
         T = tokens.shape[1]
         wpos = lens[:, None] + torch.arange(T, device=lens.device)[None, :]
         store = scatter_block_writes(store, view, wphys, woff, wpos)
@@ -269,12 +295,12 @@ class InferenceEngine:
 
     def _paged_decode(self, params, store, bt, lens, tokens, wphys, woff):
         if self.paged_decode_mode == "direct":
-            return self.api.decode_paged(params, store, bt, lens, tokens,
+            return self._decode_paged_fn(params, store, bt, lens, tokens,
                                          wphys, woff, self.cfg)
         # gather: a contiguous view through the slot-pool decode, then the
         # one new row scattered back
         view = gather_block_view(store, bt, lens)
-        view, logits = self.api.decode(params, view, tokens, self.cfg)
+        view, logits = self._decode_fn(params, view, tokens, self.cfg)
         store = scatter_block_writes(store, view, wphys[:, None],
                                      woff[:, None], lens[:, None])
         return store, logits
@@ -517,7 +543,7 @@ class InferenceEngine:
             name, n = stub[self.cfg.family]
             batch[name] = torch.zeros((1, n, self.cfg.d_model),
                                       dtype=torch.float32, device=self.device)
-        return self.api.prefill(self.params, batch, self.cfg, **kw)
+        return self._prefill_fn(self.params, batch, self.cfg, **kw)
 
     def _admit(self):
         budget = self.max_num_batched_tokens
@@ -611,7 +637,7 @@ class InferenceEngine:
     def _decode_step(self) -> list:
         """One batched decode over every slot (free ones too, on stale
         tokens, as the reference does)."""
-        self.pool.cache, logits = self.api.decode(
+        self.pool.cache, logits = self._decode_fn(
             self.params, self.pool.cache, self._last_tokens, self.cfg)
         self.stats.decode_steps += 1
         temps = np.zeros((self.max_num_seqs,), np.float32)
@@ -1273,7 +1299,7 @@ class SpecDecodeSession:
         tokens = np.zeros((eng.max_num_seqs, bucket), np.int64)
         for slot, chunk in chunks.items():
             tokens[slot, :len(chunk)] = chunk
-        eng.pool.cache, logits = eng.api.extend(
+        eng.pool.cache, logits = eng._extend_fn(
             eng.params, eng.pool.cache, eng._tensor(tokens), eng.cfg)
         gtok = torch.argmax(logits, dim=-1).cpu().numpy()
         extra = {}
@@ -1407,7 +1433,7 @@ class SpecDecodeSession:
             feeds = np.zeros((eng.max_num_seqs,), np.int64)
             for s, f in zip(active, feed):
                 feeds[s.dreq.slot] = f
-            eng.pool.cache, logits = eng.api.decode(
+            eng.pool.cache, logits = eng._decode_fn(
                 eng.params, eng.pool.cache, eng._tensor(feeds), eng.cfg)
             gtok = torch.argmax(logits, dim=-1).cpu().numpy()
             return [int(gtok[s.dreq.slot]) for s in active]
@@ -1444,7 +1470,7 @@ class SpecDecodeSession:
             tokens = np.zeros((eng.max_num_seqs, T), np.int64)
             for i, s in enumerate(active):
                 tokens[s.treq.slot] = chunks[i]
-            eng.pool.cache, logits = eng.api.extend(
+            eng.pool.cache, logits = eng._extend_fn(
                 eng.params, eng.pool.cache, eng._tensor(tokens), eng.cfg)
             gtok = torch.argmax(logits, dim=-1).cpu().numpy()
             return gtok[[s.treq.slot for s in active]]

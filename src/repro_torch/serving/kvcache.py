@@ -24,6 +24,13 @@ scatters the newly produced positions back (``scatter_block_writes``).
 Stores are updated in place.  A sequence migrating between engines (the
 disaggregated prefill->decode handoff) carries its blocks' rows on the host
 in the reference's payload format (``extract_blocks`` / ``insert_blocks``).
+
+Under a device mesh (``mesh=``) the slot pool is laid out by
+``launch.specs.cache_specs`` (slots over the batch axes, the KV sequence
+and the state's heads over "model") and the paged store by
+``store_spec`` (kv heads over "model" where they divide it, never a split
+of a block or by batch); each pool operation then touches each rank's own
+shard, so the pool moves the same data as on one device.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import nn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba2 import ssm_dims
 
@@ -86,20 +94,6 @@ def cache_template(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     return out
 
 
-def batch_dim_for(keys, rank: int) -> int:
-    """The slot (batch) dim of a cache leaf, from its name and rank."""
-    name = keys[-1]
-    if name in ("k", "v", "cross_k", "cross_v", "wkv", "ssm"):
-        return rank - 4
-    if name == "len":
-        return rank - 1
-    if name == "shift":
-        return rank - 2
-    if len(keys) >= 2 and keys[-2] == "conv":
-        return rank - 3
-    raise ValueError(f"unknown cache leaf {keys}")
-
-
 def _leaves(tree, path=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -112,6 +106,22 @@ def _leaf(tree, path):
     for k in path:
         tree = tree[k]
     return tree
+
+
+def _shard_for(new, leaf, bdim: int):
+    """(``new``'s local tensor, its global offsets) with ``new`` (a prefill
+    leaf: batch 1, a tensor or DTensor) split as the pool's ``leaf`` is on
+    each dim of the same size other than the batch, and whole elsewhere:
+    a collective every rank calls, whether or not it holds the slot."""
+    if not hasattr(new, "device_mesh"):
+        return new, (0,) * new.dim()
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [p if isinstance(p, Shard) and p.dim != bdim
+          and new.shape[p.dim] == leaf.shape[p.dim] else Replicate()
+          for p in leaf.placements]
+    new = new.redistribute(new.device_mesh, pl)
+    return new.to_local(), nn.local_offsets(new)
 
 
 def _build(tree, fn):
@@ -133,7 +143,7 @@ class CachePool:
     ``allocate()`` is O(1)."""
 
     def __init__(self, cfg: ModelConfig, max_seqs: int, max_len: int, *,
-                 device=None):
+                 device=None, mesh=None):
         device = resolve_device(device)  # None: the card, or raise
         self.cfg = cfg
         self.max_seqs = max_seqs
@@ -141,6 +151,8 @@ class CachePool:
         self.cache = _build(cache_template(cfg, max_seqs, max_len),
                             lambda sd: torch.zeros(sd[0], dtype=sd[1],
                                                    device=device))
+        if mesh is not None:
+            self.cache = nn.lay_out_cache(self.cache, mesh)
         self._free_blank: deque[int] = deque(range(max_seqs))
         self._free_resident: deque[int] = deque()
         self._resident: set[int] = set()
@@ -191,14 +203,34 @@ class CachePool:
         return len(self._free_blank)
 
     # -- data movement ----------------------------------------------------
+    def _slot_rows(self, path, leaf, slot: int):
+        """(slot's part of this rank's shard of ``leaf``, the global offsets
+        of that part's dims), or None where the shard holds no row of
+        ``slot``."""
+        bdim = nn.batch_dim_for(path, leaf.dim())
+        loc, off = nn.local(leaf), nn.local_offsets(leaf)
+        if not off[bdim] <= slot < off[bdim] + loc.shape[bdim]:
+            return None
+        return (loc.select(bdim, slot - off[bdim]),
+                off[:bdim] + off[bdim + 1:])
+
     def insert(self, slot: int, prefill_cache):
         """Write a single-request prefill cache (batch 1) into ``slot``, in
         place; a leaf covering fewer positions than the pool is
-        zero-padded."""
+        zero-padded.  Under a mesh each rank writes its shard of the slot
+        from the prefill's leaf as it was computed, redistributed once to
+        the pool's split where the sizes match (``_shard_for``)."""
         for path, leaf in _leaves(self.cache):
-            new = _leaf(prefill_cache, path)
-            dst = leaf.select(batch_dim_for(path, leaf.dim()), slot)
-            src = new.select(batch_dim_for(path, new.dim()), 0)
+            bdim = nn.batch_dim_for(path, leaf.dim())
+            new, new_off = _shard_for(_leaf(prefill_cache, path), leaf, bdim)
+            rows = self._slot_rows(path, leaf, slot)
+            if rows is None:
+                continue
+            dst, off = rows
+            src = new.select(bdim, 0)
+            new_off = new_off[:bdim] + new_off[bdim + 1:]
+            src = src[tuple(slice(o - lo, o - lo + n) for o, lo, n
+                            in zip(off, new_off, dst.shape))]
             if src.shape != dst.shape:
                 dst.zero_()
                 dst = dst[tuple(slice(0, n) for n in src.shape)]
@@ -216,14 +248,17 @@ class CachePool:
         rewind together."""
         for path, leaf in _leaves(self.cache):
             if path[-1] == "len":
-                bdim = batch_dim_for(path, leaf.dim())
                 for slot, n in updates.items():
-                    leaf.select(bdim, slot).fill_(n)
+                    rows = self._slot_rows(path, leaf, slot)
+                    if rows is not None:
+                        rows[0].fill_(n)
 
     def reset_slot(self, slot: int):
         """Zero every cache leaf of ``slot``, in place."""
         for path, leaf in _leaves(self.cache):
-            leaf.select(batch_dim_for(path, leaf.dim()), slot).zero_()
+            rows = self._slot_rows(path, leaf, slot)
+            if rows is not None:
+                rows[0].zero_()
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +267,32 @@ class CachePool:
 
 
 NULL_BLOCK = 0  # physical block 0 is never allocated: padded rows write here
+
+
+def store_spec(shape, mesh) -> tuple:
+    """The paged store's layout [L, num_blocks, block_size, Hkv, D] on
+    ``mesh``: the kv heads over "model" where they divide it, else
+    replicated.  Its blocks are shared by every sequence, so neither the
+    batch nor a block is ever split."""
+    m = nn.mesh_shape(mesh).get("model", 1)
+    return (None, None, None, "model" if shape[3] % m == 0 else None, None)
+
+
+def place_store(store, mesh):
+    """A paged store ({"k", "v"}) laid out by ``store_spec``."""
+    return {name: nn.constrain(t, mesh, store_spec(t.shape, mesh))
+            for name, t in store.items()}
+
+
+def _like_store(local, s):
+    """``local`` (a tensor computed from ``s``'s local shard, the same
+    dims sharded) as ``s`` is: a DTensor on its mesh, or as it is."""
+    if not hasattr(s, "device_mesh"):
+        return local
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, s.device_mesh, s.placements,
+                              run_check=False)
 
 
 class BlockAllocator:
@@ -314,8 +375,10 @@ def gather_block_view(store, block_tables, lens):
     view = {}
     for name in ("k", "v"):
         s = store[name]
-        L, _, bs = s.shape[:3]
-        view[name] = s[:, idx].reshape((L, B, mb * bs) + tuple(s.shape[3:]))
+        loc = nn.local(s)
+        L, _, bs = loc.shape[:3]
+        view[name] = _like_store(loc[:, idx].reshape(
+            (L, B, mb * bs) + tuple(loc.shape[3:])), s)
     view["len"] = lens.to(torch.int32)
     return view
 
@@ -329,10 +392,10 @@ def scatter_block_writes(store, view, write_phys, write_off, write_pos):
     B = write_pos.shape[0]
     bidx = torch.arange(B, device=write_pos.device)[:, None]
     for name in ("k", "v"):
+        loc = nn.local(store[name])
         rows = write_pos.long().clamp(max=view[name].shape[2] - 1)
-        written = view[name][:, bidx, rows]  # [L, B, T, ...]
-        store[name][:, write_phys.long(), write_off.long()] = written.to(
-            store[name].dtype)
+        written = nn.local(view[name])[:, bidx, rows]  # [L, B, T, ...]
+        loc[:, write_phys.long(), write_off.long()] = written.to(loc.dtype)
     return store
 
 
@@ -340,7 +403,8 @@ def copy_block(store, src: int, dst: int):
     """Copy-on-write: duplicate physical block ``src`` into ``dst`` in every
     layer's K and V store."""
     for name in ("k", "v"):
-        store[name][:, dst] = store[name][:, src]
+        loc = nn.local(store[name])
+        loc[:, dst] = loc[:, src]
 
 
 def extract_blocks(store, blocks, n_pre: int = 0):
@@ -358,7 +422,9 @@ def extract_blocks(store, blocks, n_pre: int = 0):
                           device=store["k"].device)
     out = {}
     for name in ("k", "v"):
-        rows = store[name].index_select(1, idx).movedim(1, 0).cpu()
+        s = store[name]
+        rows = nn.gathered(_like_store(nn.local(s).index_select(1, idx), s))
+        rows = rows.movedim(1, 0).cpu()
         for i in range(n_pre):
             out[("pre", f"layer_{i}", name)] = rows[:, i]
         out[("scan", name)] = rows[:, n_pre:]
@@ -380,12 +446,15 @@ def insert_blocks(store, leaves, dst_blocks):
         name = path[-1]
         if name not in ("k", "v"):
             continue
-        s = store[name]
+        h0 = nn.local_offsets(store[name])[3]
+        s = nn.local(store[name])
         if isinstance(src, np.ndarray):
             if src.dtype.kind not in "fiu":  # a numpy bfloat16 extension
                 src = src.astype(np.float32)
             src = torch.tensor(src)
-        src = src.to(device=s.device, dtype=s.dtype)
+        # (this rank's kv heads of a store laid out on a mesh)
+        src = src.to(device=s.device, dtype=s.dtype).narrow(
+            -2, h0, s.shape[3])
         if path[0] == "scan":
             dst, src = s[s.shape[0] - src.shape[1]:], src.movedim(0, 1)
         else:
@@ -401,7 +470,7 @@ class PagedCachePool:
     ``alloc``) and scheduling."""
 
     def __init__(self, cfg: ModelConfig, num_blocks: int, block_size: int,
-                 max_len: int, *, device=None):
+                 max_len: int, *, device=None, mesh=None):
         device = resolve_device(device)  # None: the card, or raise
         if cfg.family not in ("dense", "moe"):
             raise ValueError(
@@ -421,6 +490,8 @@ class PagedCachePool:
         self.cache = {name: torch.zeros(shape, dtype=cfg.cdtype,
                                         device=device)
                       for name in ("k", "v")}
+        if mesh is not None:
+            self.cache = place_store(self.cache, mesh)
         self.alloc = BlockAllocator(num_blocks)
 
     def copy_block(self, src: int, dst: int):

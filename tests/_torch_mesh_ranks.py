@@ -256,3 +256,133 @@ def _shardings(specs, mesh):
     if isinstance(specs, dict):
         return {k: _shardings(v, mesh) for k, v in specs.items()}
     return shd.NamedSharding(mesh, specs)
+
+
+# ---------------------------------------------------------------------------
+# Serving under a mesh
+# ---------------------------------------------------------------------------
+
+
+def _greedy(logits):
+    return [int(t) for t in np.asarray(logits).argmax(-1)]
+
+
+def serve_steps(rank, payload):
+    """Each case: the parameters placed by ``SERVE_RULES`` on a 2 x 2
+    mesh, ``prefill`` of the prompts, its cache laid out by
+    ``cache_specs`` (``nn.lay_out_cache``, as a pool lays out its own), an
+    ``extend`` chunk (dense/moe), then greedy ``decode_step``s (and,
+    for ``paged``, ``paged_decode_step``s on a store whose kv heads lie on
+    "model"); every logits gathered."""
+    import torch
+
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import get_model, nn
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.convert import params_from_numpy
+
+    mesh = make_local_mesh(2, 2, device="cpu")
+
+    def run(case):
+        cfg = ModelConfig(**case["cfg"])
+        api = get_model(cfg)
+        _, axes = api.init(torch.Generator(), cfg, device="meta",
+                           with_axes=True)
+        params = shd.place_params(
+            params_from_numpy(case["weights"], cfg, "cpu"), axes, cfg, mesh)
+        batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+        out = {"decode": [], "tokens": []}
+        with torch.no_grad():
+            cache, logits = api.prefill(params, batch, cfg,
+                                        max_len=case["max_len"], mesh=mesh)
+            out["prefill"] = _full(logits)
+            cache = nn.lay_out_cache(cache, mesh)
+            if case.get("extend") is not None:
+                cache, logits = api.extend(
+                    params, cache, torch.from_numpy(case["extend"]), cfg,
+                    mesh=mesh)
+                out["extend"] = _full(logits)
+                tok = _greedy(out["extend"][:, -1])
+            else:
+                tok = _greedy(out["prefill"])
+            for _ in range(case["steps"]):
+                out["tokens"].append(tok)
+                cache, logits = api.decode(
+                    params, cache, torch.tensor(tok, dtype=torch.int32), cfg,
+                    mesh=mesh)
+                out["decode"].append(_full(logits))
+                tok = _greedy(out["decode"][-1])
+            out["cache_placements"] = _placements(cache)
+            if case.get("paged"):
+                out["paged"], out["paged_local_heads"] = _paged(
+                    api, cfg, params, case, mesh)
+        return out
+
+    def engine(case):
+        import dataclasses as dc
+
+        import torch.distributed as dist
+
+        from repro_torch.serving.engine import InferenceEngine
+
+        cfg = ModelConfig(**case["cfg"])
+        _, axes = get_model(cfg).init(torch.Generator(), cfg, device="meta",
+                                      with_axes=True)
+        plain = params_from_numpy(case["weights"], cfg, "cpu")
+        out = {}
+        for name, m, params in (
+                ("one", None, plain),
+                ("mesh", mesh, shd.place_params(plain, axes, cfg, mesh))):
+            eng = InferenceEngine(cfg, params, paged=case["paged"],
+                                  block_size=case["block_size"],
+                                  device="cpu", mesh=m, **case["engine_kw"])
+            uids = [eng.submit(p, max_new_tokens=case["new_tokens"])
+                    for p in case["prompts"]]
+            with torch.no_grad():
+                done = eng.run()
+            stats = {k: v for k, v in dc.asdict(eng.stats).items()
+                     if k != "started"}
+            out[name] = {"outputs": [done[u].output for u in uids],
+                         "stats": stats,
+                         "telemetry": eng.block_telemetry()}
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, out["mesh"])
+        out["ranks_equal"] = all(e == out["mesh"] for e in every)
+        return out
+
+    programs = {"serve": run, "engine": engine}
+    return _each(payload["cases"], lambda c: programs[c["kind"]](c))
+
+
+def _placements(tree, path=()):
+    """{"a/b": placements} of a tree's DTensor leaves."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _placements(sub, path + (key,)).items()}
+    if hasattr(tree, "placements"):
+        return {"/".join(path): _pl(tree.placements)}
+    return {}
+
+
+def _paged(api, cfg, params, case, mesh):
+    """``paged_decode_step`` on a store laid out as the engine's (kv heads
+    on "model"), from the case's store, tables and tokens -> (the logits
+    of each step, gathered; the store's local kv heads)."""
+    import torch
+
+    from repro_torch.serving.kvcache import place_store
+
+    pg = case["paged"]
+    store = place_store({k: torch.from_numpy(v.copy())
+                         for k, v in pg["store"].items()}, mesh)
+    bt = torch.from_numpy(pg["tables"])
+    lens = torch.from_numpy(pg["lens"])
+    outs = []
+    for tok, wp, wo in zip(pg["tokens"], pg["write_phys"], pg["write_off"]):
+        store, logits = api.decode_paged(
+            params, store, bt, lens, torch.from_numpy(tok),
+            torch.from_numpy(wp), torch.from_numpy(wo), cfg, mesh=mesh)
+        outs.append(_full(logits))
+        lens = lens + 1
+    return outs, int(store["k"].to_local().shape[3])

@@ -441,8 +441,17 @@ for arch in ("llama3.2-3b", "nemotron-4-340b"):
         out["cells"].append(dryrun.run_cell(
             arch, "train_4k", overrides={"n_layers": 2}, multi_pod=mp))
 for shape in ("prefill_32k", "decode_32k"):
-    out["cells"].append(dryrun.run_cell("llama3.2-3b", shape,
-                                        multi_pod=False))
+    for mp in (False, True):
+        out["cells"].append(dryrun.run_cell(
+            "llama3.2-3b", shape, overrides={"n_layers": 2}, multi_pod=mp))
+# the hill-climb's C pair, cut to 2 layers (16 x 16)
+import contextlib
+from repro_torch.launch import hillclimb
+with contextlib.redirect_stdout(sys.stderr):  # (its progress lines)
+    out["hillclimb"] = hillclimb.run(
+        [c for c in hillclimb.CELLS if c[0].startswith("C")],
+        {"n_layers": 2})
+out["micro_after"] = dict(dryrun.MICROBATCHES)
 # an MLP's forward on a 2 x 2 mesh, counted: its FSDP all-gathers alone
 dist.destroy_process_group()
 fake_world(4)
@@ -498,12 +507,67 @@ def test_mesh_train_cells_count_per_device(mesh_dryrun, arch, multi_pod):
     assert rec["kernels"]["flash_attention"]["calls"] > 0
 
 
-def test_mesh_serving_cells_are_skipped_with_their_reason(mesh_dryrun):
-    recs = [r for r in mesh_dryrun["cells"] if r["shape"] != "train_4k"]
-    assert [r["shape"] for r in recs] == ["prefill_32k", "decode_32k"]
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_mesh_serving_cells_count_per_device(mesh_dryrun, shape, multi_pod):
+    """llama3.2-3b's serving cells (cut to 2 layers) on each production
+    mesh: ``ok``, ``n_chips`` 256 / 512, collectives counted; the decode
+    kernel charged at its rank's shard: batch 128 over the data ranks,
+    the 32768 cached positions over the 16 model ranks."""
+    rec = next(r for r in mesh_dryrun["cells"] if r["shape"] == shape
+               and r["multi_pod"] == multi_pod)
+    assert rec["status"] == "ok", rec
+    n = 512 if multi_pod else 256
+    assert rec["n_chips"] == n == rec["n_devices"]
+    rl = rec["roofline"]
+    assert rl["collective_bytes_per_device"] > 0
+    if shape == "decode_32k":
+        from repro_torch.configs import get_config
+
+        cfg = get_config("llama3.2-3b")
+        b_local = 128 // (32 if multi_pod else 16)
+        s_local = 32768 // 16
+        per_call = (b_local * s_local * cfg.n_kv_heads * cfg.head_dim * 2
+                    * cfg.cdtype.itemsize)  # K and V, each read once
+        k = rec["kernels"]["decode_attention"]
+        assert k["calls"] == 2  # one a layer
+        assert per_call <= k["bytes"] / 2 < 1.01 * per_call
+    else:  # live prefill runs chunked attention in plain ops, as repro
+        assert "decode_attention" not in rec["kernels"]
+
+
+def test_hillclimb_records(mesh_dryrun):
+    """The hill-climb's C pair (cut to 2 layers) on the 16 x 16 mesh: the
+    reference's record keys, ``dominant_s`` the largest roofline term and
+    ``roofline_fraction`` the compute term over it; ``MICROBATCHES`` is
+    left as it was."""
+    recs = mesh_dryrun["hillclimb"]
+    assert [r["label"] for r in recs] == ["C0-baseline", "C*-optimized"]
     for r in recs:
-        assert r["status"] == "skipped"
-        assert "item 15b" in r["reason"]
+        assert {"label", "arch", "shape", "overrides", "roofline",
+                "dominant_s", "roofline_fraction"} <= set(r)
+        rl = r["roofline"]
+        dom = max(rl["t_compute_s"], rl["t_memory_s"], rl["t_collective_s"])
+        assert r["dominant_s"] == dom > 0
+        assert r["roofline_fraction"] == rl["t_compute_s"] / dom
+    assert recs[1]["overrides"] == {"explicit_tp": True}
+    assert mesh_dryrun["micro_after"] == dryrun.MICROBATCHES
+
+
+def test_hillclimb_cells_are_the_reference_cells():
+    """``CELLS`` equal the reference's, read from its source (importing
+    it would set ``XLA_FLAGS`` for this whole process)."""
+    import ast
+    import pathlib
+
+    from repro_torch.launch import hillclimb
+
+    src = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro" / \
+        "launch" / "hillclimb.py"
+    tree = ast.parse(src.read_text())
+    node = next(n for n in tree.body if isinstance(n, ast.Assign)
+                and getattr(n.targets[0], "id", None) == "CELLS")
+    assert hillclimb.CELLS == ast.literal_eval(node.value)
 
 
 def test_fsdp_gathers_counted_by_hand(mesh_dryrun):

@@ -147,3 +147,14 @@ def test_launched_ssm_configs_fit_the_wkv_kernel(label, cfg):
 
     kernel.check_bf16_shape(cfg.rwkv_head_dim, cfg.rwkv_chunk)
     kernel.check_f32_shape(cfg.rwkv_head_dim, cfg.rwkv_chunk)
+
+
+@pytest.mark.parametrize("path", sorted((PORT / "models").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_models_import_nothing_above_them(path):
+    """The models sit below the launch tooling and the serving pools: no
+    model module imports them, at its top or inside a function (the
+    cache's layout rule lives in ``models/nn.py``)."""
+    above = re.compile(r"^repro_torch\.(launch|serving)(\.|$)")
+    bad = [m for m in _imported_modules(path) if above.match(m)]
+    assert not bad, f"{path.name} imports {bad}"

@@ -101,6 +101,69 @@ def test_specs_equal_reference(arch, rules, multi_pod):
     assert got == want
 
 
+def _cache_leaves(tree, path=()):
+    """{leaf path without the reference's "scan" / "pre" / "layer_i"
+    levels: [(spec, number of leading layer dims)]} of a reference cache
+    spec tree (a PartitionSpec per leaf)."""
+    from jax.sharding import PartitionSpec
+
+    if isinstance(tree, PartitionSpec):
+        lead = 1 if "scan" in path else 0
+        key = tuple(k for k in path if k not in ("scan", "pre")
+                    and not k.startswith("layer_"))
+        return {key: [(tuple(tree), lead)]}
+    out = {}
+    for k, v in tree.items():
+        for key, specs in _cache_leaves(v, path + (k,)).items():
+            out.setdefault(key, []).extend(specs)
+    return out
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_specs_equal_reference(arch, shape, multi_pod):
+    """``cache_specs`` of every arch on both production meshes equals the
+    reference's, leaf by leaf: a reference leaf (scanned with a leading
+    layer dim, or one of an MoE model's first dense layers without)
+    against the port's stacked leaf of the same name, each spec's
+    entries past their leading layer dims (None in both)."""
+    from repro_torch.launch import specs
+
+    seq, batch, _ = jspecs.SHAPES[shape]
+    cfg = get_config(arch)
+    mesh = _StubMesh(multi_pod)
+    got = _spec_leaves(specs.cache_specs(_tcfg(cfg), mesh, batch, seq))
+    want = _cache_leaves(jspecs.cache_specs(cfg, mesh, batch, seq))
+    assert set(got) == set(want)
+    for key, spec in got.items():
+        for ref_spec, lead in want[key]:
+            n = len(ref_spec) - lead
+            assert spec[len(spec) - n:] == ref_spec[lead:], key
+            assert all(e is None for e in spec[:len(spec) - n])
+
+
+def test_cache_specs_split_what_divides():
+    """The rule's outcomes on the 16 x 16 mesh at decode_32k: llama's K/V
+    split their batch over "data" and their 32768 positions over "model";
+    rwkv6's 32 heads and zamba2's ssm heads over "model"; a batch of 1
+    (long_500k) stays whole."""
+    from repro_torch.launch import specs
+
+    mesh = _StubMesh(False)
+    sp = specs.cache_specs(_tcfg(get_config("llama3.2-3b")), mesh, 128,
+                           32768)
+    assert sp["k"] == (None, "data", "model", None, None)
+    assert sp["len"] == ("data",)
+    sp = specs.cache_specs(_tcfg(get_config("rwkv6-1.6b")), mesh, 1, 524288)
+    assert sp["att"]["wkv"] == (None, None, "model", None, None)
+    assert sp["att"]["shift"] == (None, None, None)
+    sp = specs.cache_specs(_tcfg(get_config("zamba2-2.7b")), mesh, 128,
+                           32768)
+    assert sp["ssm"]["ssm"] == (None, None, "data", "model", None, None)
+    assert sp["ssm"]["conv"]["x"] == (None, None, "data", None, "model")
+
+
 def test_rules_are_the_reference_rules():
     from repro_torch.launch import sharding as shd
 
