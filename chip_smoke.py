@@ -6,9 +6,11 @@
 Phases, each printing one JSON line:
 
 0. device: the card's name and power limit (``nvidia-smi``); TF32 off.
-1. build: compile the five hand-written kernels' four sources at once
-   (one ``nvcc`` each): the flash-decode pair, paged and contiguous
-   (``kernels/decode_attention/csrc``), the causal flash attention
+1. build: compile the five hand-written kernels' four sources into five
+   libraries at once (one ``nvcc`` each): the flash-decode pair, paged and
+   contiguous (``kernels/decode_attention/csrc``, one library for each
+   bucket of query heads a kv head, G <= 8 and G <= 16), the causal flash
+   attention
    (``kernels/flash_attention/csrc``), the chunked WKV6
    (``kernels/rwkv6/csrc``) and the chunked Mamba2 SSD
    (``kernels/mamba2/csrc``); ptxas registers and spill bytes of every
@@ -16,29 +18,33 @@ Phases, each printing one JSON line:
    (UTMALDG, UTMASTG) and mbarrier (SYNCS) instructions in the flash, WKV6
    and SSD libraries' SASS (``cuobjdump -sass``).
 2. paged decode kernel vs plain: against ``ref.paged_decode_ref`` on the
-   card at every head dim (8, 16, 32, 64, 80, 128; the heads of the
+   card at every head dim (8, 16, 32, 64, 80, 128, 192; the heads of the
    configs that run each, ``DECODE_HEADS``, internvl2-1b's seven query
-   heads a group among them) in f32 and bf16 (ragged
+   heads a group and nemotron-4-340b's twelve among them) in f32 and bf16
+   (ragged
    lengths, permuted tables, null-block padding rows; f32 within 2e-5,
    bf16 within 4e-3 + 2^-7 x |plain|; physical relocation exact); the
    split's edges (one kv head of one sequence, so the kernel splits it
    across the most blocks: lengths at the tile edges and around every
    split boundary, split ranks left empty, lengths past the cache; both
-   entry points, two calls bit-equal, relocation exact); then its times
-   at the llama3.2-3b decode shape: eager, replayed from a CUDA graph of
-   the 28-layer loop (``graph_ms``), the host's time to issue the
-   wrapper (``host_ms``), beside the plain version, the library
-   yardstick (``scaled_dot_product_attention``, never called by the port;
-   eager and from a graph) and the least time the card could take (its
-   bound).
+   entry points, two calls bit-equal, relocation exact; G 12 at D 192
+   too); the launch-shape search (``shape_search``: every dtype, head dim
+   and G up to 16 at ``SHAPE_SEARCH``'s sizes gets a shape); then its
+   times at the llama3.2-3b decode shape and at nemotron-4-340b's heads
+   (96 layers' stores): eager, replayed from a CUDA graph of the layer
+   loop (``graph_ms``), the host's time to issue the wrapper
+   (``host_ms``), beside the plain version, the library yardstick
+   (``scaled_dot_product_attention``, never called by the port; eager and
+   from a graph) and the least time the card could take (its bound).
 3. contiguous decode kernel vs plain: against ``ref.decode_ref`` at every
    head dim of ``DECODE_HEADS``, f32 and bf16, the same limits; S 77 and
    512; ragged lengths and idle rows past S; whisper-small's cross shape
    (``WHISPER_CROSS``: B 8, Hkv 12, G 1, D 64, all 1500 positions); then
    its times, as in phase 2, at zamba2's decode shape (B 8, Hkv 32, D 80,
    S 512, 9 layer caches), at llama3.2-3b's heads, at whisper's cross
-   shape (12 layer caches) and at internvl2-1b's heads (B 8, Hkv 2, G 7,
-   D 64, S 512, 24 layer caches), beside the plain version, SDPA (GQA,
+   shape (12 layer caches), at internvl2-1b's heads (B 8, Hkv 2, G 7,
+   D 64, S 512, 24 layer caches) and at nemotron-4-340b's (B 8, Hkv 8, G
+   12, D 192, S 1024, 96 layer caches), beside the plain version, SDPA (GQA,
    length mask) and the bound.  The kernel's optional log-sum-exp output
    against the plain one's at every head dim (a row of length 0 first:
    output 0, log-sum-exp -inf), the output bit-equal to the call without
@@ -86,23 +92,26 @@ Phases, each printing one JSON line:
    one prompt: f32 cut to 12 layers against the same oracle's logits
    (2 flash launches), and bf16 at 54 layers, finite (9 flash launches),
    timed cold and three times warm.
-10-11. slot-pool serving at full width: rwkv6-1.6b (24 layers, d 2048,
-   vocab 65536) and zamba2-2.7b (54 layers, d 2560, vocab 32000), bf16,
+10-11. slot-pool serving at full width: rwkv6-1.6b (12 of its 24 layers,
+   d 2048, vocab 65536) and zamba2-2.7b (18 of 54 layers, d 2560, vocab
+   32000; ``SERVING_LAYERS``), bf16,
    random weights from seed 0, behind ``Rhapsody`` with 2 replicas
    through the default ``LLMServicer`` (auto: the slot pool), 16 requests
    of 32 new tokens, cold then warm; prompts up to 400 tokens (rwkv6) and
    256/384-token ones (zamba2) besides the log-normal ones.
 12. flash kernel vs plain: out and lse against ``ref.attention_fwd_ref``
    (rhapsody-demo heads, D 32, in f32; zamba2-2.7b's, D 80,
-   llama3.2-3b's, D 128, and internvl2-1b's, Hq 14 over Hkv 2 at D 64, in
-   f32 and bf16; B 2, S in ``FLASH_SEQS``, the
+   llama3.2-3b's, D 128, internvl2-1b's, Hq 14 over Hkv 2 at D 64, and
+   nemotron-4-340b's, Hq 96 over Hkv 8 at D 192, in f32 and bf16; B 2, S
+   in ``FLASH_SEQS``, the
    edges of the 128-row query tiles and the diagonal tile; the same limits
    as phase 2), and the gradient of ``FlashAttention`` against autograd of
    the plain version in float32 (1e-4 for f32 inputs, 2e-2 for bf16).
 13. flash at the llama3.2-3b training shape (B 2, S 2048, Hq 24, Hkv 8,
    D 128, bf16), at zamba2-2.7b's (B 1, S 384, Hq = Hkv = 32, D 80) and at
    phase 29's (internvl2-1b: B 2, S 2304, Hq 14, Hkv 2, D 64;
-   whisper-small: B 2, S 448, Hq = Hkv = 12, D 64):
+   whisper-small: B 2, S 448, Hq = Hkv = 12, D 64) and at phase 38's
+   nemotron-4-340b forward (B 1, S 2048, Hq 96, Hkv 8, D 192):
    the wrapper's out, lse and gradient against the plain version as in
    phase 12, then the times of the kernel, the plain version, the library
    yardstick (SDPA, causal, GQA) and the bound (and ``attention_bwd`` at
@@ -134,12 +143,12 @@ Phases, each printing one JSON line:
    config cut to its dense layer (seed 1), paged/paged and paged/slot:
    the plain target engine's transcripts (teacher-forced where they
    differ), 0 <= acceptance <= 1, proposals made.
-19. MoE serving at full width: deepseek-moe-16b (bf16, 28 layers, ~16.4 B
-   parameters, random weights from seed 0) behind ``Rhapsody`` with 2
-   replicas sharing one parameter set, as phase 8; then one engine alone:
-   the host time of a decode step of 8 sequences, and one MoE layer's FFN
-   on the card beside its bound.
-20. speculative decoding at full width, bf16: the 28-layer target with a
+19. MoE serving at full width: deepseek-moe-16b (bf16, 14 of 28 layers,
+   ``MOE_SERVING_LAYERS``, random weights from seed 0) behind
+   ``Rhapsody`` with 2 replicas sharing one parameter set, as phase 8;
+   then one engine alone: the host time of a decode step of 8 sequences,
+   and one MoE layer's FFN on the card beside its bound.
+20. speculative decoding at full width, bf16: phase 19's target with a
    draft sharing its parameters, beside the plain target on the same 8
    requests: acceptance and generated tokens/s of both, at the config's
    decode capacity and at n_experts / top_k (no drops).
@@ -206,7 +215,8 @@ Phases, each printing one JSON line:
    after 256 stubbed patches, whisper-small at 2 x 448 tokens over 1500
    stubbed frames; step time, tok/s, peak memory.
 30. exp3 (``benchmarks_torch.bench_inference_scaling.run_config``) with
-   llama3.2-3b at full width, bf16, one weight set every replica serves,
+   llama3.2-3b at full width cut to ``EXP3_LAYERS`` (14 of 28) layers,
+   bf16, one weight set every replica serves,
    phase 8's engine: 1, 2 and 4 replicas with 2 clients each, every client
    8 requests of one 64-token prompt with 32 new tokens; tokens/s (prompt
    plus generated, and generated alone), seconds, utilization,
@@ -287,6 +297,22 @@ Phases, each printing one JSON line:
    one rank's.  Each rank's launches by kernel, the local shapes each
    kernel saw, the staged all-gathers and the step times beside one
    rank's (every prefill warmed once before it is timed).
+38. nemotron-4-340b at full width (d 18432, 96 heads of 192 over 8 kv
+   heads, relu² MLP of 73728, vocab 256000), depth cut to fit the card,
+   random weights from seed 0: (a) one layer in f32 (51.6 GB) served
+   behind ``Rhapsody`` by one paged replica (phase 8's engine, 8 requests
+   of the main path's prompt lengths, 32 new tokens), every token
+   teacher-forced against the kernel-free oracle (a flip only under
+   PAGED_GAP_TOL), then the slot engine (contiguous kernel) on the same
+   weights and prompts against the same oracle; (b) two layers in bf16
+   (32.7 GB) served the same way, cold and warm (tok/s, peak memory), then
+   a pass in which each engine decode step also runs the plain version on
+   a copy of the store: the logits within ``NEMOTRON_LOGIT_TOL`` of their
+   scale, a greedy flip only inside it, the kernel's step timed; (c) the
+   training loss on one 2048-token sequence through the flash kernel
+   against plain attention (``NEMOTRON_LOSS_TOL``).  Launches: paged
+   n_layers a decode step, contiguous n_layers a slot step, flash
+   n_layers a forward.
 
 Every phase that drives a path sets all five kernels' launch counts to 0
 just before it runs and checks every count just after: the paged serving
@@ -314,7 +340,9 @@ exits non-zero.  Each phase's line carries ``elapsed_s``, the script's
 seconds up to its end.  The last lines are the five kernels' JSON record
 (the decode pair's, the flash kernel's and the scans' rows also carry
 ``graph_ms``, and the attention kernels' ``library_graph_ms``; every row
-``launches_by_path``, its launches on each full-width path), the
+``launches_by_path``, its launches on each full-width path, and the
+attention kernels' ``nemotron_timing``, their times at phases 2, 3 and
+13's nemotron-4-340b shapes), the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without a
 CUDA card it exits 2 and prints no result.
 """
@@ -403,6 +431,15 @@ HYBRID_F32_TOL = (1e-3, 1e-3)
 
 # the slot-pool serving of the state-carrying families (phases 9-11)
 STATE_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b")
+# depth cuts that keep the script inside its 1200 s since phase 38 and the
+# decode kernel's second library came in: a host-bound serving phase's
+# time goes with the layers each step dispatches.  Phases 10-11 serve
+# rwkv6-1.6b with 12 of its 24 layers and zamba2-2.7b with 18 of 54 (3 of
+# its 9 shared-block groups), phases 19-20 deepseek-moe-16b with 14 of 28,
+# phase 30 llama3.2-3b with 14 of 28; every width stays full
+SERVING_LAYERS = {"rwkv6-1.6b": 12, "zamba2-2.7b": 18}
+MOE_SERVING_LAYERS = 14
+EXP3_LAYERS = 14
 STATE_ENGINE = dict(max_num_seqs=8, max_num_batched_tokens=1024, max_len=512)
 ZAMBA_ATTN_LAYERS = 9  # zamba2-2.7b: 54 mamba layers, the shared block
 #                        after every 6
@@ -585,12 +622,19 @@ def paged_inputs(torch, rng, *, L, B, Hkv, G, D, bs, mb, num_blocks, lens,
 # every decode head dim, as (label, Hkv, G, D): the heads of the configs
 # that run each width (llama3.2-3b and nemotron-4-340b smoke: D 8;
 # qwen3-8b, qwen1.5-0.5b and zamba2-2.7b smoke: 16; rhapsody-demo: 32;
-# zamba2-2.7b: 80; llama3.2-3b: 128), D 64 at four query heads a group, and
-# internvl2-1b's seven query heads a group (its smoke config: D 8; full: 64)
+# zamba2-2.7b: 80; llama3.2-3b: 128; nemotron-4-340b: 192 at twelve query
+# heads a group), D 64 at four query heads a group, and internvl2-1b's
+# seven query heads a group (its smoke config: D 8; full: 64)
 DECODE_HEADS = (("llama3.2-3b-smoke", 2, 3, 8), ("qwen3-8b-smoke", 2, 2, 16),
                 ("rhapsody-demo", 4, 2, 32), ("d64-group4", 2, 4, 64),
                 ("zamba2-2.7b", 32, 1, 80), ("llama3.2-3b", 8, 3, 128),
-                ("internvl2-1b-smoke", 1, 7, 8), ("internvl2-1b", 2, 7, 64))
+                ("internvl2-1b-smoke", 1, 7, 8), ("internvl2-1b", 2, 7, 64),
+                ("nemotron-4-340b", 8, 12, 192))
+# nemotron-4-340b's attention (phases 2-3, 12-13 and 38): 96 query heads
+# over 8 kv heads (G 12) of head_dim 192, at its 96 layers
+NEMOTRON = "nemotron-4-340b"
+NEMOTRON_HEADS = (96, 8, 192)  # Hq, Hkv, D
+NEMOTRON_LAYERS = 96
 # whisper-small's cross-attention decode: B 8, 12 kv heads of one query
 # head, D 64, every row over the slot's 1500 cross positions
 WHISPER_CROSS = (8, 12, 1, 64, 1500)
@@ -660,6 +704,42 @@ def split_lens(rows, splits, cap):
     return sorted(n for n in edges if n >= 1)
 
 
+def tile_rows(D, itemsize):
+    """Positions a tile of the decode kernel (its ``Tile::kRows``): 32, 16
+    for a row of 128 bytes or more, 8 for one over 512 (float32 D 192)."""
+    row = D * itemsize
+    return 8 if row > 512 else 16 if row >= 128 else 32
+
+
+# the launch-shape search over every shape the decode wrappers admit:
+# (B, Hkv, cap) from one sequence's head to a batch that fills the card
+SHAPE_SEARCH = ((1, 1, 16), (1, 1, 32768), (3, 1, 1024), (8, 8, 1024),
+                (8, 8, 4096), (4, 2, 512), (64, 32, 2048), (1, 96, 8192))
+
+
+def shape_search(torch, ops, kernel):
+    """``kernel.launch_shape`` (the C++ ``choose_shape``) for f32 and bf16,
+    every head dim of ``ops.KERNEL_HEAD_DIMS``, every G up to
+    ``ops.KERNEL_MAX_GROUP`` and each of ``SHAPE_SEARCH``: a shape comes
+    back every time (the search never ends empty), with 4 or 8 warps and
+    a split of 1, 2, 4 or 8.  -> the distinct (splits, warps) by dtype,
+    D and G bucket."""
+    seen = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in ops.KERNEL_HEAD_DIMS:
+            for G in range(1, ops.KERNEL_MAX_GROUP + 1):
+                for B, Hkv, cap in SHAPE_SEARCH:
+                    splits, warps = kernel.launch_shape(dtype, B, Hkv, G, D,
+                                                        cap)
+                    check(splits in (1, 2, 4, 8) and warps in (4, 8),
+                          f"launch shape {dtype} D {D} G {G} B {B} Hkv "
+                          f"{Hkv} cap {cap}: {splits} x {warps}")
+                    key = (f"{str(dtype).split('.')[-1]} D{D} "
+                           f"G<={8 if G <= 8 else 16}")
+                    seen.setdefault(key, set()).add((splits, warps))
+    return {k: sorted(v) for k, v in seen.items()}
+
+
 def phase_split_edges(torch, ops, ref, kernel):
     """Both decode entry points where the split of a sequence across a
     cluster's blocks has its edges: one kv head of one sequence plus two
@@ -668,12 +748,15 @@ def phase_split_edges(torch, ops, ref, kernel):
     ``split_lens``: against the plain versions, two calls bit-equal,
     relocated blocks bit-equal."""
     rng = np.random.RandomState(9)
-    bs, mb, G = 16, 64, 3
+    bs, mb = 16, 64
     cap = bs * mb
     records, worst = [], 0.0
+    # G 3 at every head dim, and nemotron-4-340b's G 12 at its D 192 (its
+    # shared memory caps the split: choose_shape's search)
+    heads = [(3, D) for D in ops.KERNEL_HEAD_DIMS] + [(12, 192)]
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for D in ops.KERNEL_HEAD_DIMS:
-            rows = 16 if D * dtype.itemsize >= 128 else 32
+        for G, D in heads:
+            rows = tile_rows(D, dtype.itemsize)
             splits, warps = kernel.launch_shape(dtype, 3, 1, G, D, cap)
             check(splits > 1, f"split edges D {D}: no split ({splits})")
             lens = split_lens(rows, splits, cap)
@@ -702,7 +785,7 @@ def phase_split_edges(torch, ops, ref, kernel):
                 torch.cuda.synchronize()
                 err, ok = within(out, plain, tol)
                 serr, sok = within(slot, plain, tol)
-                check(ok and sok, f"split edges D {D} {dtype} len {n}: "
+                check(ok and sok, f"split edges D {D} G {G} {dtype} len {n}: "
                                   f"errors {err} (paged), {serr} (slot)")
                 check(torch.equal(out, again)
                       and torch.equal(slot, slot_again),
@@ -713,20 +796,22 @@ def phase_split_edges(torch, ops, ref, kernel):
                 err_d = max(err_d, err, serr)
             worst = max(worst, err_d)
             records.append({"dtype": str(dtype).split(".")[-1], "D": D,
-                            "rows_per_tile": rows, "splits": splits,
+                            "G": G, "rows_per_tile": rows, "splits": splits,
                             "warps": warps,
                             "lens": lens, "max_err": err_d,
                             "deterministic": True, "relocation_exact": True})
     return records, worst
 
 
-def paged_timing(torch, ops, ref, kernel, rng):
-    """The paged kernel at the llama3.2-3b main-path decode shape: 28 layer
-    stores as the engine holds them (1.9 GB, so each call finds its layer
-    cold in the 50 MB L2), batch 8, lengths around 512, max_len 1024; held
-    against the plain version on the first and last layer, then timed
-    (``decode_times``) beside the bound."""
-    L, B, Hkv, G, D, bs, mb, N = 28, 8, 8, 3, 128, 16, 64, 513
+def paged_timing(torch, ops, ref, kernel, rng, name="llama3.2-3b", L=28,
+                 Hkv=8, G=3, D=128):
+    """The paged kernel at a main-path decode shape (llama3.2-3b's unless
+    named): L layer stores as the engine holds them (1.9 GB at
+    llama3.2-3b's, so each call finds its layer cold in the 50 MB L2),
+    batch 8, lengths around 512, max_len 1024; held against the plain
+    version on the first and last layer, then timed (``decode_times``)
+    beside the bound."""
+    B, bs, mb, N = 8, 16, 64, 513
     lens = [int(x) for x in rng.randint(480, 545, size=B)]
     ks, vs, q, bt, ln = paged_inputs(
         torch, rng, L=L, B=B, Hkv=Hkv, G=G, D=D, bs=bs, mb=mb, num_blocks=N,
@@ -739,7 +824,7 @@ def paged_timing(torch, ops, ref, kernel, rng):
         got = ops.paged_decode_attention(q, ks[layer], vs[layer], bt, ln)
         plain = ref.paged_decode_ref(qg, ks[layer], vs[layer], bt, ln)
         err, ok = within(got.reshape(plain.shape), plain, BF16_TOL)
-        check(ok, f"llama3.2-3b main shape: kernel vs plain error {err}")
+        check(ok, f"{name} main shape: kernel vs plain error {err}")
         main_err = max(main_err, err)
 
     def run_kernel(layer):
@@ -768,7 +853,8 @@ def paged_timing(torch, ops, ref, kernel, rng):
         q, ks[0], bt, sum(lens))  # the K and V rows attended
     bms, by = bound_ms(bytes_moved, flops, H100_BF16_FLOPS)
     shape = getattr(kernel, "launch_shape", None)  # older trees lack it
-    timing = {"config": "llama3.2-3b", "layers": L, "B": B, "lens": lens,
+    timing = {"config": name, "layers": L, "B": B, "Hkv": Hkv, "G": G,
+              "D": D, "lens": lens,
               "block_size": bs, "max_blocks": mb, "num_blocks": N,
               "splits_warps": shape(torch.bfloat16, B, Hkv, G, D, S)
               if shape else None, **times, "bound_ms": bms, "bound_by": by,
@@ -782,7 +868,8 @@ def paged_timing(torch, ops, ref, kernel, rng):
 
 def phase_kernel(torch, ops, ref, kernel):
     """Kernel vs plain on the card at every head dim; the split's edges;
-    times at the llama3.2-3b decode shape."""
+    times at the llama3.2-3b decode shape and at nemotron-4-340b's heads;
+    the launch-shape search over every admitted shape."""
     rng = np.random.RandomState(0)
     bs = 16
     cases = []
@@ -822,8 +909,12 @@ def phase_kernel(torch, ops, ref, kernel):
                           "relocation_exact": True})
     edges, edge_worst = phase_split_edges(torch, ops, ref, kernel)
     timing = paged_timing(torch, ops, ref, kernel, rng)
-    worst = max(worst, edge_worst, timing["max_err"])
-    return cases, edges, timing, worst
+    _, Hkv, D = NEMOTRON_HEADS
+    nemotron = paged_timing(torch, ops, ref, kernel, rng, NEMOTRON,
+                            NEMOTRON_LAYERS, Hkv, NEMOTRON_HEADS[0] // Hkv, D)
+    worst = max(worst, edge_worst, timing["max_err"], nemotron["max_err"])
+    return cases, edges, timing, nemotron, shape_search(torch, ops,
+                                                         kernel), worst
 
 
 def phase_model(torch, configs, get_model, engine_mod):
@@ -1148,7 +1239,8 @@ def phase_decode(torch, ops, ref, kernel):
     whose length is past S (the kernel clamps, the plain mask admits
     everything); whisper-small's cross shape (``WHISPER_CROSS``); then its
     times at zamba2's decode shape, at llama3.2-3b's heads, at whisper's
-    cross shape and at internvl2-1b's heads (G 7)."""
+    cross shape, at internvl2-1b's heads (G 7) and at nemotron-4-340b's
+    (G 12, D 192)."""
     f32, bf16 = torch.float32, torch.bfloat16
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     cases, worst = [], 0.0
@@ -1213,7 +1305,14 @@ def phase_decode(torch, ops, ref, kernel):
                             12, B, Hkv, G, D, S, [S] * B)
     internvl = decode_timing(torch, ops, ref, kernel, "internvl2-1b", 24, 8,
                              2, 7, 64, 512, rng.randint(480, 545, size=8))
-    extra = {"whisper-small-cross": whisper, "internvl2-1b": internvl}
+    # nemotron-4-340b's heads (G 12, D 192) over its 96 layers' caches
+    Hq, Hkv, D = NEMOTRON_HEADS
+    nemotron = decode_timing(torch, ops, ref, kernel, NEMOTRON,
+                             NEMOTRON_LAYERS, 8, Hkv, Hq // Hkv, D,
+                             MAIN_PATH_ENGINE["max_len"],
+                             rng.randint(480, 545, size=8))
+    extra = {"whisper-small-cross": whisper, "internvl2-1b": internvl,
+             NEMOTRON: nemotron}
     worst = max([worst, zamba["max_err"], llama["max_err"]]
                 + [t["max_err"] for t in extra.values()])
     return cases, zamba, llama, extra, worst
@@ -1719,8 +1818,11 @@ def phase_state_serving(torch, configs, core, client, arch,
     (bf16, random weights from seed 0) behind ``Rhapsody`` with 2
     replicas through the default ``LLMServicer`` (auto: the slot pool): 16
     requests of 32 new tokens, served twice (cold, then warm) with prompts
-    of the same lengths."""
+    of the same lengths (``SERVING_LAYERS`` cuts rwkv6's and zamba2's
+    depth)."""
     cfg = configs.get_config(arch)
+    if arch in SERVING_LAYERS:
+        cfg = cfg.scaled(n_layers=SERVING_LAYERS[arch])
     replicas, n_req, mnt = 2, 16, MAIN_PATH_NEW_TOKENS
     rh = core.Rhapsody(core.ResourceDescription(nodes=replicas,
                                                 cores_per_node=16),
@@ -1864,9 +1966,9 @@ def flash_case(torch, fa, fa_ref, name, dtype, B, S, Hq, Hkv, D, tol, gtol):
 
 def phase_flash(torch, fa, fa_ref):
     """Flash kernel vs plain on the card: out, lse and the gradient, for
-    each body and head_dim on a path (D 32 f32; D 80, 128 and internvl2-1b's
-    D 64 at seven query heads a group, f32 and bf16) at every length of
-    ``FLASH_SEQS``."""
+    each body and head_dim on a path (D 32 f32; D 80, 128, internvl2-1b's
+    D 64 at seven query heads a group and nemotron-4-340b's D 192 at
+    twelve, f32 and bf16) at every length of ``FLASH_SEQS``."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
     for name, dtype, Hq, Hkv, D, tol, gtol in (
@@ -1876,7 +1978,9 @@ def phase_flash(torch, fa, fa_ref):
             ("llama3.2-3b-f32", f32, 24, 8, 128, F32_TOL, F32_GRAD_TOL),
             ("llama3.2-3b", bf16, 24, 8, 128, BF16_TOL, BF16_GRAD_TOL),
             ("internvl2-1b-f32", f32, 14, 2, 64, F32_TOL, F32_GRAD_TOL),
-            ("internvl2-1b", bf16, 14, 2, 64, BF16_TOL, BF16_GRAD_TOL)):
+            ("internvl2-1b", bf16, 14, 2, 64, BF16_TOL, BF16_GRAD_TOL),
+            (f"{NEMOTRON}-f32", f32, *NEMOTRON_HEADS, F32_TOL, F32_GRAD_TOL),
+            (NEMOTRON, bf16, *NEMOTRON_HEADS, BF16_TOL, BF16_GRAD_TOL)):
         for S in FLASH_SEQS:
             cases.append(flash_case(torch, fa, fa_ref, name, dtype, 2, S,
                                     Hq, Hkv, D, tol, gtol)[0])
@@ -1929,8 +2033,9 @@ def phase_flash_timing(torch, fa_kernel, fa, fa_ref, sass):
     """The flash kernel at the llama3.2-3b training shape, at zamba2's
     (B 1, S 384, Hq = Hkv = 32, D 80), and at the decoder self-attention
     of phase 29's training steps (internvl2-1b: B 2, S 256 + 2048, Hq 14,
-    Hkv 2, D 64; whisper-small: B 2, S 448, Hq = Hkv = 12, D 64): the
-    wrapper and its gradient held against the plain version there, then
+    Hkv 2, D 64; whisper-small: B 2, S 448, Hq = Hkv = 12, D 64) and at
+    phase 38's nemotron-4-340b forward (B 1, S 2048, Hq 96, Hkv 8, D 192):
+    the wrapper and its gradient held against the plain version there, then
     the raw kernel's times (and the plain backward's at the llama3.2-3b
     training shape).  Fails unless the library's
     SASS holds wgmma (HGMMA) and TMA loads (UTMALDG)."""
@@ -1942,7 +2047,8 @@ def phase_flash_timing(torch, fa_kernel, fa, fa_ref, sass):
             ("zamba2-2.7b", 1, 384, 32, 32, 80),
             ("internvl2-1b", TRAIN_BATCH, VISION_TOKENS + TRAIN_SEQ, 14, 2,
              64),
-            ("whisper-small", TRAIN_BATCH, WHISPER_TEXT_CTX, 12, 12, 64)):
+            ("whisper-small", TRAIN_BATCH, WHISPER_TEXT_CTX, 12, 12, 64),
+            (NEMOTRON, 1, TRAIN_SEQ, *NEMOTRON_HEADS)):
         case, (q, k, v, out, lse) = flash_case(
             torch, fa, fa_ref, name, torch.bfloat16, B, S, Hq, Hkv, D,
             BF16_TOL, BF16_GRAD_TOL)
@@ -2367,8 +2473,9 @@ def moe_decode_timing(torch, engine_mod, moe, cfg, params):
 
 
 def phase_spec_bf16(torch, engine_mod, cfg, params):
-    """Speculative decoding at full width, bf16: deepseek-moe-16b (28
-    layers) verifying a draft that shares its parameters, beside the plain
+    """Speculative decoding at full width, bf16: deepseek-moe-16b (phase
+    19's ``MOE_SERVING_LAYERS`` layers) verifying a draft that shares its
+    parameters, beside the plain
     target engine on the same 8 prompts of 32 new tokens (the phase-19
     engine settings): acceptance, generated tokens/s of both, and the
     launches (the draft's paged decodes; none from the target).  Run at
@@ -3543,14 +3650,15 @@ PAGED_GAP_TOL = 1e-5
 
 def phase_exp3(torch, configs, get_model, exp3):
     """Phase 30: ``benchmarks_torch.bench_inference_scaling.run_config`` with
-    llama3.2-3b at its full config (bf16, random weights from seed 0, one
-    weight set every replica serves) and phase 8's engine, at exp3's
+    llama3.2-3b at its full width cut to ``EXP3_LAYERS`` layers (bf16,
+    random weights from seed 0, one weight set every replica serves) and
+    phase 8's engine, at exp3's
     configs and traffic shape.  Each config: every request back with its
     32 tokens, every replica served, the per-replica counts summing to the
     requests, the paged kernel launched n_layers x the replicas' decode
     steps and no other kernel.  The scaling efficiency tps(n) / (n tps(1))
     is measured, not gated."""
-    cfg = configs.get_config(MAIN_PATH_ARCH)
+    cfg = configs.get_config(MAIN_PATH_ARCH).scaled(n_layers=EXP3_LAYERS)
     params = get_model(cfg).init(torch.Generator(device=DEVICE).manual_seed(0),
                                  cfg, device=DEVICE)
     # one untimed request first, so no config pays a first call
@@ -4916,6 +5024,272 @@ def phase_serve_mesh(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 38: nemotron-4-340b at full width (d 18432, 96 heads of 192 over 8
+# kv heads, relu² MLP of 73728, vocab 256000), its depth cut to fit one
+# card: one layer in f32 (51.6 GB of weights), two in bf16 (32.7 GB)
+# ---------------------------------------------------------------------------
+
+NEMOTRON_F32_LAYERS, NEMOTRON_BF16_LAYERS = 1, 2
+NEMOTRON_REQUESTS = 8
+# the slot engine beside the paged one in (a): buckets that hold the main
+# path's prompts whole (the slot pool keeps an over-long prompt's tail)
+NEMOTRON_SLOT_BUCKETS = (16, 32, 64, 128, 256, 512)
+# (b) the kernel's decode logits against the plain version's on the same
+# engine state, relative to the logits' scale (max |plain|): bf16 rounds
+# each attention output to 2^-8 of its size and two layers and the
+# unembedding carry it on; 2e-2 is this kernel's own bf16 limit (its
+# gradient's, BF16_GRAD_TOL).  A greedy token may differ only where the
+# plain top-two gap is within that tolerance (ROADMAP's rule)
+NEMOTRON_LOGIT_TOL = 2e-2
+# (c) the training loss through the flash kernel against plain attention,
+# relative: one bf16 ulp of the loss (2^-7), rounded up
+NEMOTRON_LOSS_TOL = 1e-2
+
+
+@contextlib.contextmanager
+def plain_attention(ops, ref, fa, fa_ref):
+    """Within it ``ops.paged_decode_attention`` and ``fa.flash_attention``
+    run their plain versions on the card, so a model's paged decode and
+    training forward launch no kernel (phase 38's comparisons)."""
+    paged, flash = ops.paged_decode_attention, fa.flash_attention
+
+    def plain_paged(q, k, v, block_tables, kv_length):
+        B, _, Hq, D = q.shape
+        qg = q.reshape(B, k.shape[2], Hq // k.shape[2], D)
+        return ref.paged_decode_ref(qg, k, v, block_tables,
+                                    kv_length).reshape(q.shape)
+
+    ops.paged_decode_attention = plain_paged
+    fa.flash_attention = lambda q, k, v: fa_ref.attention_fwd_ref(q, k, v)[0]
+    try:
+        yield
+    finally:
+        ops.paged_decode_attention, fa.flash_attention = paged, flash
+
+
+def nemotron_passes(torch, core, client, cfg, params, passes, where,
+                    hook=None):
+    """``cfg`` served behind ``Rhapsody`` by one replica (the paged
+    engine, phase 8's settings, ``params`` shared) for each named pass of
+    ``NEMOTRON_REQUESTS`` requests of the main path's prompt lengths,
+    ``MAIN_PATH_NEW_TOKENS`` new tokens each; a pass named "compare"
+    first sets ``hook(engine)`` as the engine's paged decode.  Each pass
+    launches the paged kernel n_layers x its decode steps, no other
+    kernel.  -> {pass: (prompts, results, record)}, peak memory (GB)."""
+    rh = core.Rhapsody(core.ResourceDescription(nodes=1, cores_per_node=16),
+                       n_workers=2)
+    try:
+        rs = rh.add_service(core.ServiceDescription(
+            name="llm", replicas=1, ready_timeout=600,
+            factory=client.llm_service_factory(
+                cfg, params, device=DEVICE, **MAIN_PATH_ENGINE)))
+        eng = rs.instances[0].servicer.engine
+        rng = np.random.RandomState(38)
+        lens = main_path_prompt_lens(rng, NEMOTRON_REQUESTS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = {}
+        for name in passes:
+            if name == "compare":
+                eng._paged_decode = hook(eng)
+            steps = eng.stats.decode_steps
+            zero_launches()
+            prompts, results, rec = serve_pass(
+                torch, core, rh, cfg, rng, lens, MAIN_PATH_NEW_TOKENS,
+                f"{where} {name}")
+            steps = eng.stats.decode_steps - steps
+            rec["launches"] = check_launches(
+                f"{where} {name}",
+                paged_decode_attention=cfg.n_layers * steps)[
+                "paged_decode_attention"]
+            check(rec["launches"] > 0, f"{where} {name}: no decode step ran")
+            rec.update(decode_steps=steps, prompt_lens=[int(n) for n in lens])
+            out[name] = (prompts, results, rec)
+        check(all(inst.error is None for inst in rs.instances),
+              f"{where}: replica errors {[i.error for i in rs.instances]}")
+        return out, torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        rh.close()
+
+
+def nemotron_f32(torch, configs, get_model, core, client, engine_mod):
+    """Phase 38 (a): one of nemotron-4-340b's 96 layers at full width in
+    f32 served through the middleware; every token teacher-forced against
+    the kernel-free oracle (a flip only under PAGED_GAP_TOL, as phase 31);
+    then the slot engine (the contiguous kernel) on the same weights and
+    prompts against the same oracle."""
+    cfg = configs.get_config(NEMOTRON).scaled(
+        n_layers=NEMOTRON_F32_LAYERS, param_dtype="float32",
+        compute_dtype="float32")
+    params = get_model(cfg).init(torch.Generator(device=DEVICE).manual_seed(0),
+                                 cfg, device=DEVICE)
+    where = f"{NEMOTRON} f32"
+    passes, peak = nemotron_passes(torch, core, client, cfg, params,
+                                   ("serve",), where)
+    prompts, results, rec = passes["serve"]
+    outs = [r["tokens"] for r in results]
+    memo = {}
+    flips = teacher_forced(torch, get_model, cfg, params, prompts, outs,
+                           f"{where} paged", memo, gap_tol=PAGED_GAP_TOL)
+    eng = engine_mod.InferenceEngine(
+        cfg, params, device=DEVICE, paged=False,
+        max_num_seqs=MAIN_PATH_ENGINE["max_num_seqs"],
+        max_num_batched_tokens=max(NEMOTRON_SLOT_BUCKETS),
+        max_len=MAIN_PATH_ENGINE["max_len"],
+        prefill_buckets=NEMOTRON_SLOT_BUCKETS)
+    zero_launches()
+    uids = [eng.submit(p, max_new_tokens=MAIN_PATH_NEW_TOKENS)
+            for p in prompts]
+    done = eng.run()
+    torch.cuda.synchronize()
+    slot_launches = check_launches(
+        f"{where} slot engine",
+        decode_attention=cfg.n_layers * eng.stats.decode_steps)[
+        "decode_attention"]
+    slot_outs = [done[u].output for u in uids]
+    slot_steps = eng.stats.decode_steps
+    slot_flips = teacher_forced(torch, get_model, cfg, params, prompts,
+                                slot_outs, f"{where} slot", memo,
+                                gap_tol=PAGED_GAP_TOL)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "dtype": "float32",
+            "transcripts_equal_oracle": not flips, "flips": flips,
+            "slot_transcripts_equal_oracle": not slot_flips,
+            "slot_flips": slot_flips,
+            "paged_equals_slot": outs == slot_outs,
+            "slot_launches": slot_launches, "slot_decode_steps": slot_steps,
+            "peak_mem_gb": peak, **rec}
+
+
+def nemotron_bf16(torch, configs, get_model, core, client, ops, ref, fa,
+                  fa_ref):
+    """Phase 38 (b) and (c): two of nemotron-4-340b's layers at full width
+    in bf16.  (b) served through the middleware twice (cold, warm: tok/s,
+    peak memory), then a third pass in which every engine decode step also
+    runs the plain version on a copy of the store: the kernel's logits
+    within NEMOTRON_LOGIT_TOL of the plain ones, a greedy flip only within
+    it; the kernel's step timed.  (c) the training loss on one 2048-token
+    sequence through the flash kernel against plain attention."""
+    cfg = configs.get_config(NEMOTRON).scaled(n_layers=NEMOTRON_BF16_LAYERS)
+    api = get_model(cfg)
+    params = api.init(torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                      device=DEVICE)
+    where = f"{NEMOTRON} bf16"
+    cmp = {"rel_err": 0.0, "flips": [], "step_ms": [], "rows": 0}
+
+    def hook(eng):
+        real = eng._paged_decode
+
+        def compared(params, store, bt, lens, tokens, wphys, woff):
+            twin = {k: v.clone() for k, v in store.items()}
+            with plain_attention(ops, ref, fa, fa_ref):
+                _, plain = real(params, twin, bt, lens, tokens, wphys, woff)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            store, logits = real(params, store, bt, lens, tokens, wphys,
+                                 woff)
+            torch.cuda.synchronize()
+            cmp["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            live = lens > 0  # padding rows: length 0, the null block
+            got, want = logits[live].float(), plain[live].float()
+            scale = float(want.abs().max())
+            cmp["rel_err"] = max(cmp["rel_err"],
+                                 float((got - want).abs().max()) / scale)
+            cmp["rows"] += int(live.sum())
+            for g, w in zip(got, want):
+                tok, best = int(g.argmax()), int(w.argmax())
+                if tok != best:
+                    gap = float(w[best] - w[tok])
+                    check(gap <= NEMOTRON_LOGIT_TOL * scale,
+                          f"{where}: kernel token {tok} != plain {best}, "
+                          f"plain gap {gap} over {NEMOTRON_LOGIT_TOL} x "
+                          f"{scale}")
+                    cmp["flips"].append({"gap": gap, "scale": scale})
+            return store, logits
+
+        return compared
+
+    passes, peak = nemotron_passes(torch, core, client, cfg, params,
+                                   ("cold", "warm", "compare"), where, hook)
+    check(cmp["rel_err"] <= NEMOTRON_LOGIT_TOL,
+          f"{where}: decode logits {cmp['rel_err']} of their scale from the "
+          f"plain version's (limit {NEMOTRON_LOGIT_TOL})")
+    serving = {"layers": cfg.n_layers, "dtype": "bfloat16",
+               "peak_mem_gb": peak,
+               **{name: rec for name, (_, _, rec) in passes.items()},
+               "logits_rel_err": cmp["rel_err"],
+               "logit_tol": NEMOTRON_LOGIT_TOL, "rows_compared": cmp["rows"],
+               "flips": cmp["flips"],
+               "decode_step_ms": sorted(cmp["step_ms"])[
+                   len(cmp["step_ms"]) // 2],
+               "decode_step_ms_all": cmp["step_ms"]}
+
+    # (c) the training forward, B 1 x S 2048
+    rng = np.random.RandomState(380)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, size=(1, TRAIN_SEQ + 1))
+                            ).to(DEVICE)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+             "loss_mask": torch.ones((1, TRAIN_SEQ), device=DEVICE)}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        api.loss(params, batch, cfg)  # warm
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        loss, _ = api.loss(params, batch, cfg)
+        loss = float(loss)
+        forward_s = time.perf_counter() - t0
+        flash = check_launches(f"{where} forward",
+                               flash_attention=cfg.n_layers)[
+            "flash_attention"]
+        zero_launches()
+        with plain_attention(ops, ref, fa, fa_ref):
+            plain = float(api.loss(params, batch, cfg)[0])
+        check_launches(f"{where} plain forward")
+    rel = abs(loss - plain) / abs(plain)
+    check(math.isfinite(loss) and rel <= NEMOTRON_LOSS_TOL,
+          f"{where}: loss {loss} through the flash kernel, {plain} plain "
+          f"(relative {rel}, limit {NEMOTRON_LOSS_TOL})")
+    forward = {"layers": cfg.n_layers, "dtype": "bfloat16", "B": 1,
+               "S": TRAIN_SEQ, "loss": loss, "plain_loss": plain,
+               "loss_rel_err": rel, "loss_tol": NEMOTRON_LOSS_TOL,
+               "flash_launches": flash, "forward_s": forward_s,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return serving, forward
+
+
+def phase_nemotron(torch, configs, get_model, core, client, engine_mod, ops,
+                   ref, fa, fa_ref):
+    """Phase 38: nemotron-4-340b at full width on the main path, its depth
+    cut to fit one card: (a) f32, one layer, exact against the kernel-free
+    oracle; (b) bf16, two layers, served and its decode logits held to the
+    plain version's; (c) bf16, two layers, the training loss through the
+    flash kernel against plain attention."""
+    t0 = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()
+    check(free >= 60e9,  # (a) peaks at 52.0 GB on an H100
+          f"{NEMOTRON}: {free / 1e9:.1f} of {total / 1e9:.1f} GB free, "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB held by tensors "
+          f"of earlier phases")
+    f32 = nemotron_f32(torch, configs, get_model, core, client, engine_mod)
+    serving, forward = nemotron_bf16(torch, configs, get_model, core,
+                                     client, ops, ref, fa, fa_ref)
+    cfg = configs.get_config(NEMOTRON)
+    return {"config": NEMOTRON, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab, "full_layers": cfg.n_layers,
+            "replicas": 1, "requests_per_pass": NEMOTRON_REQUESTS,
+            "max_new_tokens": MAIN_PATH_NEW_TOKENS, "f32": f32,
+            "bf16_serving": serving, "bf16_forward": forward,
+            "seconds": time.perf_counter() - t0}
+
+
 def main():
     import torch
 
@@ -4969,9 +5343,10 @@ def main():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    # 1. build the five kernels' four sources at once, one nvcc each
+    # 1. build the five kernels' five libraries at once, one nvcc each
     t0 = time.perf_counter()
-    loaders = (kernel.load, fa_kernel.load, wkv_kernel.load, ssd_kernel.load)
+    loaders = (*(lambda b=b: kernel.load(b) for b in kernel.BUCKETS),
+               fa_kernel.load, wkv_kernel.load, ssd_kernel.load)
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(load) for load in loaders]:
             fut.result()
@@ -4990,9 +5365,11 @@ def main():
     worker = start_dryrun_worker()
 
     # 2. paged decode kernel vs plain
-    cases, edges, timing, worst = phase_kernel(torch, ops, ref, kernel)
+    cases, edges, timing, timing_nemotron, shapes, worst = phase_kernel(
+        torch, ops, ref, kernel)
     emit({"phase": "kernel", "cases": cases, "split_edges": edges,
-          "timing": timing})
+          "launch_shapes": shapes, "timing": timing,
+          "timing_nemotron": timing_nemotron})
 
     # 3-5. contiguous decode, WKV6 and SSD kernels vs plain, with times
     dec_cases, dec_timing, dec_llama, dec_more, dec_worst = phase_decode(
@@ -5082,7 +5459,8 @@ def main():
 
     # 19. MoE serving at full width, bf16: 2 replicas sharing one
     # parameter set; then one engine's decode step and MoE layer timed
-    moe_full = configs.get_config(MOE_ARCH)
+    moe_full = configs.get_config(MOE_ARCH).scaled(
+        n_layers=MOE_SERVING_LAYERS)
     moe_params = get_model(moe_full).init(
         torch.Generator(device=DEVICE).manual_seed(0), moe_full,
         device=DEVICE)
@@ -5207,6 +5585,16 @@ def main():
     emit({"phase": "serve_mesh", **serve_mesh})
     smesh = {part: [r for r in serve_mesh[part]["launches_by_rank"]]
              for part in ("full_width", "paged_engine", "slot_engine")}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 38. nemotron-4-340b at full width, depth cut: f32 exact, bf16 served
+    # and its training forward
+    nemotron = phase_nemotron(torch, configs, get_model, core, client, engine,
+                              ops, ref, fa, fa_ref)
+    emit({"phase": "nemotron", **nemotron})
+    nem_serve, nem_fwd = nemotron["bf16_serving"], nemotron["bf16_forward"]
+
 
     decode_src = ("src/repro_torch/kernels/decode_attention/csrc/"
                   "decode_attention.cu")
@@ -5223,7 +5611,10 @@ def main():
             paged_full["launches"]["paged_decode_attention"],
             "sharded_paged_engine_2x2_by_rank": [
                 r["paged_decode_attention"]
-                for r in smesh["paged_engine"]]},
+                for r in smesh["paged_engine"]],
+            "nemotron": {"serving_f32": nemotron["f32"]["launches"],
+                         **{f"serving_bf16_{p}": nem_serve[p]["launches"]
+                            for p in ("cold", "warm", "compare")}}},
         "decode_attention": {
             "zamba2_serving": zamba["launches"]["decode_attention"],
             "paged_compare_f32": paged_full["launches"]["decode_attention"],
@@ -5232,7 +5623,8 @@ def main():
             "sharded_serving_2x2_full_width_by_rank": [
                 r["decode_attention"] for r in smesh["full_width"]],
             "sharded_zamba2_slot_engine_2x2_by_rank": [
-                r["decode_attention"] for r in smesh["slot_engine"]]},
+                r["decode_attention"] for r in smesh["slot_engine"]],
+            "nemotron": {"slot_engine_f32": nemotron["f32"]["slot_launches"]}},
         "flash_attention": {"train_main_path": train_path["launches"],
                             "sharded_train_1x1": mesh_one["launches"],
                             "sharded_train_2x2_by_rank": {
@@ -5246,7 +5638,9 @@ def main():
                             "whisper_training":
                             whisper_train["launches"]["flash_attention"],
                             "internvl_training":
-                            internvl_train["launches"]["flash_attention"]},
+                            internvl_train["launches"]["flash_attention"],
+                            "nemotron": {"forward_bf16":
+                                         nem_fwd["flash_launches"]}},
         "ssd": {"zamba2_serving": zamba["launches"]["ssd"],
                 "zamba2_training": zamba_train["launches"]["ssd"],
                 "sharded_train_2x2_by_rank": [
@@ -5259,25 +5653,32 @@ def main():
                      r["wkv6"] for r in four["rwkv6-1.6b"]]},
     }
 
-    def line(name, source, replaces, launches, err, t):
-        rec = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": launches,
-               "max_abs_err": err, "ms": t["kernel_ms"],
-               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-               "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-               "launches_by_path": by_path[name]}
+    def times(t):
+        rec = {"ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+               "library_ms": t["library_ms"]}
         if "graph_ms" in t:  # device time replayed from a CUDA graph
             rec.update(graph_ms=t["graph_ms"],
                        library_graph_ms=t.get("library_graph_ms"))
         return rec
 
+    def line(name, source, replaces, launches, err, t, nemotron_t=None):
+        rec = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": err, **times(t),
+               "launches_by_path": by_path[name]}
+        if nemotron_t:  # the same at nemotron-4-340b's heads (G 12, D 192)
+            rec["nemotron_timing"] = times(nemotron_t)
+        return rec
+
     emit({"kernels": [
         line("paged_decode_attention", decode_src,
              "src/repro/kernels/decode_attention/kernel.py:147",
-             main_path["launches"], worst, timing),
+             main_path["launches"], worst, timing, timing_nemotron),
         line("decode_attention", decode_src,
              "src/repro/kernels/decode_attention/kernel.py:74",
-             zamba["launches"]["decode_attention"], dec_worst, dec_timing),
+             zamba["launches"]["decode_attention"], dec_worst, dec_timing,
+             dec_more[NEMOTRON]),
         line("flash_attention",
              "src/repro_torch/kernels/flash_attention/csrc/"
              "flash_attention.cu",
@@ -5285,7 +5686,7 @@ def main():
              train_path["launches"],
              max([flash_worst] + [t["max_err"]
                                   for t in flash_timings.values()]),
-             flash_timing),
+             flash_timing, flash_timings[NEMOTRON]),
         line("ssd", "src/repro_torch/kernels/mamba2/csrc/ssd.cu",
              "src/repro/kernels/mamba2/kernel.py:61",
              zamba["launches"]["ssd"], ssd_worst, ssd_timings[0]),
@@ -5295,7 +5696,7 @@ def main():
              max([wkv_worst] + [t["max_err"] for t in wkv_timings]),
              wkv_timings[0]),
     ]})
-    print(f"chip_smoke: phases 1-37 took {time.perf_counter() - START:.1f}"
+    print(f"chip_smoke: phases 1-38 took {time.perf_counter() - START:.1f}"
           f" s", flush=True)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -43,8 +43,10 @@ def cuda_tool(name: str = "nvcc") -> str:
                        "build the port's kernels")
 
 
-def load_library(name: str, source: Path) -> ctypes.CDLL:
-    """Return the loaded library for ``source``, compiling it if needed."""
+def load_library(name: str, source: Path, defines=()) -> ctypes.CDLL:
+    """Return the loaded library for ``source``, compiling it if needed;
+    ``defines`` are ``NAME=VALUE`` macros passed to ``nvcc`` as ``-D``
+    (one source may build several libraries, each under its own name)."""
     with _locks_lock:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
@@ -52,7 +54,8 @@ def load_library(name: str, source: Path) -> ctypes.CDLL:
         if lib is not None:
             return lib
         text = source.read_bytes()
-        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+        flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+        digest = hashlib.sha256(text + " ".join(flags).encode()
                                 ).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         target = BUILD_DIR / f"{name}-{digest}.so"
@@ -61,7 +64,7 @@ def load_library(name: str, source: Path) -> ctypes.CDLL:
         if not target.exists():
             tmp = BUILD_DIR / f".{name}-{digest}.{os.getpid()}.tmp.so"
             proc = subprocess.run(
-                [cuda_tool(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                [cuda_tool(), *flags, "-o", str(tmp), str(source)],
                 capture_output=True, text=True)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)

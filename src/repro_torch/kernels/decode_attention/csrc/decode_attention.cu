@@ -58,17 +58,24 @@
 //   `cp.async.wait_group` and two `__syncwarp`s, no block barrier.
 // * bf16 at D a multiple of 16 (every bf16 width but 8) runs on the tensor
 //   cores (`MmaMath`): S = Q K^T and O += P V as `mma.sync` m16n8k16 with
-//   the G <= 8 query heads as the rows, K through `ldmatrix` and V through
+//   the G query heads as the rows (G <= 8: rows 0-7, rows 8-15 zero; G up
+//   to 16, nemotron-4-340b's 12: all 16, each lane two heads' m, l and
+//   O), K through `ldmatrix` and V through
 //   `ldmatrix.trans` from padded rows, P straight from the score
 //   accumulators into the A operand in bf16 (as the flash forward does);
 //   a head's max and sum take two shuffles.  On the CUDA cores instead,
 //   the first body took 0.037 ms at the llama3.2-3b shape, most of it
 //   instruction latency with 8 warps an SM.
 // * float32, and bf16 at D 8, stay on the CUDA cores (`CoreMath`): a lane
-//   (or two) a position, q of all G heads read from shared memory as a
-//   broadcast, one warp max a head a tile; in P V lanes own 16-byte column
-//   chunks and lane groups take the rows in turn.  Float32 must agree with
-//   the plain version to ~1e-6, which TF32 tensor cores would not.
+//   (or two, or four) a position, q of all G heads read from shared memory
+//   as a broadcast, one warp max a head a tile; in P V lanes own 16-byte
+//   column chunks (two a lane at float32 D 192, whose row has 48) and lane
+//   groups take the rows in turn.  Float32 must agree with the plain
+//   version to ~1e-6, which TF32 tensor cores would not.
+// * G is a compile-time bucket, <= 8 or <= 16, one library each: the
+//   softmax state and the combine's shared memory are sized by it, so the
+//   G <= 8 shapes keep the registers and the shared memory they had before
+//   G 16 was added.
 // * Combine, in a fixed order: each warp leaves (m, l, acc[G, D]) in
 //   shared memory; each block combines its warps and stores the result
 //   into its slot in rank 0's shared memory (distributed shared memory
@@ -83,10 +90,14 @@
 // grid's requests queue at once), so a call is still about twice its
 // bound; D 8 and 16 leave most lanes of the CUDA cores' P V idle.
 //
-// Supported: float32 and bfloat16 inputs, D in {8, 16, 32, 64, 80, 128},
-// G <= 8, block_size <= 64, K/V 16-byte aligned.  The C entry points return
-// the launch's error, then cudaGetLastError() (or cudaErrorInvalidValue for
-// an unsupported shape); the Python wrapper raises on any non-zero value.
+// Supported: float32 and bfloat16 inputs, D in {8, 16, 32, 64, 80, 128,
+// 192}, G <= 16, block_size <= 64, K/V 16-byte aligned.  At D 192
+// (float32) or G above 8 the shared memory may not hold 8 splits of a
+// sequence: `choose_shape` then halves the split until it fits, which 4
+// warps and one block always do (a static_assert in `launch_d`).  The C
+// entry points return the launch's error, then cudaGetLastError() (or
+// cudaErrorInvalidValue for an unsupported shape); the Python wrapper
+// raises on any non-zero value.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -102,7 +113,14 @@ namespace {
 constexpr int kMaxWarps = 8;  // warps a block: 4 or 8, picked by the host
 constexpr int kStages = 2;  // K/V tiles in each warp's ring
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
-constexpr int kMaxG = 8;
+// The bucket of G this library is built for: query heads a kv head, at
+// most 8 or at most 16 (`nvcc -DREPRO_DECODE_MAX_G=16`; kernel.py builds
+// both, each its own library, at once).
+#ifndef REPRO_DECODE_MAX_G
+#define REPRO_DECODE_MAX_G 8
+#endif
+constexpr int kMaxG = REPRO_DECODE_MAX_G;
+static_assert(kMaxG == 8 || kMaxG == 16, "G's buckets are 8 and 16");
 constexpr int kMaxBlockSize = 64;
 constexpr int kMaxSplits = 8;  // blocks of a cluster (the portable limit)
 constexpr int kPad = 16;  // bytes after each staged row: rows land on
@@ -114,23 +132,31 @@ struct Tile {
   static constexpr int kVec = 16 / (int)sizeof(T);  // elements a chunk
   static constexpr int kChunks = D / kVec;  // 16-byte chunks a row
   static_assert(D % kVec == 0, "rows must split into 16-byte chunks");
-  static_assert(kChunks <= 32, "a row must fit one chunk a lane");
-  static constexpr int kParts = D * (int)sizeof(T) >= 128 ? 2 : 1;
+  // lanes a position in Q K^T: 4 for a row over 512 bytes (float32 D 192,
+  // whose 16-row tiles would not fit 4 warps' rings beside the combine)
+  static constexpr int kParts = D * (int)sizeof(T) > 512   ? 4
+                                : D * (int)sizeof(T) >= 128 ? 2
+                                                            : 1;
   static_assert(kChunks % kParts == 0, "a row's parts must be equal");
   static constexpr int kRows = 32 / kParts;  // positions a tile
   static constexpr int kRowBytes = D * (int)sizeof(T) + kPad;
   static constexpr int kStageBytes = 2 * kRows * kRowBytes;  // K, then V
-  static constexpr int kGroups = 32 / kChunks;  // lane groups in P V
+  // P V: a lane owns kLaneChunks chunks of a row (2 at float32 D 192, whose
+  // row has 48), kPVLanes lanes a row, kGroups rows at a time
+  static constexpr int kLaneChunks = (kChunks + 31) / 32;
+  static constexpr int kPVLanes = kChunks / kLaneChunks;
+  static_assert(kPVLanes * kLaneChunks == kChunks,
+                "a row's chunks must split evenly over the lanes");
+  static constexpr int kGroups = 32 / kPVLanes;  // lane groups in P V
 };
 
 // Dynamic shared memory: the warps' rings, q [G][D], each warp's partial
-// acc [warps][G][D], m and l [warps][kMaxG]; then, read in rank 0 only,
-// every block's acc [splits][G][D], m and l [splits][kMaxG] (float32).
-template <typename T, int D>
+// acc [warps][G][D], m and l [warps][MG]; then, read in rank 0 only,
+// every block's acc [splits][G][D], m and l [splits][MG] (float32).
+template <typename T, int D, int MG>
 constexpr int smem_bytes(int G, int splits, int warps) {
   return warps * kStages * Tile<T, D>::kStageBytes +
-         (G * D + (warps + splits) * (G * D + 2 * kMaxG)) *
-             (int)sizeof(float);
+         (G * D + (warps + splits) * (G * D + 2 * MG)) * (int)sizeof(float);
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -223,24 +249,25 @@ struct ContiguousRows {
 
 // The online softmax of one warp on the CUDA cores (float32, and bf16 at
 // D 8): a tile is kRows positions, one a lane (two lanes a row when a row
-// is 128 bytes or more, joined by one shuffle); q of all G heads is read
-// from shared memory as a broadcast; one warp max a head a tile, each lane
-// its own share of the row sum; in P V lanes own 16-byte column chunks of
-// a V row and lane groups take the rows in turn, p reaching them by a
-// shuffle.
-template <typename T, int D>
+// is 128 bytes or more, four when it is over 512, joined by shuffles); q of
+// all G heads is read from shared memory as a broadcast; one warp max a
+// head a tile, each lane its own share of the row sum; in P V lanes own
+// 16-byte column chunks of a V row and lane groups take the rows in turn,
+// p reaching them by a shuffle.  MG (8 or 16) sizes the per-head state.
+template <typename T, int D, int MG>
 struct CoreMath {
   using L = Tile<T, D>;
   static constexpr int kVec = L::kVec;
-  float m[kMaxG], l[kMaxG], acc[kMaxG][kVec];
+  static constexpr int kAcc = kVec * L::kLaneChunks;  // floats of a head
+  float m[MG], l[MG], acc[MG][kAcc];
 
   __device__ void init(const float*, int, int) {
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
+    for (int g = 0; g < MG; ++g) {
       m[g] = kNegInf;
       l[g] = 0.f;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[g][e] = 0.f;
+      for (int e = 0; e < kAcc; ++e) acc[g][e] = 0.f;
     }
   }
 
@@ -249,9 +276,9 @@ struct CoreMath {
                        int lane) {
     const int r = lane % L::kRows;  // this lane's row
     const int part = lane / L::kRows;
-    float s[kMaxG];
+    float s[MG];
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
+    for (int g = 0; g < MG; ++g) s[g] = 0.f;
     if (r < n) {
 #pragma unroll
       for (int cc = 0; cc < L::kChunks / L::kParts; ++cc) {
@@ -259,7 +286,7 @@ struct CoreMath {
         float kf[kVec];
         unpack(kt + r * L::kRowBytes + 16 * c, kf);
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g) {
+        for (int g = 0; g < MG; ++g) {
           if (g < G) {
             const float4* qg =
                 reinterpret_cast<const float4*>(q_s + g * D + c * kVec);
@@ -276,7 +303,7 @@ struct CoreMath {
       }
     }
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
+    for (int g = 0; g < MG; ++g) {
       if (g < G) {
 #pragma unroll
         for (int off = L::kRows; off < 32; off <<= 1)
@@ -289,24 +316,32 @@ struct CoreMath {
         m[g] = m_new;
         s[g] = p;
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) acc[g][e] *= alpha;
+        for (int e = 0; e < kAcc; ++e) acc[g][e] *= alpha;
       }
     }
-    const int cl = lane % L::kChunks;  // this lane's column chunk
-    const int grp = lane / L::kChunks;
+    const int cl = lane % L::kPVLanes;  // this lane's first column chunk
+    const int grp = lane / L::kPVLanes;
     for (int j0 = 0; j0 < n; j0 += L::kGroups) {
       const int j = j0 + grp;
       const bool mine = grp < L::kGroups && j < n;
-      float vf[kVec];
-      if (mine) unpack(vt + j * L::kRowBytes + 16 * cl, vf);
+      float vf[L::kLaneChunks][kVec];
+      if (mine) {
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
+        for (int lc = 0; lc < L::kLaneChunks; ++lc)
+          unpack(vt + j * L::kRowBytes + 16 * (cl + lc * L::kPVLanes),
+                 vf[lc]);
+      }
+#pragma unroll
+      for (int g = 0; g < MG; ++g) {
         if (g < G) {
           const float pj = __shfl_sync(0xffffffffu, s[g], j & 31);
           if (mine) {
 #pragma unroll
-            for (int e = 0; e < kVec; ++e)
-              acc[g][e] = fmaf(pj, vf[e], acc[g][e]);
+            for (int lc = 0; lc < L::kLaneChunks; ++lc)
+#pragma unroll
+              for (int e = 0; e < kVec; ++e)
+                acc[g][lc * kVec + e] =
+                    fmaf(pj, vf[lc][e], acc[g][lc * kVec + e]);
           }
         }
       }
@@ -317,30 +352,36 @@ struct CoreMath {
   // fixed order
   __device__ void flush(float* part_acc, float* part_m, float* part_l,
                         int warp, int G, int lane) {
-    const int cl = lane % L::kChunks;
-    const int grp = lane / L::kChunks;
+    const int cl = lane % L::kPVLanes;
+    const int grp = lane / L::kPVLanes;
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
+    for (int g = 0; g < MG; ++g) {
       if (g < G) {
         const float lsum = warp_sum(l[g]);
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          float a = acc[g][e];
-          if constexpr (32 % L::kChunks == 0) {
+        for (int lc = 0; lc < L::kLaneChunks; ++lc) {
 #pragma unroll
-            for (int off = L::kChunks; off < 32; off <<= 1)
-              a += __shfl_xor_sync(0xffffffffu, a, off);
-          } else {
-            a = __shfl_sync(0xffffffffu, acc[g][e], cl);
+          for (int e = 0; e < kVec; ++e) {
+            const float mine = acc[g][lc * kVec + e];
+            float a = mine;
+            if constexpr (32 % L::kPVLanes == 0) {
 #pragma unroll
-            for (int t = 1; t < L::kGroups; ++t)
-              a += __shfl_sync(0xffffffffu, acc[g][e], cl + t * L::kChunks);
+              for (int off = L::kPVLanes; off < 32; off <<= 1)
+                a += __shfl_xor_sync(0xffffffffu, a, off);
+            } else {
+              a = __shfl_sync(0xffffffffu, mine, cl);
+#pragma unroll
+              for (int t = 1; t < L::kGroups; ++t)
+                a += __shfl_sync(0xffffffffu, mine, cl + t * L::kPVLanes);
+            }
+            if (grp == 0)
+              part_acc[(warp * G + g) * D +
+                       (cl + lc * L::kPVLanes) * kVec + e] = a;
           }
-          if (grp == 0) part_acc[(warp * G + g) * D + cl * kVec + e] = a;
         }
         if (lane == 0) {
-          part_m[warp * kMaxG + g] = m[g];
-          part_l[warp * kMaxG + g] = lsum;
+          part_m[warp * MG + g] = m[g];
+          part_l[warp * MG + g] = lsum;
         }
       }
     }
@@ -373,6 +414,30 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
       : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
 }
 
+// The same with all 16 rows of A (G up to 16 query heads).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d += A B with A's registers in a[h * kH + hh] (column half h, row half
+// hh): rows 0-7 only (kH 1) or all 16 (kH 2).
+template <int kH>
+__device__ __forceinline__ void mma_rows(float (&d)[4],
+                                         const uint32_t (&a)[2 * kH],
+                                         uint32_t b0, uint32_t b1) {
+  if constexpr (kH == 1)
+    mma_bf16(d, a[0], a[1], b0, b1);
+  else
+    mma_bf16(d, a[0], a[1], a[2], a[3], b0, b1);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
@@ -380,32 +445,39 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // The online softmax of one warp on the tensor cores (bf16, D a multiple
 // of 16): S = Q K^T and O += P V as mma.sync m16n8k16 with the G query
-// heads as the rows (lane l holds head l / 4), K read by ldmatrix and V by
-// ldmatrix.trans from the padded rows; P goes from the score accumulators
-// to the A operand of P V in registers, rounded to bf16 as the flash
-// forward does.  A row's max and sum take two shuffles (the four lanes of a
-// head).
-template <int D>
+// heads as the rows (lane l holds head l / 4, and head l / 4 + 8 when MG is
+// 16), K read by ldmatrix and V by ldmatrix.trans from the padded rows; P
+// goes from the score accumulators to the A operand of P V in registers,
+// rounded to bf16 as the flash forward does.  A row's max and sum take two
+// shuffles (the four lanes of a head).
+template <int D, int MG>
 struct MmaMath {
   using L = Tile<__nv_bfloat16, D>;
+  static constexpr int kH = MG > 8 ? 2 : 1;  // heads a lane: rows g, g + 8
   static constexpr int kK = D / 16;          // k-steps of Q K^T
   static constexpr int kN = L::kRows / 8;    // n-tiles of S
   static constexpr int kDN = D / 8;          // n-tiles of O
-  uint32_t qa[kK][2];  // A fragments of q: this lane's head, two d pairs
-  float m, l, o[kDN][4];
+  uint32_t qa[kK][2 * kH];  // A fragments of q: two d pairs of each head
+  float m[kH], l[kH], o[kDN][4];
 
   __device__ void init(const float* q_s, int G, int lane) {
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int kk = 0; kk < kK; ++kk)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int d = 16 * kk + 8 * h + 2 * t;
-        qa[kk][h] = g < G ? pack_bf16(q_s[g * D + d], q_s[g * D + d + 1])
-                          : 0u;
-      }
-    m = kNegInf;
-    l = 0.f;
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int hh = 0; hh < kH; ++hh) {
+          const int d = 16 * kk + 8 * h + 2 * t;
+          const int gg = g + 8 * hh;
+          qa[kk][h * kH + hh] =
+              gg < G ? pack_bf16(q_s[gg * D + d], q_s[gg * D + d + 1]) : 0u;
+        }
+#pragma unroll
+    for (int hh = 0; hh < kH; ++hh) {
+      m[hh] = kNegInf;
+      l[hh] = 0.f;
+    }
 #pragma unroll
     for (int j = 0; j < kDN; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   }
@@ -428,44 +500,58 @@ struct MmaMath {
         uint32_t b[4];
         ldmatrix_x4(b, k_s + (16 * np + (mi >> 1) * 8 + mj) * L::kRowBytes +
                            (16 * kk + (mi & 1) * 8) * 2);
-        mma_bf16(s[2 * np], qa[kk][0], qa[kk][1], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qa[kk][0], qa[kk][1], b[2], b[3]);
+        mma_rows<kH>(s[2 * np], qa[kk], b[0], b[1]);
+        mma_rows<kH>(s[2 * np + 1], qa[kk], b[2], b[3]);
       }
     }
-    // this lane's head: positions nt * 8 + 2 t and + 1 of every n-tile
-    float mx = kNegInf;
+    // this lane's heads (accumulators 2 hh, 2 hh + 1): positions nt * 8 +
+    // 2 t and + 1 of every n-tile
+    float alpha[kH];
 #pragma unroll
-    for (int nt = 0; nt < kN; ++nt)
+    for (int hh = 0; hh < kH; ++hh) {
+      float mx = kNegInf;
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int pos = nt * 8 + 2 * t + c;
-        s[nt][c] = pos < n ? s[nt][c] * scale : kNegInf;
-        mx = fmaxf(mx, s[nt][c]);
-      }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    float sum = 0.f;
+      for (int nt = 0; nt < kN; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < kN; ++nt)
+        for (int c = 0; c < 2; ++c) {
+          const int pos = nt * 8 + 2 * t + c;
+          float& sv = s[nt][2 * hh + c];
+          sv = pos < n ? sv * scale : kNegInf;
+          mx = fmaxf(mx, sv);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hh], mx);
+      alpha[hh] = expf(m[hh] - m_new);
+      float sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int pos = nt * 8 + 2 * t + c;
-        s[nt][c] = pos < n ? expf(s[nt][c] - m_new) : 0.f;
-        sum += s[nt][c];
-      }
-    l = l * alpha + sum;
-    m = m_new;
+      for (int nt = 0; nt < kN; ++nt)
 #pragma unroll
-    for (int j = 0; j < kDN; ++j) {
-      o[j][0] *= alpha;
-      o[j][1] *= alpha;
+        for (int c = 0; c < 2; ++c) {
+          const int pos = nt * 8 + 2 * t + c;
+          float& sv = s[nt][2 * hh + c];
+          sv = pos < n ? expf(sv - m_new) : 0.f;
+          sum += sv;
+        }
+      l[hh] = l[hh] * alpha[hh] + sum;
+      m[hh] = m_new;
     }
+#pragma unroll
+    for (int j = 0; j < kDN; ++j)
+#pragma unroll
+      for (int hh = 0; hh < kH; ++hh) {
+        o[j][2 * hh] *= alpha[hh];
+        o[j][2 * hh + 1] *= alpha[hh];
+      }
 #pragma unroll
     for (int ks = 0; ks < kN / 2; ++ks) {
-      const uint32_t a0 = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
-      const uint32_t a2 = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
+      uint32_t pa[2 * kH];  // P's A fragments, as qa's
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int hh = 0; hh < kH; ++hh)
+          pa[h * kH + hh] = pack_bf16(s[2 * ks + h][2 * hh],
+                                      s[2 * ks + h][2 * hh + 1]);
 #pragma unroll
       for (int dp = 0; dp < kDN / 2; ++dp) {
         // matrices (rows 16 ks + 0..7 | + 8..15) x (d 16 dp | + 8),
@@ -474,8 +560,8 @@ struct MmaMath {
         ldmatrix_x4_trans(b, v_s + (16 * ks + (mi & 1) * 8 + mj) *
                                        L::kRowBytes +
                                    (16 * dp + (mi >> 1) * 8) * 2);
-        mma_bf16(o[2 * dp], a0, a2, b[0], b[1]);
-        mma_bf16(o[2 * dp + 1], a0, a2, b[2], b[3]);
+        mma_rows<kH>(o[2 * dp], pa, b[0], b[1]);
+        mma_rows<kH>(o[2 * dp + 1], pa, b[2], b[3]);
       }
     }
   }
@@ -483,18 +569,22 @@ struct MmaMath {
   __device__ void flush(float* part_acc, float* part_m, float* part_l,
                         int warp, int G, int lane) {
     const int g = lane >> 2, t = lane & 3;
-    float lsum = l + __shfl_xor_sync(0xffffffffu, l, 1);
-    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-    if (g < G) {
-      float* pa = part_acc + (warp * G + g) * D + 2 * t;
 #pragma unroll
-      for (int j = 0; j < kDN; ++j) {
-        pa[8 * j] = o[j][0];
-        pa[8 * j + 1] = o[j][1];
-      }
-      if (t == 0) {
-        part_m[warp * kMaxG + g] = m;
-        part_l[warp * kMaxG + g] = lsum;
+    for (int hh = 0; hh < kH; ++hh) {
+      const int gg = g + 8 * hh;
+      float lsum = l[hh] + __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+      if (gg < G) {
+        float* pa = part_acc + (warp * G + gg) * D + 2 * t;
+#pragma unroll
+        for (int j = 0; j < kDN; ++j) {
+          pa[8 * j] = o[j][2 * hh];
+          pa[8 * j + 1] = o[j][2 * hh + 1];
+        }
+        if (t == 0) {
+          part_m[warp * MG + gg] = m[hh];
+          part_l[warp * MG + gg] = lsum;
+        }
       }
     }
   }
@@ -503,7 +593,7 @@ struct MmaMath {
 template <typename T, int D>
 constexpr bool kTensorCores = sizeof(T) == 2 && D % 16 == 0;
 
-template <typename T, int D, typename Rows>
+template <typename T, int D, typename Rows, int MG>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 decode_kernel(const T* __restrict__ q,      // [B, Hkv, G, D]
               const T* __restrict__ k,      // rows addressed by Rows
@@ -513,8 +603,8 @@ decode_kernel(const T* __restrict__ q,      // [B, Hkv, G, D]
               float* __restrict__ lse,      // [B, Hkv, G] or null
               Rows rows, int Hkv, int G, int splits, float scale) {
   using L = Tile<T, D>;
-  using Math = std::conditional_t<kTensorCores<T, D>, MmaMath<D>,
-                                  CoreMath<T, D>>;
+  using Math = std::conditional_t<kTensorCores<T, D>, MmaMath<D, MG>,
+                                  CoreMath<T, D, MG>>;
   constexpr int kVec = L::kVec;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -532,15 +622,15 @@ decode_kernel(const T* __restrict__ q,      // [B, Hkv, G, D]
   unsigned char* ring = smem + warp * kStages * L::kStageBytes;
   float* q_s = reinterpret_cast<float*>(smem + nw * kStages * L::kStageBytes);
   float* part_acc = q_s + GD;                    // [nw][G][D]
-  float* part_m = part_acc + nw * GD;            // [nw][kMaxG]
-  float* part_l = part_m + nw * kMaxG;
-  float* blk_acc = part_l + nw * kMaxG;          // [splits][G][D]
-  float* blk_m = blk_acc + splits * GD;          // [splits][kMaxG]
-  float* blk_l = blk_m + splits * kMaxG;
+  float* part_m = part_acc + nw * GD;            // [nw][MG]
+  float* part_l = part_m + nw * MG;
+  float* blk_acc = part_l + nw * MG;             // [splits][G][D]
+  float* blk_m = blk_acc + splits * GD;          // [splits][MG]
+  float* blk_l = blk_m + splits * MG;
 
   // q first, into registers, so its loads queue ahead of the K/V copies
   // (a block has at least 128 threads)
-  constexpr int kQPer = (kMaxG * D + 127) / 128;
+  constexpr int kQPer = (MG * D + 127) / 128;
   const T* qb = q + ((size_t)b * Hkv + h) * GD;
   float qv[kQPer];
 #pragma unroll
@@ -622,17 +712,17 @@ decode_kernel(const T* __restrict__ q,      // [B, Hkv, G, D]
   for (int idx = tid; idx < GD; idx += blockDim.x) {
     const int g = idx / D;
     float mx = kNegInf;
-    for (int w = 0; w < nw; ++w) mx = fmaxf(mx, part_m[w * kMaxG + g]);
+    for (int w = 0; w < nw; ++w) mx = fmaxf(mx, part_m[w * MG + g]);
     float lsum = 0.f, a = 0.f;
     for (int w = 0; w < nw; ++w) {
-      const float f = expf(part_m[w * kMaxG + g] - mx);
-      lsum += f * part_l[w * kMaxG + g];
+      const float f = expf(part_m[w * MG + g] - mx);
+      lsum += f * part_l[w * MG + g];
       a += f * part_acc[w * GD + idx];
     }
     blk_acc0[rank * GD + idx] = a;
     if (idx == g * D) {
-      blk_m0[rank * kMaxG + g] = mx;
-      blk_l0[rank * kMaxG + g] = lsum;
+      blk_m0[rank * MG + g] = mx;
+      blk_l0[rank * MG + g] = lsum;
     }
   }
   cluster.sync();  // release / acquire: rank 0 sees every block's stores
@@ -640,11 +730,11 @@ decode_kernel(const T* __restrict__ q,      // [B, Hkv, G, D]
   for (int idx = tid; idx < GD; idx += blockDim.x) {
     const int g = idx / D;
     float mx = kNegInf;
-    for (int qr = 0; qr < splits; ++qr) mx = fmaxf(mx, blk_m[qr * kMaxG + g]);
+    for (int qr = 0; qr < splits; ++qr) mx = fmaxf(mx, blk_m[qr * MG + g]);
     float lsum = 0.f, a = 0.f;
     for (int qr = 0; qr < splits; ++qr) {
-      const float f = expf(blk_m[qr * kMaxG + g] - mx);
-      lsum += f * blk_l[qr * kMaxG + g];
+      const float f = expf(blk_m[qr * MG + g] - mx);
+      lsum += f * blk_l[qr * MG + g];
       a += f * blk_acc[qr * GD + idx];
     }
     out[((size_t)b * Hkv + h) * GD + idx] =
@@ -676,8 +766,10 @@ struct Shape {
 // the split doubles while the grid stays within one block an SM and a full
 // cache gives every block at least 8 tiles; a block gets 8 warps when the
 // grid fits one block an SM and the shared memory allows, else 4, so that
-// two or more blocks share an SM.
-template <typename T, int D>
+// two or more blocks share an SM; then, where the combine's shared memory
+// for 8 splits is too much (float32 D 192, or G above 8), the split halves
+// until the block fits (4 warps of one block always do: `launch_d`).
+template <typename T, int D, int MG>
 Shape choose_shape(int B, int Hkv, int G, int cap) {
   const long long pairs = (long long)B * Hkv;
   const int sms = sm_count();
@@ -687,19 +779,24 @@ Shape choose_shape(int B, int Hkv, int G, int cap) {
          2 * splits * 8 <= tiles)
     splits *= 2;
   const bool wide = pairs * splits <= sms &&
-                    smem_bytes<T, D>(G, splits, kMaxWarps) <= kMaxSmem;
-  return {splits, wide ? kMaxWarps : kMaxWarps / 2};
+                    smem_bytes<T, D, MG>(G, splits, kMaxWarps) <= kMaxSmem;
+  const int warps = wide ? kMaxWarps : kMaxWarps / 2;
+  while (splits > 1 && smem_bytes<T, D, MG>(G, splits, warps) > kMaxSmem)
+    splits /= 2;
+  return {splits, warps};
 }
 
-template <typename T, int D, typename Rows>
+template <typename T, int D, typename Rows, int MG>
 int launch_d(const T* q, const T* k, const T* v, const int* lens, T* out,
              float* lse, Rows rows, int B, int Hkv, int G, int cap,
              float scale, cudaStream_t stream) {
-  auto kern = decode_kernel<T, D, Rows>;
+  static_assert(smem_bytes<T, D, MG>(MG, 1, kMaxWarps / 2) <= kMaxSmem,
+                "choose_shape's search must end in a shape that fits");
+  auto kern = decode_kernel<T, D, Rows, MG>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
-  const Shape shape = choose_shape<T, D>(B, Hkv, G, cap);
+  const Shape shape = choose_shape<T, D, MG>(B, Hkv, G, cap);
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = shape.splits;
@@ -708,7 +805,7 @@ int launch_d(const T* q, const T* k, const T* v, const int* lens, T* out,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(Hkv * shape.splits, B);
   cfg.blockDim = dim3(32 * shape.warps);
-  cfg.dynamicSmemBytes = smem_bytes<T, D>(G, shape.splits, shape.warps);
+  cfg.dynamicSmemBytes = smem_bytes<T, D, MG>(G, shape.splits, shape.warps);
   cfg.stream = stream;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
@@ -719,7 +816,7 @@ int launch_d(const T* q, const T* k, const T* v, const int* lens, T* out,
   return (int)(err != cudaSuccess ? err : last);
 }
 
-template <typename T, typename Rows>
+template <typename T, typename Rows, int MG>
 int launch(const void* q, const void* k, const void* v, const void* lens,
            void* out, float* lse, Rows rows, int B, int Hkv, int G, int D,
            int cap, float scale, cudaStream_t s) {
@@ -728,10 +825,10 @@ int launch(const void* q, const void* k, const void* v, const void* lens,
   const T* vt = static_cast<const T*>(v);
   const int* lt = static_cast<const int*>(lens);
   T* ot = static_cast<T*>(out);
-#define REPRO_DECODE_CASE(DIM)                                            \
-  case DIM:                                                               \
-    return launch_d<T, DIM, Rows>(qt, kt, vt, lt, ot, lse, rows, B, Hkv, G, \
-                                  cap, scale, s);
+#define REPRO_DECODE_CASE(DIM)                                             \
+  case DIM:                                                                \
+    return launch_d<T, DIM, Rows, MG>(qt, kt, vt, lt, ot, lse, rows, B,    \
+                                      Hkv, G, cap, scale, s);
   switch (D) {
     REPRO_DECODE_CASE(8)
     REPRO_DECODE_CASE(16)
@@ -739,20 +836,22 @@ int launch(const void* q, const void* k, const void* v, const void* lens,
     REPRO_DECODE_CASE(64)
     REPRO_DECODE_CASE(80)
     REPRO_DECODE_CASE(128)
+    REPRO_DECODE_CASE(192)
   }
 #undef REPRO_DECODE_CASE
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, int MG>
 Shape shape_for(int B, int Hkv, int G, int D, int cap) {
   switch (D) {
-    case 8: return choose_shape<T, 8>(B, Hkv, G, cap);
-    case 16: return choose_shape<T, 16>(B, Hkv, G, cap);
-    case 32: return choose_shape<T, 32>(B, Hkv, G, cap);
-    case 64: return choose_shape<T, 64>(B, Hkv, G, cap);
-    case 80: return choose_shape<T, 80>(B, Hkv, G, cap);
-    case 128: return choose_shape<T, 128>(B, Hkv, G, cap);
+    case 8: return choose_shape<T, 8, MG>(B, Hkv, G, cap);
+    case 16: return choose_shape<T, 16, MG>(B, Hkv, G, cap);
+    case 32: return choose_shape<T, 32, MG>(B, Hkv, G, cap);
+    case 64: return choose_shape<T, 64, MG>(B, Hkv, G, cap);
+    case 80: return choose_shape<T, 80, MG>(B, Hkv, G, cap);
+    case 128: return choose_shape<T, 128, MG>(B, Hkv, G, cap);
+    case 192: return choose_shape<T, 192, MG>(B, Hkv, G, cap);
   }
   return {-1, -1};
 }
@@ -766,11 +865,11 @@ int dispatch(int dtype, const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, lens, out, lse, rows, B, Hkv, G, D, cap,
-                         scale, s);
+    return launch<float, Rows, kMaxG>(q, k, v, lens, out, lse, rows, B, Hkv,
+                                      G, D, cap, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, lens, out, lse, rows, B, Hkv, G, D,
-                                 cap, scale, s);
+    return launch<__nv_bfloat16, Rows, kMaxG>(q, k, v, lens, out, lse, rows,
+                                              B, Hkv, G, D, cap, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -810,8 +909,9 @@ extern "C" int decode_attention_shape(int dtype, int B, int Hkv, int G, int D,
                                       int cap, int* splits, int* warps) {
   Shape shape{-1, -1};
   if (B > 0 && Hkv > 0 && G > 0 && G <= kMaxG && cap > 0) {
-    if (dtype == 0) shape = shape_for<float>(B, Hkv, G, D, cap);
-    if (dtype == 1) shape = shape_for<__nv_bfloat16>(B, Hkv, G, D, cap);
+    if (dtype == 0) shape = shape_for<float, kMaxG>(B, Hkv, G, D, cap);
+    if (dtype == 1)
+      shape = shape_for<__nv_bfloat16, kMaxG>(B, Hkv, G, D, cap);
   }
   *splits = shape.splits;
   *warps = shape.warps;

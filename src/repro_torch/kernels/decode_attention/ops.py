@@ -32,8 +32,8 @@ contiguous_launches = 0  # contiguous kernel launches
 _count_lock = threading.Lock()
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-KERNEL_HEAD_DIMS = (8, 16, 32, 64, 80, 128)
-KERNEL_MAX_GROUP = 8
+KERNEL_HEAD_DIMS = (8, 16, 32, 64, 80, 128, 192)
+KERNEL_MAX_GROUP = 16
 KERNEL_MAX_BLOCK_SIZE = 64
 
 

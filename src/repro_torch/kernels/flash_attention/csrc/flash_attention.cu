@@ -35,9 +35,10 @@
 //   64 x 128 score tile and the 64 x D output tile as wgmma accumulators.
 // * The producer's one thread copies tiles with TMA (4-D tensor maps over
 //   the model layout, 128-byte swizzle): Q once, then K and V tiles of 128
-//   keys into a 2-stage ring.  Each stage has a "full" mbarrier armed with
-//   the transaction bytes and an "empty" one that the consumers release, K
-//   and V separately, so the next tiles load while this one is multiplied.
+//   keys into a 2-stage ring (64 keys, 3 stages at D 192).  Each stage has
+//   a "full" mbarrier armed with the transaction bytes and an "empty" one
+//   that the consumers release, K and V separately, so the next tiles load
+//   while this one is multiplied.
 // * S = Q K^T and O += P V are `wgmma` m64nNk16 (bf16 in, float32
 //   accumulators).  Q and K are read K-major from shared memory through
 //   descriptors; P stays in registers, the score accumulators converted to
@@ -58,15 +59,21 @@
 // * Blocks are launched heaviest first (the last query tiles walk the most
 //   keys), query heads of one kv head side by side so K/V stay in L2.
 //
-// head_dim: D in {8, 16, 32, 64, 80, 128}.  A 128-byte swizzle caps a TMA
-// box at 64 bf16 columns, so tiles are 64-column slabs: D 8 to 64 load one,
-// D 80 and 128 two.  D 8, 16, 32 and 80 are padded to the slab by TMA's
-// zero fill past the tensor map's D extent, so one body serves all six:
-// Q K^T takes only ceil(D/16) k-steps (one for D 8, whose second half of
-// the k-step is that zero fill), P V runs at the padded width (64 or 128)
-// and the padded columns are never stored.  D 8 is TMA's edge case: its
-// head stride, 8 bf16, is exactly the 16 bytes every stride but D's must
-// be a multiple of.
+// head_dim: D in {8, 16, 32, 64, 80, 128, 192}.  A 128-byte swizzle caps a
+// TMA box at 64 bf16 columns, so tiles are 64-column slabs: D 8 to 64 load
+// one, D 80 and 128 two, D 192 (nemotron-4-340b) three.  D 8, 16, 32 and
+// 80 are padded to the slab by TMA's zero fill past the tensor map's D
+// extent, so one body serves all seven: Q K^T takes only ceil(D/16)
+// k-steps (one for D 8, whose second half of the k-step is that zero
+// fill), P V runs at the padded width (64, 128 or 192) and the padded
+// columns are never stored.  D 8 is TMA's edge case: its head stride, 8
+// bf16, is exactly the 16 bytes every stride but D's must be a multiple
+// of.  At D 192 a 2-stage ring of 128-key tiles would need 240 KiB of
+// shared memory, and the 64 x 128 score tile beside the 64 x 192 output
+// would crowd the consumers' 240 registers: its K/V tiles hold 64 keys in
+// a 3-stage ring (`Bf16Layout`), so a 128-row query tile's diagonal spans
+// two key tiles, and warpgroup 0, whose rows all precede the second,
+// skips it (a turn that starts no product).
 //
 // What this design still leaves: no persistent blocks (each block does one
 // tile, so a block's prologue and epilogue are not hidden behind another
@@ -274,25 +281,38 @@ flash_fwd_f32(const Params p) {
 // ---------------------------------------------------------------------------
 
 constexpr int kBM = 128;         // query rows per block (two warpgroups)
-constexpr int kBN = 128;         // keys per K/V tile
-static_assert(kBM == kBN, "query tile qt's diagonal is key tile qt");
-constexpr int kStages = 2;       // K/V ring depth
 constexpr int kThreads = 384;    // two consumer warpgroups + one producer
-constexpr int kSlabBytes = 128 * 128;  // 128 rows x 64 bf16 columns
+constexpr int kQSlabBytes = kBM * 128;  // 128 rows x 64 bf16 columns
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;  // 128 x 24 + 256 x 240 = 64 K registers
 
+// The bf16 body's tiles for head_dim D: the width padded to whole 64-column
+// slabs, the keys of a K/V tile and the ring's depth.  D up to 128 keeps
+// tiles of 128 keys in a 2-stage ring (its layout before D 192 was added).
+// D 192 (three slabs) would need 240 KiB of shared memory so, over the
+// 227 KiB a block may use; it takes tiles of 64 keys in a 3-stage ring
+// (Q 48 KiB, K and V 72 KiB each), and its 64 x 64 score tile leaves the
+// consumers' 240 registers room for the 64 x 192 output accumulator.
 // Shared memory: Q [slabs][128][64], then the K ring and the V ring, each
-// [stages][slabs][128][64], every slab 128-byte swizzled by TMA and
+// [stages][slabs][kBN][64], every slab 128-byte swizzled by TMA and
 // 1024-byte aligned; then the mbarriers.
-template <int kSlabs>
-struct Smem {
+template <int D>
+struct Bf16Layout {
+  static constexpr int kDp = D <= 64 ? 64 : D <= 128 ? 128 : 192;
+  static constexpr int kSlabs = kDp / 64;
+  static constexpr int kBN = D <= 128 ? 128 : 64;  // keys a K/V tile
+  static constexpr int kStages = D <= 128 ? 2 : 3;  // K/V ring depth
+  static_assert(kBM % kBN == 0, "a query tile's diagonal is whole key tiles");
+  static constexpr int kKVSlabBytes = kBN * 128;
+  static constexpr int kQBytes = kSlabs * kQSlabBytes;    // the Q tile
+  static constexpr int kKVBytes = kSlabs * kKVSlabBytes;  // a K or V tile
   static constexpr int q = 0;
-  static constexpr int k = kSlabs * kSlabBytes;
-  static constexpr int v = k + kStages * kSlabs * kSlabBytes;
-  static constexpr int bars = v + kStages * kSlabs * kSlabBytes;
+  static constexpr int k = kQBytes;
+  static constexpr int v = k + kStages * kKVBytes;
+  static constexpr int bars = v + kStages * kKVBytes;
   // q_full, k_full[stages], v_full[stages], k_empty[stages], v_empty[stages]
   static constexpr int bytes = bars + 8 * (1 + 4 * kStages) + 1024;  // + align
+  static_assert(bytes <= 232448, "a block's shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -423,7 +443,30 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d += A B for a 64 x N tile (N = 64 or 128): A [64][16] in registers
+// The same for a 64 x 64 tile (B [64][16]): the 64-key tiles of D 192.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A B for a 64 x N tile (N = 64, 128 or 192): A [64][16] in registers
 // (four bf16 pairs a thread, the accumulator layout), B [16][N] MN-major
 // in shared memory (the descriptor's transpose bit).
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
@@ -482,26 +525,80 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// S = Q K^T for this warpgroup's 64 rows and a tile of 128 keys:
-// ceil(D/16) k-steps, each 32 bytes further into a 64-column slab.
-template <int kKSteps>
+__device__ __forceinline__ void wgmma_rs(float (&d)[96],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// S = Q K^T for this warpgroup's 64 rows and a tile of kBN keys:
+// ceil(D/16) k-steps, each 32 bytes further into a 64-column slab (of 128
+// Q rows, of kBN K rows).
+template <int kKSteps, int kBN>
 __device__ __forceinline__ void start_qk(float (&sc)[kBN / 2], uint32_t q_wg,
                                          uint32_t k_t) {
   fence_regs(sc);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kKSteps; ++kk) {
-    const uint32_t off = (kk / 4) * kSlabBytes + (kk % 4) * 32;
-    wgmma_ss_n128(sc, desc_b128(q_wg + off, 16, 1024),
-                  desc_b128(k_t + off, 16, 1024), kk > 0);
+    const uint32_t col = (kk % 4) * 32;
+    const uint64_t da = desc_b128(q_wg + (kk / 4) * kQSlabBytes + col, 16,
+                                  1024);
+    const uint64_t db = desc_b128(k_t + (kk / 4) * kBN * 128 + col, 16,
+                                  1024);
+    if constexpr (kBN == 128)
+      wgmma_ss_n128(sc, da, db, kk > 0);
+    else
+      wgmma_ss_n64(sc, da, db, kk > 0);
   }
   wgmma_commit();
 }
 
-// O += P V: P from registers; V [128 keys][64 N slab] read MN-major (the
+// O += P V: P from registers; V [kBN keys][64 N slab] read MN-major (the
 // transposed descriptor), the next 64 columns one slab further (the
 // leading byte offset).
-template <int N>
+template <int N, int kBN>
 __device__ __forceinline__ void start_pv(float (&o)[N],
                                          const uint32_t (&pa)[kBN / 16][4],
                                          uint32_t v_t) {
@@ -509,7 +606,7 @@ __device__ __forceinline__ void start_pv(float (&o)[N],
   wgmma_fence();
 #pragma unroll
   for (int j = 0; j < kBN / 16; ++j)
-    wgmma_rs(o, pa[j], desc_b128(v_t + j * 16 * 128, kSlabBytes, 1024));
+    wgmma_rs(o, pa[j], desc_b128(v_t + j * 16 * 128, kBN * 128, 1024));
   wgmma_commit();
 }
 
@@ -530,6 +627,7 @@ __device__ __forceinline__ void wgmma_wait() {
 // Online softmax on the score fragments of rows g (c < 2) and g + 8: the
 // row max over the quad, exp2 with scale * log2(e) folded in (in place),
 // the thread's share of the row sums, and the rescale a of older tiles.
+template <int kBN>
 __device__ __forceinline__ void softmax_step(float (&sc)[kBN / 2], float& m0,
                                              float& m1, float& l0, float& l1,
                                              float& a0, float& a1,
@@ -566,6 +664,7 @@ __device__ __forceinline__ void softmax_step(float (&sc)[kBN / 2], float& m0,
 
 // P in bf16 as the A fragments of P V: k-step j takes the accumulators of
 // columns 16 j .. 16 j + 15, which the wgmma layouts line up in place.
+template <int kBN>
 __device__ __forceinline__ void pack_p(const float (&sc)[kBN / 2],
                                        uint32_t (&pa)[kBN / 16][4]) {
 #pragma unroll
@@ -592,11 +691,15 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v,
                const __grid_constant__ CUtensorMap tm_o, const Params p) {
-  constexpr int kDp = D <= 64 ? 64 : 128;  // width padded to whole slabs
-  constexpr int kSlabs = kDp / 64;
+  using L = Bf16Layout<D>;
+  constexpr int kDp = L::kDp;
+  constexpr int kSlabs = L::kSlabs;
+  constexpr int kBN = L::kBN;
+  constexpr int kStages = L::kStages;
   constexpr int kKSteps = (D + 15) / 16;  // k-steps of Q K^T
-  constexpr int kTileBytes = kSlabs * kSlabBytes;
-  using L = Smem<kSlabs>;
+  // key tiles of the diagonal: with kBN 64 the first (keys q0 + 64 ..)
+  // lies wholly above warpgroup 0's rows
+  constexpr int kRatio = kBM / kBN;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t q_s = base + L::q, k_s = base + L::k, v_s = base + L::v;
@@ -611,6 +714,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
   const int b = blockIdx.y;
   const int qt = gridDim.z - 1 - blockIdx.z;
   const int q0 = qt * kBM;
+  const int n_tiles = (qt + 1) * kRatio;  // key tiles, the last walked first
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -627,26 +731,26 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
 
   if (wg == 2) {
     // producer: one thread keeps the K/V ring full (tile i of the walk is
-    // key tile qt - i, so the diagonal comes first)
+    // key tile n_tiles - 1 - i, so the diagonal comes first)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     if (threadIdx.x == 256) {
       const int hk = h / (p.Hq / p.Hkv);
-      mbar_expect_tx(q_full, kTileBytes);
+      mbar_expect_tx(q_full, L::kQBytes);
       for (int c = 0; c < kSlabs; ++c)
-        tma_load(q_s + c * kSlabBytes, &tm_q, q_full, 64 * c, h, q0, b);
-      for (int i = 0; i <= qt; ++i) {
+        tma_load(q_s + c * kQSlabBytes, &tm_q, q_full, 64 * c, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         const uint32_t parity = ((i / kStages) & 1) ^ 1;  // first pass free
-        const int k0 = (qt - i) * kBN;
+        const int k0 = (n_tiles - 1 - i) * kBN;
         mbar_wait(k_empty + 8 * s, parity);
-        mbar_expect_tx(k_full + 8 * s, kTileBytes);
+        mbar_expect_tx(k_full + 8 * s, L::kKVBytes);
         for (int c = 0; c < kSlabs; ++c)
-          tma_load(k_s + s * kTileBytes + c * kSlabBytes, &tm_k,
+          tma_load(k_s + s * L::kKVBytes + c * L::kKVSlabBytes, &tm_k,
                    k_full + 8 * s, 64 * c, hk, k0, b);
         mbar_wait(v_empty + 8 * s, parity);
-        mbar_expect_tx(v_full + 8 * s, kTileBytes);
+        mbar_expect_tx(v_full + 8 * s, L::kKVBytes);
         for (int c = 0; c < kSlabs; ++c)
-          tma_load(v_s + s * kTileBytes + c * kSlabBytes, &tm_v,
+          tma_load(v_s + s * L::kKVBytes + c * L::kKVSlabBytes, &tm_v,
                    v_full + 8 * s, 64 * c, hk, k0, b);
       }
     }
@@ -672,54 +776,66 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
 
     // The warpgroups take turns to start their products (named barriers 3
     // and 4; warpgroup 0 first), so one's wgmmas run while the other does
-    // its softmax.  Each takes qt + 2 turns.
+    // its softmax.  Each takes n_tiles + 1 turns.
     const int my_turn = 3 + wg, other_turn = 4 - wg;
     if (wg == 1) turn_pass(3);
 
-    // tile 0, the diagonal: keys q0 .., masked after the row and past S
+    // this warpgroup's first tile is its diagonal: with kRatio 2,
+    // warpgroup 0 skips key tile 2 qt + 1 (every key after its rows) in a
+    // turn that starts nothing, and frees the tile's stage for the ring
+    const int first = kRatio == 2 && wg == 0 ? 1 : 0;
+    if (first) {
+      turn_wait(my_turn);
+      mbar_arrive(k_empty);
+      mbar_arrive(v_empty);
+      turn_pass(other_turn);
+    }
+    // the diagonal: keys after the row, and past S, masked
     mbar_wait(q_full, 0);
-    mbar_wait(k_full, 0);
+    mbar_wait(k_full + 8 * first, 0);
     turn_wait(my_turn);
-    start_qk<kKSteps>(sc, q_wg, k_s);
+    start_qk<kKSteps, kBN>(sc, q_wg, k_s + first * L::kKVBytes);
     turn_pass(other_turn);
     wgmma_wait<0>();
     fence_regs(sc);
-    mbar_arrive(k_empty);
+    mbar_arrive(k_empty + 8 * first);
+    const int kc0 = (n_tiles - 1 - first) * kBN - q0;  // its first key - q0
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int col = 8 * j + 2 * c4 + (c & 1);
+        const int col = kc0 + 8 * j + 2 * c4 + (c & 1);
         const int row = row0 + (c & 2) * 4;
         if (col > row || q0 + col >= p.S) sc[4 * j + c] = kNegInf;
       }
-    softmax_step(sc, m0, m1, l0, l1, a0, a1, sl2);
-    pack_p(sc, pa);
+    softmax_step<kBN>(sc, m0, m1, l0, l1, a0, a1, sl2);
+    pack_p<kBN>(sc, pa);
 
     // tile i: S_i = Q K_i^T and O += P_{i-1} V_{i-1} are started together;
     // the softmax of S_i runs while the tensor cores do P_{i-1} V_{i-1}
-    for (int i = 1; i <= qt; ++i) {
+    for (int i = first + 1; i < n_tiles; ++i) {
       const int s = i % kStages, sp = (i - 1) % kStages;
       mbar_wait(k_full + 8 * s, (i / kStages) & 1);
       mbar_wait(v_full + 8 * sp, ((i - 1) / kStages) & 1);
       turn_wait(my_turn);
-      start_qk<kKSteps>(sc, q_wg, k_s + s * kTileBytes);
-      start_pv(o, pa, v_s + sp * kTileBytes);
+      start_qk<kKSteps, kBN>(sc, q_wg, k_s + s * L::kKVBytes);
+      start_pv<kDp / 2, kBN>(o, pa, v_s + sp * L::kKVBytes);
       turn_pass(other_turn);
       wgmma_wait<1>();  // S_i is in
       fence_regs(sc);
       mbar_arrive(k_empty + 8 * s);
-      softmax_step(sc, m0, m1, l0, l1, a0, a1, sl2);
+      softmax_step<kBN>(sc, m0, m1, l0, l1, a0, a1, sl2);
       wgmma_wait<0>();  // P_{i-1} V_{i-1} is in
       fence_regs(o);
       mbar_arrive(v_empty + 8 * sp);
       rescale(o, a0, a1);
-      pack_p(sc, pa);
+      pack_p<kBN>(sc, pa);
     }
-    const int sl = qt % kStages;
-    mbar_wait(v_full + 8 * sl, (qt / kStages) & 1);
+    const int last = n_tiles - 1;
+    const int sl = last % kStages;
+    mbar_wait(v_full + 8 * sl, (last / kStages) & 1);
     turn_wait(my_turn);
-    start_pv(o, pa, v_s + sl * kTileBytes);
+    start_pv<kDp / 2, kBN>(o, pa, v_s + sl * L::kKVBytes);
     if (wg == 0) turn_pass(other_turn);  // no turn follows warpgroup 1's
     wgmma_wait<0>();
     fence_regs(o);
@@ -737,7 +853,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     for (int j = 0; j < kDp / 8; ++j) {
       // column 8 j + 2 c4 is 16-byte chunk j % 8 of slab j / 8; the
       // swizzle XORs the chunk with the row mod 8, which is g for both rows
-      const uint32_t at = q_s + (j / 8) * kSlabBytes + ((j % 8) ^ g) * 16 +
+      const uint32_t at = q_s + (j / 8) * kQSlabBytes + ((j % 8) ^ g) * 16 +
                           4 * c4;
       asm volatile("st.shared.u32 [%0], %1;" ::"r"(at + row0 * 128),
                    "r"(pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0))
@@ -752,7 +868,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     if (tid == 0 && r0 < p.S) {
       // rows past S and columns past D fall outside the map: not written
       for (int c = 0; c < kSlabs; ++c)
-        tma_store(&tm_o, q_wg + c * kSlabBytes, 64 * c, h, r0, b);
+        tma_store(&tm_o, q_wg + c * kQSlabBytes, 64 * c, h, r0, b);
       asm volatile("cp.async.bulk.commit_group;" ::: "memory");
       asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
     }
@@ -832,14 +948,14 @@ int launch_f32(const Params& p, int B, cudaStream_t stream) {
 template <int D>
 int launch_bf16(const Params& p, int B, const long long* st,
                 cudaStream_t stream) {
-  constexpr int bytes = Smem<(D <= 64 ? 1 : 2)>::bytes;
+  constexpr int bytes = Bf16Layout<D>::bytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap tq, tk, tv, to;
   if (!make_map(&tq, p.q, B, p.S, p.Hq, D, st, kBM) ||
-      !make_map(&tk, p.k, B, p.S, p.Hkv, D, st + 3, kBN) ||
-      !make_map(&tv, p.v, B, p.S, p.Hkv, D, st + 6, kBN) ||
+      !make_map(&tk, p.k, B, p.S, p.Hkv, D, st + 3, Bf16Layout<D>::kBN) ||
+      !make_map(&tv, p.v, B, p.S, p.Hkv, D, st + 6, Bf16Layout<D>::kBN) ||
       !make_map(&to, p.out, B, p.S, p.Hq, D, st + 9, 64))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(p.Hq, B, (p.S + kBM - 1) / kBM);
@@ -891,6 +1007,7 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
       case 64: return launch_f32<64>(p, B, s);
       case 80: return launch_f32<80>(p, B, s);
       case 128: return launch_f32<128>(p, B, s);
+      case 192: return launch_f32<192>(p, B, s);
     }
   } else if (dtype == 1) {
     switch (D) {
@@ -900,6 +1017,7 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
       case 64: return launch_bf16<64>(p, B, strides, s);
       case 80: return launch_bf16<80>(p, B, strides, s);
       case 128: return launch_bf16<128>(p, B, strides, s);
+      case 192: return launch_bf16<192>(p, B, strides, s);
     }
   }
   return (int)cudaErrorInvalidValue;

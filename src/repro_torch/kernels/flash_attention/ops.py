@@ -29,7 +29,7 @@ launches = 0  # kernel launches (CPU calls do not count)
 _count_lock = threading.Lock()
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-KERNEL_HEAD_DIMS = (8, 16, 32, 64, 80, 128)
+KERNEL_HEAD_DIMS = (8, 16, 32, 64, 80, 128, 192)
 
 
 def _check(q, k, v):

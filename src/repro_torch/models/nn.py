@@ -471,8 +471,10 @@ def local_map(fn, mesh, in_specs, out_specs, *args, partial_out=()):
 
 
 def normal_init(gen, shape, dtype, stddev, device):
+    # scaled in place: a float32 leaf holds one copy while it is drawn (a
+    # nemotron-4-340b embedding is 18.9 GB), not two
     x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (x * stddev).to(dtype)
+    return x.mul_(stddev).to(dtype)
 
 
 def lecun_init(gen, shape, dtype, fan_in, device):

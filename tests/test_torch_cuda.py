@@ -63,11 +63,14 @@ def _paged(seed, B, num_blocks, bs, mb, Hkv, G, D, lens, dtype):
     ("float32", 2, 3, 8, 2e-5, 2e-5), ("bfloat16", 2, 3, 8, 4e-3, 2.0 ** -7),
     ("float32", 2, 2, 16, 2e-5, 2e-5),
     ("bfloat16", 2, 2, 16, 4e-3, 2.0 ** -7),
-    ("float32", 1, 7, 8, 2e-5, 2e-5), ("bfloat16", 2, 7, 64, 4e-3, 2.0 ** -7)])
+    ("float32", 1, 7, 8, 2e-5, 2e-5), ("bfloat16", 2, 7, 64, 4e-3, 2.0 ** -7),
+    ("float32", 8, 12, 192, 2e-5, 2e-5),
+    ("bfloat16", 8, 12, 192, 4e-3, 2.0 ** -7)])
 def test_cuda_kernel_matches_plain(cuda, dtype, Hkv, G, D, atol, rtol):
     """The paged decode kernel vs its plain version at the shapes of
-    rhapsody-demo (f32), llama3.2-3b (f32 and bf16) and the smoke configs
-    of llama3.2-3b (head_dim 8) and qwen3-8b (16); block-size edge
+    rhapsody-demo (f32), llama3.2-3b (f32 and bf16), nemotron-4-340b (G 12,
+    D 192) and the smoke configs of llama3.2-3b (head_dim 8) and qwen3-8b
+    (16); block-size edge
     lengths; relocating physical blocks changes no bit.  Both sides round
     bf16 outputs to bf16, so bf16 allows 4e-3 plus one bf16 ulp (2^-7) of
     the value."""
@@ -97,6 +100,13 @@ def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda):
     before = ops.launches
     with pytest.raises(ValueError, match="head_dim"):
         ops.paged_decode_attention(q, ks, vs, bt, lens)  # D = 48
+    q, ks, vs, bt, lens = _paged(1, 2, 9, 8, 4, 2, 2, 96, [3, 9], "float32")
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.paged_decode_attention(q, ks, vs, bt, lens)  # D = 96
+    q, ks, vs, bt, lens = _paged(1, 2, 9, 8, 4, 1, 17, 64, [3, 9],
+                                 "bfloat16")
+    with pytest.raises(ValueError, match="query heads"):
+        ops.paged_decode_attention(q, ks, vs, bt, lens)  # G = 17
     q, ks, vs, bt, lens = _paged(1, 2, 9, 8, 4, 2, 2, 32, [3, 9], "float16")
     with pytest.raises(TypeError):
         ops.paged_decode_attention(q, ks, vs, bt, lens)
@@ -124,7 +134,9 @@ def _qkv(seed, B, S, Hq, Hkv, D, dtype):
     ("float32", 4, 2, 16, 2e-5, 2e-5, 1e-4),
     ("bfloat16", 4, 2, 16, 4e-3, 2.0 ** -7, 2e-2),
     ("float32", 14, 2, 64, 2e-5, 2e-5, 1e-4),
-    ("bfloat16", 14, 2, 64, 4e-3, 2.0 ** -7, 2e-2)])
+    ("bfloat16", 14, 2, 64, 4e-3, 2.0 ** -7, 2e-2),
+    ("float32", 24, 2, 192, 2e-5, 2e-5, 1e-4),
+    ("bfloat16", 24, 2, 192, 4e-3, 2.0 ** -7, 2e-2)])
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 129, 200, 2048])
 def test_cuda_flash_kernel_matches_plain(cuda, dtype, Hq, Hkv, D, atol, rtol,
                                          gtol, S):
@@ -156,6 +168,8 @@ def test_cuda_flash_wrapper_rejects_what_the_kernel_cannot_take(cuda):
     before = fa_ops.launches
     with pytest.raises(ValueError, match="head_dim"):
         fa_ops.flash_attention(*_qkv(1, 1, 8, 4, 2, 48, "bfloat16"))
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention(*_qkv(1, 1, 8, 4, 2, 96, "bfloat16"))
     with pytest.raises(TypeError):
         fa_ops.flash_attention(*_qkv(1, 1, 8, 4, 2, 32, "float16"))
     q, k, v = _qkv(1, 1, 8, 4, 2, 32, "bfloat16")
@@ -226,13 +240,15 @@ def _close(got, want, tol):
     ("bfloat16", 8, 3, 128), ("bfloat16", 32, 1, 80), ("float32", 2, 3, 8),
     ("bfloat16", 2, 3, 8), ("float32", 2, 2, 16), ("bfloat16", 2, 2, 16),
     ("float32", 1, 7, 8), ("bfloat16", 1, 7, 8), ("float32", 2, 7, 64),
-    ("bfloat16", 2, 7, 64)])
+    ("bfloat16", 2, 7, 64), ("float32", 8, 12, 192),
+    ("bfloat16", 8, 12, 192)])
 def test_cuda_contiguous_decode_matches_plain(cuda, dtype, Hkv, G, D):
     """The contiguous flash-decode kernel vs ``ref.decode_ref`` on slot
     caches [B, S, Hkv, D] of an S that is no multiple of the tile, ragged
     lengths, and idle rows whose length is past S (the kernel clamps it,
     the plain version's mask admits every position); group 7 is
-    internvl2-1b's (its smoke config at D 8, the full one at D 64)."""
+    internvl2-1b's (its smoke config at D 8, the full one at D 64), group
+    12 at D 192 nemotron-4-340b's."""
     S = 77
     lens = [1, 31, 32, 33, S - 1, S, S + 1, S + 500]
     rng = np.random.RandomState(5)

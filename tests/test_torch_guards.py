@@ -2,7 +2,8 @@
 (``benchmarks_torch/``) and examples (``examples_torch/``) import neither
 JAX nor the JAX package, its copies of the JAX-free middleware
 stay equal to their originals up to the package name in import lines, and
-every attention config it runs by default fits both attention kernels,
+every attention config it runs by default, and every full config of the
+repo, fits both attention kernels,
 every hybrid one the SSD kernel and every rwkv6 one the WKV6 kernel."""
 import ast
 import os
@@ -92,7 +93,8 @@ def _launched_configs():
     picked = [(f"{a}-smoke", get_smoke_config(a)) for a in list_archs()]
     picked += [(f"{a}-full", get_config(a)) for a in
                ("rhapsody-demo", "llama3.2-3b", "rwkv6-1.6b", "zamba2-2.7b",
-                "deepseek-moe-16b", "whisper-small", "internvl2-1b")]
+                "deepseek-moe-16b", "whisper-small", "internvl2-1b",
+                "nemotron-4-340b")]
     for _, cfg in picked:
         get_model(cfg)
     return picked
@@ -114,6 +116,63 @@ def test_launched_configs_fit_both_attention_kernels(label, cfg):
     assert cfg.head_dim in decode_ops.KERNEL_HEAD_DIMS, label
     assert cfg.head_dim in flash_ops.KERNEL_HEAD_DIMS, label
     assert cfg.n_heads // cfg.n_kv_heads <= decode_ops.KERNEL_MAX_GROUP, label
+
+
+def _full_attention_configs():
+    from repro_torch.configs import get_config, list_archs
+
+    return [(a, get_config(a)) for a in list_archs()
+            if get_config(a).family != "ssm"]
+
+
+FULL = _full_attention_configs()
+
+
+@pytest.mark.parametrize("arch,cfg", FULL, ids=[c[0] for c in FULL])
+def test_every_full_config_fits_both_attention_kernels(arch, cfg):
+    """No config the repo defines is refused on the card: every full
+    config but rwkv6's (no attention) has a head dim both attention
+    kernels take and a group the decode kernel takes (nemotron-4-340b's
+    head_dim 192 and 12 query heads a kv head among them)."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    assert cfg.head_dim in decode_ops.KERNEL_HEAD_DIMS, arch
+    assert cfg.head_dim in flash_ops.KERNEL_HEAD_DIMS, arch
+    assert cfg.n_heads // cfg.n_kv_heads <= decode_ops.KERNEL_MAX_GROUP, arch
+
+
+def _qkv(Hq, Hkv, D, dtype=torch.bfloat16):
+    return (torch.zeros(1, 1, Hq, D, dtype=dtype),
+            torch.zeros(1, 8, Hkv, D, dtype=dtype),
+            torch.zeros(1, 8, Hkv, D, dtype=dtype))
+
+
+@pytest.mark.parametrize("Hq,Hkv,D,ok", [
+    (96, 8, 192, True), (12, 1, 192, True), (16, 1, 128, True),
+    (8, 1, 96, False), (24, 2, 96, False), (17, 1, 64, False),
+    (34, 2, 192, False)], ids=lambda x: str(x))
+def test_kernel_limits_take_nemotron_and_refuse_the_rest(Hq, Hkv, D, ok):
+    """The limits both wrappers check before a CUDA launch: head_dim 192
+    and up to 16 query heads a kv head are taken (nemotron-4-340b's 192
+    and 12); a head dim outside the list (96) or a group above 16 is
+    refused, so neither reaches a kernel that has no instantiation for
+    it."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    q, k, v = _qkv(Hq, Hkv, D)
+    if ok:
+        decode_ops._check_kernel_limits(q, k, v)
+    else:
+        with pytest.raises(ValueError, match="head_dim|query heads"):
+            decode_ops._check_kernel_limits(q, k, v)
+    fq = q.expand(1, 8, Hq, D).contiguous()
+    if D == 96:
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_ops._check_kernel_limits(fq, k, v)
+    else:
+        flash_ops._check_kernel_limits(fq, k, v)
 
 
 HYBRID = [(label, cfg) for label, cfg in LAUNCHED if cfg.family == "hybrid"]

@@ -173,12 +173,13 @@ def test_cpu_path_does_not_count_launches():
 
 
 @pytest.mark.parametrize("splits", [1, 2, 3, 8])
-@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("tile", [8, 16, 32])
 def test_split_and_combine_matches_the_oracles(splits, tile):
     """The kernel's algebra: each rank's (m, l, acc) over an even,
     tile-aligned share of the valid positions, combined in rank order,
     equals the one-pass softmax of ``ref.decode_ref`` and of the JAX
-    package's oracle (float32, 1e-6), with length 1, lengths at the tile
+    package's oracle (float32, 1e-6), at the kernel's tiles of 8 (float32
+    D 192), 16 and 32 positions, with length 1, lengths at the tile
     and split edges, ranks left empty and a length past the cache."""
     rng = np.random.RandomState(40 + splits)
     S, Hkv, G, D = 200, 2, 3, 16
