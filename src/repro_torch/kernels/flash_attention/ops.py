@@ -21,6 +21,7 @@ import threading
 
 import torch
 
+from ...spans import span
 from .. import cost
 from . import ref
 from .kernel import flash_attention_fwd
@@ -107,7 +108,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        with torch.profiler.record_function("flash_attention/backward"):
+        with span("flash_attention/backward"):
             return ref.attention_bwd(q, k, v, out, lse, dout)
 
 

@@ -20,6 +20,7 @@ import threading
 
 import torch
 
+from ...spans import span
 from .. import cost
 from ..recompute import recompute_grads
 from . import ref
@@ -120,7 +121,7 @@ class SSD(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dh):
         saved = ctx.saved_tensors
-        with torch.profiler.record_function("ssd/backward"):
+        with span("ssd/backward"):
             return recompute_grads(
                 lambda *a: ref.ssd_chunked_ref(*a[:5], ctx.chunk, a[5]),
                 saved, ctx.needs_input_grad[:6], (dy, dh)) + (None,)

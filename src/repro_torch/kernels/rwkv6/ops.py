@@ -21,6 +21,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from ...spans import span
 from .. import cost
 from ..recompute import recompute_grads
 from . import ref
@@ -115,7 +116,7 @@ class WKV(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, ds):
         saved = ctx.saved_tensors
-        with torch.profiler.record_function("wkv6/backward"):
+        with span("wkv6/backward"):
             return recompute_grads(
                 lambda *a: ref.wkv_chunked_ref(*a[:5], ctx.chunk, a[5]),
                 saved, ctx.needs_input_grad[:6], (dy, ds)) + (None,)

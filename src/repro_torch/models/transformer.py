@@ -57,6 +57,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.spans import spanned
 
 from . import attention as attn
 from . import moe as moe_lib
@@ -556,6 +557,7 @@ def loss_fn(p, batch, cfg: ModelConfig, *, mesh=None):
 # ---------------------------------------------------------------------------
 
 
+@spanned("model/unembed")
 def _logits(p, x, cfg: ModelConfig):
     x = nn.rmsnorm_apply(p["ln_f"], x, cfg.norm_eps)
     if cfg.tie_embeddings:

@@ -16,6 +16,7 @@ from typing import Optional
 
 from repro_torch.core.service import ModelGroup
 from repro_torch.models.config import ModelConfig
+from repro_torch.spans import spanned
 from .engine import (InferenceEngine, SpecDecodeSession,
                      make_engine_from_scratch)
 from .qos import WFQScheduler
@@ -72,7 +73,16 @@ class LLMServicer:
     Request payload: {"prompt": [ids...], "max_new_tokens": int,
                       "temperature": float}.
     Result: {"tokens": [...], "n_prompt": int, "ttft_s": float,
-             "itl_s": float, "latency_s": float}.
+             "itl_s": float, "latency_s": float, "handoff_s": float,
+             "queue_s": float}.
+    ``handoff_s`` is the envelope's stamp to the engine's submit (the
+    middleware's queue and hand-off), None where no envelope came or the
+    request came as a handoff; ``queue_s`` is the engine's submit to its
+    first admission of the request (the engine's queue), None for a
+    sequence imported from a prefill replica.  A prefill role's handoff
+    export carries both as None; ``generate_stream``'s final event for a
+    ``max_new_tokens <= 0`` payload carries neither, as nothing was
+    submitted.
 
     ``device`` (default: the CUDA card) is where the engine and, for
     ``params=None``, the freshly drawn weights live.
@@ -188,6 +198,10 @@ class LLMServicer:
                 eos_id=payload.get("eos_id"),
                 tenant=tenant, qos_class=qos_class,
             )
+            if envelope is not None:
+                req = self._find_request(uid)
+                if req is not None:
+                    req.envelope_at = envelope.submitted_at
         if self._qos is not None:
             req = self._find_request(uid)
             if req is not None:
@@ -207,6 +221,10 @@ class LLMServicer:
                        if req.first_token_at else None),
             "itl_s": itl,
             "latency_s": req.finished_at - req.submitted_at,
+            "handoff_s": (req.submitted_at - req.envelope_at
+                          if req.envelope_at is not None else None),
+            "queue_s": (req.admitted_at - req.submitted_at
+                        if req.admitted_at is not None else None),
         }
         if req.uid in self._imported:
             self._imported.discard(req.uid)
@@ -221,6 +239,7 @@ class LLMServicer:
             res["role"] = self.phase
         return res
 
+    @spanned("servicer/step")
     def step(self):
         out = []
         if self._stream_leftovers:
@@ -269,6 +288,8 @@ class LLMServicer:
                            if pay["first_token_at"] else None),
                 "itl_s": None,
                 "latency_s": time.perf_counter() - pay["submitted_at"],
+                "handoff_s": None,
+                "queue_s": None,
                 "role": "prefill",
             }))
         return out

@@ -76,6 +76,7 @@ from repro_torch.core.prefix import RadixIndex
 from repro_torch.device import resolve_device
 from repro_torch.models import ModelApi, get_model, nn
 from repro_torch.models.config import ModelConfig
+from repro_torch.spans import spanned
 from .kvcache import (CachePool, PagedCachePool, extract_blocks,
                       gather_block_view, insert_blocks, scatter_block_writes)
 from .sampling import sample
@@ -93,6 +94,13 @@ class Request:
     # filled by the engine
     output: list = dataclasses.field(default_factory=list)
     submitted_at: float = 0.0
+    # the envelope's stamp where the request came through the middleware
+    # (``LLMServicer.submit``): it less ``submitted_at`` is the hand-off
+    envelope_at: Optional[float] = None
+    # the first admission, into ``running`` or by a prefix resume; a
+    # preempted request keeps it, as it keeps its first-token stamp (None
+    # for a sequence imported from another engine)
+    admitted_at: Optional[float] = None
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
     slot: Optional[int] = None
@@ -323,6 +331,7 @@ class InferenceEngine:
     def has_work(self) -> bool:
         return bool(self.queue or self.running)
 
+    @spanned("engine/step")
     def step(self) -> list:
         """One engine iteration. Returns [(uid, token), ...] emitted."""
         if self.paged:
@@ -393,6 +402,7 @@ class InferenceEngine:
                 done[req.uid] = req
         return done
 
+    @spanned("engine/step")
     def step_prefill_only(self) -> list:
         """One prefill-role iteration (disaggregated serving): admit and
         chunk-prefill, never decode, so the step's whole token budget goes
@@ -453,7 +463,8 @@ class InferenceEngine:
         free + reclaimable blocks net of reservations, and a sequence slot
         must be free; otherwise (or on a block-size mismatch) it returns
         None and the caller recomputes the prompt.  The submit and
-        first-token stamps travel with the sequence."""
+        first-token stamps travel with the sequence; it has no admission
+        stamp here (it was admitted where it was prefilled)."""
         if not self.paged:
             raise ValueError("import_sequence requires a paged engine")
         if payload["block_size"] != self.block_size:
@@ -551,6 +562,7 @@ class InferenceEngine:
             req = self.queue[0]
             if self._prefix_reuse and self._try_resume(req):
                 self.queue.pop(0)  # resumed: no prefill, no budget charge
+                req.admitted_at = time.perf_counter()
                 continue
             n = min(req.n_prompt, self.max_len - 1)
             bucket = n if self._exact_prefill else _bucket(n, self.buckets)
@@ -558,6 +570,7 @@ class InferenceEngine:
             if bucket > budget:
                 break
             self.queue.pop(0)
+            req.admitted_at = time.perf_counter()
             slot = self.pool.allocate()  # blank-preferring: resident KV is
             self._drop_residency(slot)  # only evicted when no blank is left
             req.truncated = n < req.n_prompt
@@ -634,6 +647,7 @@ class InferenceEngine:
             return True
         return False
 
+    @spanned("engine/decode")
     def _decode_step(self) -> list:
         """One batched decode over every slot (free ones too, on stale
         tokens, as the reference does)."""
@@ -765,12 +779,14 @@ class InferenceEngine:
                 continue
             if self._prefix_reuse and self._try_resume_paged(req):
                 self.queue.pop(0)
+                req.admitted_at = time.perf_counter()
                 continue
             m = min(req.n_prompt, self.max_len - 1)
             need = self._blocks_needed(m + req.max_new_tokens, 0)
             if not self._reserve(need):
                 break
             self.queue.pop(0)
+            req.admitted_at = time.perf_counter()
             req.truncated = m < req.n_prompt
             req.pending_tokens = list(req.prompt[-m:])
             req.reserve_left = need
@@ -926,8 +942,6 @@ class InferenceEngine:
         bucket that actually runs.  The final chunk's last real logits row
         produces the first generated token."""
         budget = self.max_num_batched_tokens
-        mb = self.pool.max_blocks
-        bs = self.block_size
         for req in list(self._prefill_order):
             if req.done or not req.pending_tokens:
                 self._prefill_order.remove(req)
@@ -937,38 +951,47 @@ class InferenceEngine:
                 break
             T = min(len(req.pending_tokens), self.prefill_chunk, fitting[-1])
             bucket = _bucket(T, self._chunk_buckets)
-            T = min(T, bucket)
-            self._ensure_writable(req, req.pos, T)
-            bt = np.zeros((1, mb), np.int32)
-            bt[0, :len(req.table)] = req.table
-            tokens = np.zeros((1, bucket), np.int64)
-            tokens[0, :T] = req.pending_tokens[:T]
-            # padded chunk positions scatter into the null block
-            wphys = np.zeros((1, bucket), np.int64)
-            woff = np.zeros((1, bucket), np.int64)
-            for t in range(T):
-                p = req.pos + t
-                wphys[0, t] = req.table[p // bs]
-                woff[0, t] = p % bs
-            self.pool.cache, logits = self._paged_extend(
-                self.params, self.pool.cache, self._tensor(bt),
-                self._tensor(np.asarray([req.pos], np.int32)),
-                self._tensor(tokens), self._tensor(wphys),
-                self._tensor(woff))
-            req.pending_tokens = req.pending_tokens[T:]
-            req.pos += T
+            self._extend_chunk(req, min(T, bucket), bucket)
             budget -= bucket  # charge the padded size that actually ran
-            self.stats.prefill_tokens += T
-            if not req.pending_tokens:  # prompt complete: first token
-                self._prefill_order.remove(req)
-                tok = self._first_token(req, logits[0, T - 1])
-                req.output.append(tok)
-                req.last_token = tok
-                if req.first_token_at is None:  # a resumed preemption
-                    #                 keeps its original first-token stamp
-                    req.first_token_at = time.perf_counter()
-                self._check_done(req)
 
+    @spanned("engine/extend")
+    def _extend_chunk(self, req: Request, T: int, bucket: int):
+        """Feed ``req``'s next ``T`` prompt tokens, padded to ``bucket``,
+        through ``extend``; the prompt's last chunk gives its first
+        token."""
+        mb = self.pool.max_blocks
+        bs = self.block_size
+        self._ensure_writable(req, req.pos, T)
+        bt = np.zeros((1, mb), np.int32)
+        bt[0, :len(req.table)] = req.table
+        tokens = np.zeros((1, bucket), np.int64)
+        tokens[0, :T] = req.pending_tokens[:T]
+        # padded chunk positions scatter into the null block
+        wphys = np.zeros((1, bucket), np.int64)
+        woff = np.zeros((1, bucket), np.int64)
+        for t in range(T):
+            p = req.pos + t
+            wphys[0, t] = req.table[p // bs]
+            woff[0, t] = p % bs
+        self.pool.cache, logits = self._paged_extend(
+            self.params, self.pool.cache, self._tensor(bt),
+            self._tensor(np.asarray([req.pos], np.int32)),
+            self._tensor(tokens), self._tensor(wphys),
+            self._tensor(woff))
+        req.pending_tokens = req.pending_tokens[T:]
+        req.pos += T
+        self.stats.prefill_tokens += T
+        if not req.pending_tokens:  # prompt complete: first token
+            self._prefill_order.remove(req)
+            tok = self._first_token(req, logits[0, T - 1])
+            req.output.append(tok)
+            req.last_token = tok
+            if req.first_token_at is None:  # a resumed preemption
+                #                 keeps its original first-token stamp
+                req.first_token_at = time.perf_counter()
+            self._check_done(req)
+
+    @spanned("engine/decode")
     def _decode_step_paged(self) -> list:
         """One batched decode over every sequence past prefill.  The batch
         is padded to a power of two (padding rows carry the null block

@@ -24,6 +24,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import ModelApi
 from repro_torch.models.config import ModelConfig
+from repro_torch.spans import span
 
 from .optim import (OptimizerConfig, adamw_init, adamw_update, tree_leaves,
                     tree_unflatten)
@@ -225,9 +226,9 @@ def make_train_step(api: ModelApi, cfg: ModelConfig, tcfg: TrainConfig,
         from repro_torch.models import nn
 
         with nn.mesh_context(mesh):
-            with torch.profiler.record_function("train/forward_backward"):
+            with span("train/forward_backward"):
                 loss, grads, metrics = loss_and_grads(params, batch)
-            with torch.profiler.record_function("train/optimizer"):
+            with span("train/optimizer"):
                 _, _, stats = adamw_update(tree_unflatten(params, grads),
                                            state["opt"], params, opt_cfg)
         return state, dict(metrics, loss=loss, **stats)

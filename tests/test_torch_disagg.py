@@ -370,7 +370,11 @@ def test_generate_stream_tokens_then_final(dense_lm):
     assert final["ttft_s"] is not None and final["ttft_s"] > 0
     assert final["itl_s"] is not None and final["latency_s"] > 0
     assert toks == [e["token"] for e in jevents[:-1]]
-    assert set(final) == set(jevents[-1])
+    # the port's results add the hand-off and queue waits to the
+    # reference's keys (no envelope here, so no hand-off)
+    assert set(final) == set(jevents[-1]) | {"handoff_s", "queue_s"}
+    assert 0 <= final["queue_s"] <= final["ttft_s"]
+    assert final["handoff_s"] is None
     assert toks == _unified(_packages(dense_lm)["torch"], [[5, 6, 7]], 6)[0]
 
 
